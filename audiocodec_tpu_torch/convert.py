@@ -1,0 +1,96 @@
+"""Carry a JAX ``Codec``'s state into the port's ``Codec``.
+
+The JAX package's ``Codec`` is a pytree; its leaves, handed over as numpy
+arrays, become the port's buffers. The only change of layout is in the int8
+kernel matrices: the TPU kernels took them permuted (the analysis matrix
+with its upper half of rows reversed, the synthesis matrix with its upper
+half of columns reversed, ``audiocodec_tpu/ops/pallas_mdct.py``
+forward_params/inverse_params); the port's kernels take them unpermuted.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from audiocodec_tpu_torch.codec import Codec
+
+_MDCT_LEAVES = (
+    "wa_r", "wb", "wc", "ffr", "p", "q", "r", "s_r",
+    "dct_mat_fwd", "dct_mat_inv",
+    "dense_fwd_cur", "dense_fwd_prev", "dense_inv_cur", "dense_inv_prev",
+)
+_PSYCHO_LEAVES = (
+    "W", "W_inv", "spreading_matrix", "quiet_threshold_intensity",
+    "bark_grid",
+)
+
+
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16 of its own
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def unpermute_forward(m: np.ndarray) -> np.ndarray:
+    """Undo the analysis permutation: rows h.. were stored reversed."""
+    h = m.shape[0] // 2
+    return np.concatenate([m[:h], m[h:][::-1]], axis=0)
+
+
+def unpermute_inverse(m: np.ndarray) -> np.ndarray:
+    """Undo the synthesis permutation: columns h.. were stored reversed."""
+    h = m.shape[1] // 2
+    return np.concatenate([m[:, :h], m[:, h:][:, ::-1]], axis=1)
+
+
+def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
+    """Build the port's ``Codec`` from a JAX ``Codec``'s state.
+
+    :param leaves: numpy arrays keyed "mdct.<field>" and "psycho.<field>"
+        by the JAX dataclasses' field names: ``wa_r`` ... ``s_r``,
+        ``dct_mat_fwd``, ``dct_mat_inv``, the ``dense_*`` matrices where the
+        configuration has them, the int8 residents ``pfwd_mat``/``pinv_mat``
+        at ``dct_precision="int8"``, and ``W``, ``W_inv``,
+        ``spreading_matrix``, ``quiet_threshold_intensity``, ``bark_grid``.
+    :param meta: the static fields: ``sample_rate``, ``filters_n``,
+        ``bark_bands_n``, ``alpha``, ``window_type``, ``compute_dtype``
+        (name), ``fast_bf16``, ``use_pallas`` (resolved), ``dct_precision``,
+        ``bark_precision`` and ``pallas_int8_scale``.
+    """
+    codec = Codec.create(
+        meta["sample_rate"],
+        filters_n=meta["filters_n"],
+        bark_bands_n=meta["bark_bands_n"],
+        alpha=meta["alpha"],
+        window_type=meta["window_type"],
+        compute_dtype=meta["compute_dtype"],
+        fast_bf16=meta["fast_bf16"],
+        use_kernel=meta["use_pallas"],
+        dct_precision=meta["dct_precision"],
+        bark_precision=meta["bark_precision"],
+        device=device,
+    )
+    mdct, psycho = codec.mdct, codec.psycho
+    arrays = {}
+    for name in _MDCT_LEAVES:
+        if getattr(mdct, name) is not None:
+            arrays[(mdct, name)] = leaves[f"mdct.{name}"]
+    if mdct.kernel_q_fwd is not None:
+        arrays[(mdct, "kernel_q_fwd")] = unpermute_forward(
+            leaves["mdct.pfwd_mat"]
+        )
+    if mdct.kernel_q_inv is not None:
+        arrays[(mdct, "kernel_q_inv")] = unpermute_inverse(
+            leaves["mdct.pinv_mat"]
+        )
+    for name in _PSYCHO_LEAVES:
+        arrays[(psycho, name)] = leaves[f"psycho.{name}"]
+    for (module, name), arr in arrays.items():
+        setattr(module, name, _tensor(arr, device))
+    if meta.get("pallas_int8_scale") is not None:
+        mdct.int8_scale = tuple(meta["pallas_int8_scale"])
+    return codec

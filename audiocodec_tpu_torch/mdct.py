@@ -1,0 +1,263 @@
+"""MDCT analysis/synthesis filter bank in PyTorch.
+
+The counterpart of ``audiocodec_tpu/mdct.py``, mono kernel design only. The
+sparse fold (ops/folding.py) feeds one [N, N] DCT-IV matmul; at the one-pass
+tiers (``default``, ``int8``) the fold is collapsed into two dense matmuls
+(cur @ (H0 M) + prev @ (H1 M)); and where ``use_kernel`` is on, a direction
+runs the hand-written CUDA kernel of ops/cuda_mdct.py.
+
+Shape contract:
+
+  transform:          [batches_n, samples_n, channels_n]  (samples multiple of N)
+                  ->  [batches_n, blocks_n + 1, filters_n, channels_n]
+  inverse_transform:  [batches_n, blocks_n, filters_n, channels_n]
+                  ->  [batches_n, (blocks_n + 1) * filters_n, channels_n]
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from audiocodec_tpu_torch.ops import cuda_mdct as _kernels
+from audiocodec_tpu_torch.ops import dct as _dct
+from audiocodec_tpu_torch.ops import folding as _folding
+from audiocodec_tpu_torch.utils import dtypes as _dtypes
+
+_FOLD_WEIGHTS = ("wa_r", "wb", "wc", "ffr")
+_UNFOLD_WEIGHTS = ("p", "q", "r", "s_r")
+
+
+class MDCT(nn.Module):
+    """MDCT filter bank; its precomputes are registered buffers.
+
+    :param filters_n: number of filter bands N (even).
+    :param window_type: 'sine', 'vorbis' (default) or None (all-ones).
+    :param compute_dtype: float64, float32 or bfloat16; inputs must already
+        have it.
+    :param fast_bf16: with bfloat16 compute, run the DCT natively at the
+        ``default`` tier instead of upcasting to float32.
+    :param use_kernel: which directions run the CUDA kernels: True (both),
+        "forward", "inverse", False, or "auto" (the default), which turns
+        both on when ``device`` is CUDA and the configuration is eligible:
+        N a multiple of 256 and a compute dtype other than float64. It
+        never depends on whether the kernels build.
+    :param dct_precision: "highest", "high", "default" or "int8".
+    :param device: where the buffers live.
+    """
+
+    def __init__(
+        self,
+        filters_n: int = 1024,
+        window_type="vorbis",
+        compute_dtype=torch.float32,
+        fast_bf16: bool = False,
+        use_kernel="auto",
+        dct_precision: str = "highest",
+        device="cpu",
+    ):
+        super().__init__()
+        if filters_n % 2 != 0:
+            raise ValueError(
+                "number of filters used in mdct transformation needs to be "
+                f"even, got {filters_n}"
+            )
+        dtype = _dtypes.canonicalize_compute_dtype(compute_dtype)
+        device = torch.device(device)
+        if use_kernel not in (False, True, "auto", "forward", "inverse"):
+            raise ValueError(
+                "use_kernel must be one of False, True, 'auto', 'forward', "
+                f"'inverse'; got {use_kernel!r}"
+            )
+        if dct_precision not in _dct.MDCT_PRECISIONS:
+            raise ValueError(
+                "dct_precision must be one of "
+                f"{sorted(_dct.MDCT_PRECISIONS)}, got {dct_precision!r}"
+            )
+        if dct_precision == "int8" and dtype == torch.float64:
+            raise ValueError(
+                "dct_precision='int8' is not available with a float64 "
+                "compute dtype"
+            )
+        eligible = filters_n % 256 == 0 and dtype != torch.float64
+        if use_kernel == "auto":
+            use_kernel = eligible and device.type == "cuda"
+        elif use_kernel and not eligible:
+            raise ValueError(
+                "use_kernel requires filters_n to be a multiple of 256 and a "
+                f"non-float64 compute dtype; got filters_n={filters_n}, "
+                f"compute_dtype={dtype}"
+            )
+        self.filters_n = filters_n
+        self.window_type = window_type
+        self.compute_dtype = dtype
+        self.fast_bf16 = fast_bf16
+        self.use_kernel = use_kernel
+        self.dct_precision = dct_precision
+        self.kernel_fwd = use_kernel in (True, "forward")
+        self.kernel_inv = use_kernel in (True, "inverse")
+        # kernels run natively in bf16 only on the fast path, else in f32
+        self.kernel_dtype = (
+            dtype if dtype != torch.bfloat16 or fast_bf16 else torch.float32
+        )
+        self.int8_scale = None
+
+        coeffs = _folding.make_fold_coefficients(filters_n, window_type)
+        mat_dtype = torch.float64 if dtype == torch.float64 else torch.float32
+
+        def buf(name, value, as_dtype):
+            self.register_buffer(
+                name,
+                None if value is None
+                else torch.as_tensor(value, dtype=as_dtype, device=device),
+            )
+
+        for name in _FOLD_WEIGHTS + _UNFOLD_WEIGHTS:
+            buf(name, getattr(coeffs, name), dtype)
+        m64 = _dct.dct4_matrix(filters_n)
+        s = math.sqrt(4.0 * filters_n)
+        buf("dct_mat_fwd", m64 / s, mat_dtype)
+        buf("dct_mat_inv", m64 * s, mat_dtype)
+
+        # int8 kernel residents, quantized on the host with an exact scale
+        # (the JAX package's _host_int8 at mdct.py:283-288)
+        q_fwd = q_inv = None
+        if dct_precision == "int8" and (self.kernel_fwd or self.kernel_inv):
+            scales = [None, None]
+            if self.kernel_fwd:
+                q_fwd, scales[0] = _kernels.host_int8(m64 * (1.0 / s))
+            if self.kernel_inv:
+                q_inv, scales[1] = _kernels.host_int8(m64 * s)
+            self.int8_scale = tuple(scales)
+        buf("kernel_q_fwd", q_fwd, torch.int8)
+        buf("kernel_q_inv", q_inv, torch.int8)
+
+        # Dense two-matmul formulation at the one-pass tiers, for the
+        # directions not on a kernel
+        dense = dict(fwd_cur=None, fwd_prev=None, inv_cur=None, inv_prev=None)
+        if dct_precision in ("default", "int8") and dtype != torch.float64:
+            h0, h1 = _folding.dense_fold_matrices(filters_n, window_type)
+            g0, g1 = _folding.dense_unfold_matrices(filters_n, window_type)
+            if not self.kernel_fwd:
+                dense.update(fwd_cur=h0 @ m64 / s, fwd_prev=h1 @ m64 / s)
+            if not self.kernel_inv:
+                dense.update(inv_cur=m64 @ g0 * s, inv_prev=m64 @ g1 * s)
+        for name, value in dense.items():
+            buf(f"dense_{name}", value, mat_dtype)
+
+    @property
+    def inv_precision(self) -> str:
+        """Tier of the synthesis outside the kernel: int8 is analysis-only
+        there (the kernel restores it with grouped scales)."""
+        return "default" if self.dct_precision == "int8" else self.dct_precision
+
+    @property
+    def kernel_precision(self) -> str:
+        """The kernels' tier: bfloat16 operands admit one pass only, so
+        ``highest``/``high`` become ``default`` for bf16 kernel inputs."""
+        if self.kernel_dtype == torch.bfloat16 and self.dct_precision in (
+            "highest", "high"
+        ):
+            return "default"
+        return self.dct_precision
+
+    def kernel_args(self, direction: str) -> tuple:
+        """The arguments after the signal of the ``"forward"`` kernel
+        (``fold_matmul``) or the ``"inverse"`` one (``matmul_scatter``):
+        fold weights in the kernel dtype, matrix, tier, int8 rescale."""
+        fwd = direction == "forward"
+        int8 = self.kernel_precision == "int8"
+        names = _FOLD_WEIGHTS if fwd else _UNFOLD_WEIGHTS
+        if int8:
+            mat = self.kernel_q_fwd if fwd else self.kernel_q_inv
+        else:
+            mat = self.dct_mat_fwd if fwd else self.dct_mat_inv
+        return (
+            *(getattr(self, n).to(self.kernel_dtype) for n in names),
+            mat,
+            self.kernel_precision,
+            self.int8_scale[0 if fwd else 1] if int8 else 1.0,
+        )
+
+    def transform(self, x: torch.Tensor) -> torch.Tensor:
+        """MDCT analysis: [B, S, C] -> [B, S/N + 1, N, C]."""
+        _dtypes.check_input_dtype(x, self.compute_dtype, "transform input")
+        n = self.filters_n
+        batches_n, samples_n, channels_n = x.shape
+        if samples_n % n != 0 or samples_n == 0:
+            raise ValueError(
+                f"samples_n={samples_n} must be a nonzero multiple of "
+                f"filters_n={n}"
+            )
+        blocks_n = samples_n // n
+        xb = x.permute(0, 2, 1).reshape(batches_n, channels_n, blocks_n, n)
+        if self.kernel_fwd:
+            rows = xb.reshape(batches_n * channels_n, blocks_n, n)
+            y = _kernels.fold_matmul(
+                _kernels.kernel_input(rows, self.kernel_dtype),
+                *self.kernel_args("forward"),
+            )
+            y = y.to(self.compute_dtype).reshape(
+                batches_n, channels_n, blocks_n + 1, n
+            )
+        elif self.dense_fwd_cur is not None:
+            zero = torch.zeros_like(xb[:, :, :1])
+            cur = torch.cat([xb, zero], dim=2)
+            prev = torch.cat([zero, xb], dim=2)
+            y = _dct.dct4(
+                cur, self.dense_fwd_cur, fast_bf16=self.fast_bf16,
+                precision=self.dct_precision,
+            ) + _dct.dct4(
+                prev, self.dense_fwd_prev, fast_bf16=self.fast_bf16,
+                precision=self.dct_precision,
+            )
+        else:
+            folded = _folding.fold(xb, self.wa_r, self.wb, self.wc, self.ffr)
+            y = _dct.dct4(
+                folded, self.dct_mat_fwd, fast_bf16=self.fast_bf16,
+                precision=self.dct_precision,
+            )
+        return y.permute(0, 2, 3, 1)
+
+    def inverse_transform(self, mdct_amplitudes: torch.Tensor) -> torch.Tensor:
+        """MDCT synthesis: [B, T, N, C] -> [B, (T + 1) * N, C]."""
+        _dtypes.check_input_dtype(
+            mdct_amplitudes, self.compute_dtype, "inverse_transform input"
+        )
+        n = self.filters_n
+        batches_n, blocks_n, filters_n, channels_n = mdct_amplitudes.shape
+        if filters_n != n:
+            raise ValueError(
+                f"expected filters_n={n} on axis 2, got {filters_n}"
+            )
+        if blocks_n == 0:
+            raise ValueError("need at least one spectral frame to invert")
+        yb = mdct_amplitudes.permute(0, 3, 1, 2)
+        if self.kernel_inv:
+            rows = yb.reshape(batches_n * channels_n, blocks_n, n)
+            out = _kernels.matmul_scatter(
+                _kernels.kernel_input(rows, self.kernel_dtype),
+                *self.kernel_args("inverse"),
+            ).to(self.compute_dtype)
+        elif self.dense_inv_cur is not None:
+            zero = torch.zeros_like(yb[:, :, :1])
+            cur = torch.cat([yb, zero], dim=2)
+            prev = torch.cat([zero, yb], dim=2)
+            out = _dct.dct4(
+                cur, self.dense_inv_cur, fast_bf16=self.fast_bf16,
+                precision=self.inv_precision,
+            ) + _dct.dct4(
+                prev, self.dense_inv_prev, fast_bf16=self.fast_bf16,
+                precision=self.inv_precision,
+            )
+        else:
+            z = _dct.dct4(
+                yb, self.dct_mat_inv, fast_bf16=self.fast_bf16,
+                precision=self.inv_precision,
+            )
+            out = _folding.unfold(z, self.p, self.q, self.r, self.s_r)
+        return out.reshape(
+            batches_n, channels_n, (blocks_n + 1) * n
+        ).permute(0, 2, 1)

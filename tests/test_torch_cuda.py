@@ -1,0 +1,142 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA GPU with nvcc: run ``python -m pytest --noconftest -m
+cuda tests/test_torch_cuda.py`` there (``--noconftest``: tests/conftest.py
+imports jax, which the port does not need). Without a card they skip; the skip
+condition is a string, so it is evaluated when each test is set up and
+never while the module is imported."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from audiocodec_tpu_torch import MDCT, Codec
+from audiocodec_tpu_torch.ops import cuda_mdct
+
+pytestmark = [
+    pytest.mark.cuda,
+    pytest.mark.skipif("not torch.cuda.is_available()",
+                       reason="needs an NVIDIA GPU"),
+]
+
+TIERS = [  # (compute dtype, fast_bf16, precision)
+    ("float32", False, "highest"),
+    ("float32", False, "high"),
+    ("float32", False, "default"),
+    ("float32", False, "int8"),
+    ("bfloat16", True, "default"),
+    ("bfloat16", True, "int8"),
+]
+
+
+def _tol(want, tier, dtype, direction):
+    peak = float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        return 2.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    if tier in ("highest", "high"):
+        return 1e-6 if direction == "fwd" else 1e-4
+    return (1e-6 if tier == "int8" else 1e-5) * peak
+
+
+@pytest.mark.parametrize("n,blocks", [(256, 3), (256, 37), (1024, 8),
+                                      (1024, 130)])
+@pytest.mark.parametrize("dtype,fast,precision", TIERS)
+def test_kernels_match_plain_versions(n, blocks, dtype, fast, precision):
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(blocks)
+    x = (torch.rand(3, blocks, n, generator=g) * 2 - 1).to("cuda",
+                                                           m.kernel_dtype)
+    fwd, inv = m.kernel_args("forward"), m.kernel_args("inverse")
+    cuda_mdct.reset_launch_counts()
+    y = cuda_mdct.fold_matmul(x, *fwd)
+    y_ref = cuda_mdct.fold_matmul_reference(x, *fwd)
+    out = cuda_mdct.matmul_scatter(y, *inv)
+    out_ref = cuda_mdct.matmul_scatter_reference(y, *inv)
+    torch.cuda.synchronize()
+    assert cuda_mdct.launch_counts() == {"fold_matmul": 1,
+                                         "matmul_scatter": 1}
+    assert y.shape == (3, blocks + 1, n) and out.shape == (3, blocks + 2, n)
+    tier = m.kernel_precision
+    assert float((y.float() - y_ref.float()).abs().max()) <= _tol(
+        y_ref, tier, x.dtype, "fwd")
+    assert float((out.float() - out_ref.float()).abs().max()) <= _tol(
+        out_ref, tier, x.dtype, "inv")
+
+
+def test_auto_resolves_to_the_kernels_on_the_card():
+    assert MDCT(1024, device="cuda").use_kernel is True
+    assert MDCT(1024, compute_dtype="float32", dct_precision="default",
+                device="cuda").use_kernel is True
+    assert MDCT(192, device="cuda").use_kernel is False
+
+
+def test_highest_round_trip_through_the_kernels():
+    n = 1024
+    m = MDCT(n, use_kernel=True, device="cuda")
+    t = torch.arange(64 * n, dtype=torch.float64) / 44100
+    x = (0.4 * torch.sin(2 * np.pi * 440 * t))[None, :, None].float().cuda()
+    rt = m.inverse_transform(m.transform(x))[:, n:-n].double()
+    snr = 10 * torch.log10((x.double() ** 2).sum() / ((x - rt) ** 2).sum())
+    assert float(snr) >= 130.0
+
+
+def test_round_trip_quantized_launches_each_kernel_once():
+    c = Codec.create(44100, compute_dtype="bfloat16", fast_bf16=True,
+                     dct_precision="int8", device="cuda")
+    x = torch.zeros(2, 8 * 1024, 1, dtype=torch.bfloat16, device="cuda")
+    cuda_mdct.reset_launch_counts()
+    out = c.round_trip_quantized(x)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 10 * 1024, 1)
+    assert cuda_mdct.launch_counts() == {"fold_matmul": 1,
+                                         "matmul_scatter": 1}
+
+
+def test_round_trip_quantized_copies_nothing_to_the_card():
+    """A 0-d constant made on the card in each call is a pageable
+    host-to-device copy in each call, which held the call back on the host
+    (device idle 20-49% of it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = Codec.create(44100, compute_dtype="bfloat16", fast_bf16=True,
+                     dct_precision="int8", device="cuda")
+    x = torch.zeros(2, 8 * 1024, 1, dtype=torch.bfloat16, device="cuda")
+    c.round_trip_quantized(x)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c.round_trip_quantized(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("mma_gemm_kernel" in n for n in names)
+    assert not [n for n in names if "HtoD" in n]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    m = MDCT(256, use_kernel=True, device="cuda")
+    fwd = m.kernel_args("forward")
+    x = torch.zeros(1, 4, 256, device="cuda")
+    with pytest.raises(NotImplementedError, match="backward"):
+        cuda_mdct.fold_matmul(x.clone().requires_grad_(), *fwd)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_mdct.fold_matmul(torch.zeros(1, 256, 4, device="cuda").mT, *fwd)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_mdct.fold_matmul(x.double(), *fwd)
+    with pytest.raises(ValueError, match="matrix must be"):
+        cuda_mdct.fold_matmul(x, *fwd[:4], fwd[4].half(), "highest", 1.0)
+
+
+def test_misaligned_views_are_copied_by_the_mdct_and_refused_by_the_wrapper():
+    n = 256
+    m = MDCT(n, use_kernel=True, device="cuda")
+    flat = torch.rand(2 * 4 * n + 1, device="cuda") - 0.5
+    x = flat[1:].view(2, 4 * n, 1)  # 4 bytes past an aligned allocation
+    assert x.data_ptr() % 16
+    want = m.transform(x.clone())
+    assert torch.equal(m.transform(x), want)
+    fwd = m.kernel_args("forward")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_mdct.fold_matmul(flat[1:].view(2, 4, n), *fwd)
