@@ -1,8 +1,10 @@
 """audiocodec_tpu_torch — the PyTorch/CUDA port of audiocodec_tpu.
 
-The quantized codec path (MDCT, psychoacoustic model, quantizer) with
-hand-written Hopper kernels for the MDCT's analysis and synthesis. It
-imports torch and numpy, never jax or audiocodec_tpu.
+The quantized codec path and the noise-injection codec (MDCT,
+psychoacoustic model, quantizer, masked noise) with hand-written Hopper
+kernels for the MDCT's analysis and synthesis (mono and radix designs) and
+for the masked noise. It imports torch and numpy, never jax or
+audiocodec_tpu.
 """
 
 from audiocodec_tpu_torch import quantize

@@ -1,9 +1,10 @@
-"""The quantized codec pipeline in PyTorch (counterpart of
-``audiocodec_tpu/codec.py``):
+"""The codec pipelines in PyTorch (counterpart of ``audiocodec_tpu/codec.py``):
 
   wav -> MDCT.transform -> tonality -> global_masking_threshold
-      -> quantize                                            [encode_quantized]
-      -> dequantize -> MDCT.inverse_transform                [decode_quantized]
+      -> add_noise (torch.Generator)                         [encode]
+       | add_noise_fast (the noise kernel, an int seed)      [encode_fast]
+       | quantize                                            [encode_quantized]
+      -> (dequantize ->) MDCT.inverse_transform              [decode...]
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ class Codec(nn.Module):
         use_kernel="auto",
         dct_precision: str = "highest",
         bark_precision: str | None = None,
+        kernel_design: str = "auto",
         device="cpu",
     ) -> "Codec":
         """Build the codec on ``device``.
@@ -57,6 +59,7 @@ class Codec(nn.Module):
                 fast_bf16=fast_bf16,
                 use_kernel=use_kernel,
                 dct_precision=dct_precision,
+                kernel_design=kernel_design,
                 device=device,
             ),
             PsychoacousticModel(
@@ -70,20 +73,51 @@ class Codec(nn.Module):
             ),
         )
 
+    def _analyze(self, x: torch.Tensor, drown=0.0):
+        """The deterministic front of every encode: (spectrum, masking
+        threshold), each [B, S/N+1, N, C], of a waveform [B, S, C]."""
+        spectrum = self.mdct.transform(x)
+        tonality = self.psycho.tonality(spectrum)
+        threshold = self.psycho.global_masking_threshold(
+            spectrum, tonality, drown
+        )
+        return spectrum, threshold
+
     def decode(self, spectrum: torch.Tensor) -> torch.Tensor:
         """Inverse MDCT: [B, blocks, N, C] -> [B, (blocks+1)*N, C]."""
         return self.mdct.inverse_transform(spectrum)
+
+    def encode(self, x: torch.Tensor, generator: torch.Generator,
+               drown=0.0) -> torch.Tensor:
+        """Lossy encode, the reference's own: the spectrum with masked
+        Gaussian noise (``torch.randn`` from ``generator``) injected.
+
+        :return: noisy spectrum [B, S/N+1, N, C].
+        """
+        return self.psycho.add_noise(generator, *self._analyze(x, drown))
+
+    def round_trip(self, x: torch.Tensor, generator: torch.Generator,
+                   drown=0.0) -> torch.Tensor:
+        """encode + decode; the output has filters_n padding samples at
+        each end relative to the input."""
+        return self.decode(self.encode(x, generator, drown))
+
+    def encode_fast(self, x: torch.Tensor, seed: int,
+                    drown=0.0) -> torch.Tensor:
+        """Like :meth:`encode`, with the noise drawn and added by the noise
+        kernel from the Philox stream of the int ``seed``."""
+        return self.psycho.add_noise_fast(seed, *self._analyze(x, drown))
+
+    def round_trip_fast(self, x: torch.Tensor, seed: int,
+                        drown=0.0) -> torch.Tensor:
+        return self.decode(self.encode_fast(x, seed, drown))
 
     def encode_quantized(self, x: torch.Tensor, drown=0.0):
         """Deterministic encode of a waveform [B, S, C].
 
         :return: (codes int32 [B, S/N+1, N, C], step sizes, threshold).
         """
-        spectrum = self.mdct.transform(x)
-        tonality = self.psycho.tonality(spectrum)
-        threshold = self.psycho.global_masking_threshold(
-            spectrum, tonality, drown
-        )
+        spectrum, threshold = self._analyze(x, drown)
         codes, delta = _quantize.quantize(spectrum, threshold)
         return codes, delta, threshold
 

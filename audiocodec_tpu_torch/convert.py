@@ -6,6 +6,10 @@ kernel matrices: the TPU kernels took them permuted (the analysis matrix
 with its upper half of rows reversed, the synthesis matrix with its upper
 half of columns reversed, ``audiocodec_tpu/ops/pallas_mdct.py``
 forward_params/inverse_params); the port's kernels take them unpermuted.
+The radix design's residents carry over as they are (ops/radix.py): the
+rotation vectors and the [N/2, N/2] factors are defined on the pairs
+(f_n, f_{N-1-n}), which the TPU's swizzled layout and the port's natural
+order both hold. Each leaf takes the dtype of the buffer it fills.
 """
 
 from __future__ import annotations
@@ -53,13 +57,16 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
     :param leaves: numpy arrays keyed "mdct.<field>" and "psycho.<field>"
         by the JAX dataclasses' field names: ``wa_r`` ... ``s_r``,
         ``dct_mat_fwd``, ``dct_mat_inv``, the ``dense_*`` matrices where the
-        configuration has them, the int8 residents ``pfwd_mat``/``pinv_mat``
-        at ``dct_precision="int8"``, and ``W``, ``W_inv``,
-        ``spreading_matrix``, ``quiet_threshold_intensity``, ``bark_grid``.
+        configuration has them, the kernel residents ``pfwd_mat``/
+        ``pinv_mat`` at ``dct_precision="int8"`` and, with
+        ``pfwd_rot``/``pinv_rot``, in the radix design, and ``W``,
+        ``W_inv``, ``spreading_matrix``, ``quiet_threshold_intensity``,
+        ``bark_grid``.
     :param meta: the static fields: ``sample_rate``, ``filters_n``,
         ``bark_bands_n``, ``alpha``, ``window_type``, ``compute_dtype``
-        (name), ``fast_bf16``, ``use_pallas`` (resolved), ``dct_precision``,
-        ``bark_precision`` and ``pallas_int8_scale``.
+        (name), ``fast_bf16``, ``use_pallas`` and ``pallas_kernel``
+        (resolved), ``dct_precision``, ``bark_precision`` and
+        ``pallas_int8_scale``.
     """
     codec = Codec.create(
         meta["sample_rate"],
@@ -72,6 +79,7 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
         use_kernel=meta["use_pallas"],
         dct_precision=meta["dct_precision"],
         bark_precision=meta["bark_precision"],
+        kernel_design=meta["pallas_kernel"],
         device=device,
     )
     mdct, psycho = codec.mdct, codec.psycho
@@ -87,10 +95,15 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
         arrays[(mdct, "kernel_q_inv")] = unpermute_inverse(
             leaves["mdct.pinv_mat"]
         )
+    for d in ("fwd", "inv"):
+        if getattr(mdct, f"radix_rot_{d}") is not None:
+            arrays[(mdct, f"radix_rot_{d}")] = leaves[f"mdct.p{d}_rot"]
+            arrays[(mdct, f"radix_mat_{d}")] = leaves[f"mdct.p{d}_mat"]
     for name in _PSYCHO_LEAVES:
         arrays[(psycho, name)] = leaves[f"psycho.{name}"]
     for (module, name), arr in arrays.items():
-        setattr(module, name, _tensor(arr, device))
+        dtype = getattr(module, name).dtype
+        setattr(module, name, _tensor(arr, device).to(dtype))
     if meta.get("pallas_int8_scale") is not None:
         mdct.int8_scale = tuple(meta["pallas_int8_scale"])
     return codec

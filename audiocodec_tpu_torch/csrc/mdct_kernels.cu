@@ -1,10 +1,28 @@
 // Hand-written Hopper (sm_90a) kernels of the MDCT filter bank.
 //
-// They replace the two Pallas TPU kernels of the JAX package:
+// They replace four Pallas TPU kernels of the JAX package:
 //   * fold_matmul    <- audiocodec_tpu/ops/pallas_mdct.py, fold_matmul
 //                       (kernel body _fwd_kernel, tiers in _mxu)
 //   * matmul_scatter <- audiocodec_tpu/ops/pallas_mdct.py, matmul_scatter
 //                       (kernel body _inv_kernel, tiers in _mxu)
+//   * radix_fold_matmul    <- pallas_mdct.py, radix_fold_matmul
+//                             (kernel body _fwd_kernel_radix)
+//   * radix_matmul_scatter <- pallas_mdct.py, radix_matmul_scatter
+//                             (kernel body _inv_kernel_radix)
+//
+// The radix design (ops/radix.py) splits the DCT-IV over the pairs
+// (f_n, f_{N-1-n}): a per-pair rotation, two [N/2, N/2] products and a
+// one-lane-shift butterfly, half the MACs of the mono design's [N, N]
+// product. Here it is three passes per direction, each simple: analysis =
+// fold_rotate_kernel -> the GEMM templates below on two halves (Geometry)
+// -> butterfly_out_kernel; synthesis = butterfly_in_kernel -> the GEMMs ->
+// scatter_kernel<.., RADIX>, which applies the transposed rotation as it
+// reads. The spectrum is in standard order: the TPU kernels' even/odd-split
+// order and its interleave passes are gone. The intermediates go through
+// device memory (float between GEMM and butterfly or rotation): at the
+// radix path's shapes (rows=32, T=215, N=2048) that is ~0.3 GB a direction,
+// ~0.1 ms of the card's bandwidth against ~29 GFLOP of products, so the
+// GEMMs bound these kernels as they do the mono ones.
 //
 // Layout: rows = batch x channels, [rows, T, N] in, [rows, T+1, N] out, the
 // natural sample order. The TPU kernels needed a swizzled lane layout
@@ -191,10 +209,25 @@ __global__ void __launch_bounds__(THREADS) group_scale_kernel(
   }
 }
 
+// Where a GEMM's operands lie, by the number of HALVES (a template
+// constant, so that the mono instances compile as if it were not there).
+// The mono design (HALVES = 1) multiplies A [.., N] by one [N, N] matrix.
+// The radix design (HALVES = 2) multiplies the two halves of A's columns by
+// two [K, K] matrices (K = N/2) stacked in `mat`, into the two halves of the
+// output's columns: output column cg belongs to half cg / K, which reads A's
+// columns from half * K and the matrix at mat + half * K * K.
+template <int HALVES>
+struct Geometry {
+  int K, half, c0;  // depth; this column tile's half; its column in the half
+  __device__ __forceinline__ Geometry(int N, int cg)
+      : K(N / HALVES), half(HALVES == 1 ? 0 : cg / (N / HALVES)),
+        c0(cg - half * (N / HALVES)) {}
+};
+
 // FFMA tiers (`highest`, `high`): one [BM frames x BN columns] tile of
-// A @ mat for one row, where A is the folded signal (FOLD) or the spectrum
-// rows. Output frames: T+1 (FOLD) or T. O is the output element type.
-template <typename T, bool FOLD, typename O>
+// A @ mat for one row, where A is the folded signal (FOLD) or the rows of
+// x. Output frames: T+1 (FOLD) or T. O is the output element type.
+template <typename T, bool FOLD, typename O, int HALVES = 1>
 __global__ void __launch_bounds__(THREADS) ffma_gemm_kernel(
     const T* __restrict__ x, const T* __restrict__ w0,
     const T* __restrict__ w1, const T* __restrict__ w2,
@@ -202,7 +235,10 @@ __global__ void __launch_bounds__(THREADS) ffma_gemm_kernel(
     O* __restrict__ out, int t_in, int N) {
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BM;
-  const int c0 = blockIdx.y * BN;
+  const int cg = blockIdx.y * BN;  // output column
+  const Geometry<HALVES> g(N, cg);
+  const int a0 = g.half * g.K;  // first column of A
+  const float* matb = mat + (size_t)a0 * g.K;
   const int row = blockIdx.z;
   const int t_out = FOLD ? t_in + 1 : t_in;
   const T* xr = x + (size_t)row * t_in * N;
@@ -211,17 +247,17 @@ __global__ void __launch_bounds__(THREADS) ffma_gemm_kernel(
   __shared__ float Bs[BK][BN + 4];
   const int tx = tid % 16, ty = tid / 16;
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < N; k0 += BK) {
+  for (int k0 = 0; k0 < g.K; k0 += BK) {
     for (int e = 0; e < BM * BK / THREADS; ++e) {
       const int idx = tid + e * THREADS;
       const int m = idx / BK, kk = idx % BK;
-      As[kk][m] =
-          a_value<T, FOLD>(xr, w0, w1, w2, w3, n0 + m, k0 + kk, t_in, N);
+      As[kk][m] = a_value<T, FOLD>(xr, w0, w1, w2, w3, n0 + m,
+                                   a0 + k0 + kk, t_in, N);
     }
     for (int e = 0; e < BK * BN / THREADS; ++e) {
       const int idx = tid + e * THREADS;
       const int kk = idx / BN, c = idx % BN;
-      Bs[kk][c] = mat[(size_t)(k0 + kk) * N + c0 + c];
+      Bs[kk][c] = matb[(size_t)(k0 + kk) * g.K + g.c0 + c];
     }
     __syncthreads();
     // Blocked summation: each K step sums into a fresh partial that is
@@ -254,7 +290,7 @@ __global__ void __launch_bounds__(THREADS) ffma_gemm_kernel(
     if (n >= t_out) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      outr[(size_t)n * N + c0 + tx * 4 + j] = from_f<O>(acc[i][j]);
+      outr[(size_t)n * N + cg + tx * 4 + j] = from_f<O>(acc[i][j]);
   }
 }
 
@@ -299,7 +335,7 @@ __host__ __device__ constexpr int blocks_per_sm(int tier, bool fold) {
   return (tier == INT8 && !fold) || (fold && sizeof(T) == 4) ? 1 : 2;
 }
 
-template <typename T, int TIER, bool FOLD, typename O>
+template <typename T, int TIER, bool FOLD, typename O, int HALVES = 1>
 __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
     mma_gemm_kernel(
     const T* __restrict__ x, const T* __restrict__ w0,
@@ -316,7 +352,11 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
-  const int n0 = blockIdx.x * MM, c0 = blockIdx.y * MN, row = blockIdx.z;
+  const int n0 = blockIdx.x * MM, row = blockIdx.z;
+  const int cg = blockIdx.y * MN;  // output column (see Geometry)
+  const Geometry<HALVES> g(N, cg);
+  const int a0 = g.half * g.K;
+  const size_t b0 = (size_t)a0 * g.K;
   const int h = N >> 1;
   const int t_out = FOLD ? t_in + 1 : t_in;
   const int groups = N / GROUP;
@@ -332,8 +372,8 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
 
   Raw16<T> ra, rb;  // A raw: (P, Q) for the fold, P for the synthesis
   float bv[16];     // B raw (one column, 16 K)
-  const float* matf = static_cast<const float*>(mat_v);
-  const signed char* mati = static_cast<const signed char*>(mat_v);
+  const float* matf = static_cast<const float*>(mat_v) + b0;
+  const signed char* mati = static_cast<const signed char*>(mat_v) + b0;
 
   // global loads of K step k0
   auto load = [&](int k0) {
@@ -354,12 +394,12 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
         rb.zero();
       }
     } else {
-      if (sn < t_in) ra.load(xr + (size_t)sn * N + kg);
+      if (sn < t_in) ra.load(xr + (size_t)sn * N + a0 + kg);
       else ra.zero();
     }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      const size_t at = (size_t)(kg + i) * N + c0 + sm;
+      const size_t at = (size_t)(kg + i) * g.K + g.c0 + sm;
       if constexpr (TIER == BF16) bv[i] = matf[at];
       else bv[i] = (float)mati[at];
     }
@@ -436,7 +476,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
   load(0);
   store(0, 0);
   __syncthreads();
-  const int steps = N / MK;
+  const int steps = g.K / MK;
   for (int st = 0; st < steps; ++st) {
     const int cur = st & 1, k0 = st * MK;
     const bool more = st + 1 < steps;
@@ -499,7 +539,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
       for (int i = 0; i < 8; ++i) {
         const int e = lane + 32 * i;
         const int n = n0 + wm * 64 + fm * 16 + (e >> 4);
-        const int col = c0 + wn * 32 + fn * 16 + (e & 15);
+        const int col = cg + wn * 32 + fn * 16 + (e & 15);
         if (n >= t_out) continue;
         float v;
         if constexpr (GROUPED) {
@@ -520,12 +560,30 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
 // matmul's output z [rows, T, N] to out [rows, T+1, N]:
 //   out[n, k]   = p[h-1-k]*z[n, h-1-k] + r[k]*z[n-1, h+k]         (k < h)
 //   out[n, h+j] = q[j]*z[n, j]         + s_r[j]*z[n-1, N-1-j]     (j < h)
-// Arithmetic rounds to Z's precision per operation; out is cast to O.
-template <typename Z, typename O>
+// Mono: z is the matmul's output, and the arithmetic rounds to Z's
+// precision per operation. RADIX: the buffer holds the two transposed
+// products [rs | ts] in float, and each z value is their transposed
+// rotation (radix_z), rounded to O, as is the arithmetic. out is cast to O.
+template <typename O>
+__device__ __forceinline__ float radix_z(const float* __restrict__ zf,
+                                         const O* __restrict__ rot, int i,
+                                         int N) {
+  //   z[i]       = rs[i] * rotA[i]   + ts[i] * rotB[i]       (i < M)
+  //   z[N-1-m]   = rs[m] * rotA[M+m] + ts[m] * rotB[M+m]     (m < M)
+  // rot = [rotA; rotB], [2, N]
+  const int M = N >> 1;
+  const int m = i < M ? i : N - 1 - i;
+  const int c = i < M ? i : M + m;
+  return rnd<O>(__fadd_rn(__fmul_rn(zf[m], to_f(rot[c])),
+                          __fmul_rn(zf[M + m], to_f(rot[N + c]))));
+}
+
+template <typename Z, typename O, bool RADIX>
 __global__ void __launch_bounds__(THREADS) scatter_kernel(
     const Z* __restrict__ z, const O* __restrict__ p, const O* __restrict__ q,
-    const O* __restrict__ r, const O* __restrict__ s_r, O* __restrict__ out,
-    int t_in, int N) {
+    const O* __restrict__ r, const O* __restrict__ s_r,
+    const O* __restrict__ rot, O* __restrict__ out, int t_in, int N) {
+  using R = typename std::conditional<RADIX, O, Z>::type;  // rounding type
   const int n = blockIdx.x;
   const int row = blockIdx.y;
   const int h = N >> 1;
@@ -533,19 +591,86 @@ __global__ void __launch_bounds__(THREADS) scatter_kernel(
   const Z* zp = zc - N;                             // valid if n >= 1
   const bool has_cur = n < t_in, has_prev = n >= 1;
   O* o = out + ((size_t)row * (t_in + 1) + n) * N;
+  auto zv = [&](const Z* zf, int i) -> float {
+    if constexpr (RADIX) return radix_z<O>(zf, rot, i, N);
+    else return to_f(zf[i]);
+  };
   for (int k = threadIdx.x; k < N; k += THREADS) {
     float a = 0.f, b = 0.f;
     if (k < h) {
-      if (has_cur)
-        a = rnd<Z>(__fmul_rn(to_f(zc[h - 1 - k]), to_f(p[h - 1 - k])));
-      if (has_prev) b = rnd<Z>(__fmul_rn(to_f(zp[h + k]), to_f(r[k])));
+      if (has_cur) a = rnd<R>(__fmul_rn(zv(zc, h - 1 - k), to_f(p[h - 1 - k])));
+      if (has_prev) b = rnd<R>(__fmul_rn(zv(zp, h + k), to_f(r[k])));
     } else {
       const int j = k - h;
-      if (has_cur) a = rnd<Z>(__fmul_rn(to_f(zc[j]), to_f(q[j])));
-      if (has_prev)
-        b = rnd<Z>(__fmul_rn(to_f(zp[N - 1 - j]), to_f(s_r[j])));
+      if (has_cur) a = rnd<R>(__fmul_rn(zv(zc, j), to_f(q[j])));
+      if (has_prev) b = rnd<R>(__fmul_rn(zv(zp, N - 1 - j), to_f(s_r[j])));
     }
-    o[k] = from_f<O>(rnd<Z>(__fadd_rn(a, b)));
+    o[k] = from_f<O>(rnd<R>(__fadd_rn(a, b)));
+  }
+}
+
+// Radix analysis, first pass: the fold and the per-pair rotation, from x
+// [rows, T, N] to rt [rows, T+1, N] = [r | t~]. With a_k = folded[k] and
+// b_k = folded[N-1-k] (k < M = N/2) and rot = [rot1; rot2], [2, N]:
+//   r_k  = a_k * rot1[k]   + b_k * rot2[k]
+//   t~_k = b_k * rot1[M+k] + a_k * rot2[M+k]
+// each product and sum rounded to T (ops/radix.py::rotate).
+template <typename T>
+__global__ void __launch_bounds__(THREADS) fold_rotate_kernel(
+    const T* __restrict__ x, const T* __restrict__ wa_r,
+    const T* __restrict__ wb, const T* __restrict__ wc,
+    const T* __restrict__ ffr, const T* __restrict__ rot, T* __restrict__ rt,
+    int t_in, int N) {
+  const int n = blockIdx.x;
+  const int row = blockIdx.y;
+  const int M = N >> 1;
+  const T* xr = x + (size_t)row * t_in * N;
+  T* o = rt + ((size_t)row * (t_in + 1) + n) * N;
+  for (int k = threadIdx.x; k < M; k += THREADS) {
+    const float a = fold_value<T>(xr, wa_r, wb, wc, ffr, n, k, t_in, N);
+    const float b = fold_value<T>(xr, wa_r, wb, wc, ffr, n, N - 1 - k, t_in, N);
+    o[k] = from_f<T>(rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(a, to_f(rot[k]))),
+                                      rnd<T>(__fmul_rn(b, to_f(rot[N + k]))))));
+    o[M + k] = from_f<T>(
+        rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(b, to_f(rot[M + k]))),
+                         rnd<T>(__fmul_rn(a, to_f(rot[N + M + k]))))));
+  }
+}
+
+// Radix analysis, last pass: the one-lane-shift butterfly from the two
+// products uv = [U | V2] (float [rows, F, N]) to the spectrum in standard
+// order, y[2j] = U[j] + V2[j-1], y[2j+1] = U[j+1] - V2[j], with zero
+// beyond the edges, in float and rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) butterfly_out_kernel(
+    const float* __restrict__ uv, T* __restrict__ y, int N) {
+  const size_t frame = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int M = N >> 1;
+  const float* u = uv + frame * N;
+  const float* v = u + M;
+  T* o = y + frame * N;
+  for (int j = threadIdx.x; j < M; j += THREADS) {
+    o[2 * j] = from_f<T>(j > 0 ? __fadd_rn(u[j], v[j - 1]) : u[j]);
+    o[2 * j + 1] = from_f<T>(__fsub_rn(j + 1 < M ? u[j + 1] : 0.f, v[j]));
+  }
+}
+
+// Radix synthesis, first pass: the transposed butterfly from the spectrum y
+// [rows, T, N] (standard order) to [us | vs] [rows, T, N] in T:
+//   us[j] = y[2j] + y[2j-1],  vs[j] = y[2j+2] - y[2j+1]
+// with zero beyond the edges, each sum rounded to T.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) butterfly_in_kernel(
+    const T* __restrict__ y, T* __restrict__ usvs, int N) {
+  const size_t frame = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int M = N >> 1;
+  const T* yi = y + frame * N;
+  T* o = usvs + frame * N;
+  for (int j = threadIdx.x; j < M; j += THREADS) {
+    o[j] = j > 0 ? from_f<T>(__fadd_rn(to_f(yi[2 * j]), to_f(yi[2 * j - 1])))
+                 : yi[0];
+    o[M + j] = from_f<T>(__fsub_rn(j + 1 < M ? to_f(yi[2 * j + 2]) : 0.f,
+                                   to_f(yi[2 * j + 1])));
   }
 }
 
@@ -600,8 +725,8 @@ void launch_matmul_scatter(const void* y, const void* p, const void* q,
     mma_gemm_kernel<T, INT8, false, float><<<mgrid, THREADS, 0, st>>>(
         yt, nullptr, nullptr, nullptr, nullptr, mat, sc, zf, t_in, N,
         mat_scale);
-    scatter_kernel<float, T><<<sgrid, THREADS, 0, st>>>(zf, wp, wq, wr, ws, o,
-                                                        t_in, N);
+    scatter_kernel<float, T, false><<<sgrid, THREADS, 0, st>>>(
+        zf, wp, wq, wr, ws, nullptr, o, t_in, N);
     return;
   }
   T* zt = static_cast<T*>(z);
@@ -614,8 +739,65 @@ void launch_matmul_scatter(const void* y, const void* p, const void* q,
         yt, nullptr, nullptr, nullptr, nullptr, mat, sc, zt, t_in, N,
         mat_scale);
   }
-  scatter_kernel<T, T><<<sgrid, THREADS, 0, st>>>(zt, wp, wq, wr, ws, o, t_in,
-                                                  N);
+  scatter_kernel<T, T, false><<<sgrid, THREADS, 0, st>>>(
+      zt, wp, wq, wr, ws, nullptr, o, t_in, N);
+}
+
+// The two [M, M] products of the radix design: a [rows, frames, N] holds
+// the two K halves, mats [2, M, M] the two matrices, prod [rows, frames, N]
+// (float) gets the two products side by side.
+template <typename T>
+void launch_radix_products(const T* a, const float* mats, float* prod,
+                           int rows, int frames, int N, int tier,
+                           cudaStream_t st) {
+  if (tier == FFMA) {
+    ffma_gemm_kernel<T, false, float, 2>
+        <<<dim3((frames + BM - 1) / BM, N / BN, rows), THREADS, 0, st>>>(
+            a, nullptr, nullptr, nullptr, nullptr, mats, prod, frames, N);
+  } else {
+    mma_gemm_kernel<T, BF16, false, float, 2>
+        <<<dim3((frames + MM - 1) / MM, N / MN, rows), THREADS, 0, st>>>(
+            a, nullptr, nullptr, nullptr, nullptr, mats, nullptr, prod,
+            frames, N, 1.f);
+  }
+}
+
+template <typename T>
+void launch_radix_fold_matmul(const void* x, const void* wa_r, const void* wb,
+                              const void* wc, const void* ffr,
+                              const void* rot, const void* mats, void* rt,
+                              void* uv, void* out, int rows, int t_in, int N,
+                              int tier, cudaStream_t st) {
+  const dim3 fgrid(t_in + 1, rows);
+  fold_rotate_kernel<T><<<fgrid, THREADS, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wa_r),
+      static_cast<const T*>(wb), static_cast<const T*>(wc),
+      static_cast<const T*>(ffr), static_cast<const T*>(rot),
+      static_cast<T*>(rt), t_in, N);
+  launch_radix_products<T>(static_cast<const T*>(rt),
+                           static_cast<const float*>(mats),
+                           static_cast<float*>(uv), rows, t_in + 1, N, tier,
+                           st);
+  butterfly_out_kernel<T><<<fgrid, THREADS, 0, st>>>(
+      static_cast<const float*>(uv), static_cast<T*>(out), N);
+}
+
+template <typename T>
+void launch_radix_matmul_scatter(const void* y, const void* p, const void* q,
+                                 const void* r, const void* s_r,
+                                 const void* rot, const void* mats,
+                                 void* usvs, void* rsts, void* out, int rows,
+                                 int t_in, int N, int tier, cudaStream_t st) {
+  butterfly_in_kernel<T><<<dim3(t_in, rows), THREADS, 0, st>>>(
+      static_cast<const T*>(y), static_cast<T*>(usvs), N);
+  launch_radix_products<T>(static_cast<const T*>(usvs),
+                           static_cast<const float*>(mats),
+                           static_cast<float*>(rsts), rows, t_in, N, tier, st);
+  scatter_kernel<float, T, true><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
+      static_cast<const float*>(rsts), static_cast<const T*>(p),
+      static_cast<const T*>(q), static_cast<const T*>(r),
+      static_cast<const T*>(s_r), static_cast<const T*>(rot),
+      static_cast<T*>(out), t_in, N);
 }
 
 bool shape_ok(int rows, int t_in, int N, int dtype, int tier) {
@@ -658,6 +840,46 @@ int acx_matmul_scatter(const void* y, const void* p, const void* q,
   else
     launch_matmul_scatter<bf16>(y, p, q, r, s_r, mat, scales, z, out, rows,
                                 t_in, N, tier, mat_scale, st);
+  return (int)cudaGetLastError();
+}
+
+// Radix analysis: x [rows, T, N] -> out [rows, T+1, N] in standard order,
+// through the scratches rt [rows, T+1, N] (x's dtype) and uv [rows, T+1, N]
+// (float); rot [2, N] in x's dtype, mats [2, N/2, N/2] float. No int8 tier.
+int acx_radix_fold_matmul(const void* x, const void* wa_r, const void* wb,
+                          const void* wc, const void* ffr, const void* rot,
+                          const void* mats, void* rt, void* uv, void* out,
+                          int rows, int t_in, int N, int dtype, int tier,
+                          void* stream) {
+  if (!shape_ok(rows, t_in, N, dtype, tier) || tier == INT8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == F32)
+    launch_radix_fold_matmul<float>(x, wa_r, wb, wc, ffr, rot, mats, rt, uv,
+                                    out, rows, t_in, N, tier, st);
+  else
+    launch_radix_fold_matmul<bf16>(x, wa_r, wb, wc, ffr, rot, mats, rt, uv,
+                                   out, rows, t_in, N, tier, st);
+  return (int)cudaGetLastError();
+}
+
+// Radix synthesis: y [rows, T, N] (standard order) -> out [rows, T+1, N],
+// through the scratches usvs [rows, T, N] (y's dtype) and rsts [rows, T, N]
+// (float); rot [2, N] in y's dtype, mats [2, N/2, N/2] float. No int8 tier.
+int acx_radix_matmul_scatter(const void* y, const void* p, const void* q,
+                             const void* r, const void* s_r, const void* rot,
+                             const void* mats, void* usvs, void* rsts,
+                             void* out, int rows, int t_in, int N, int dtype,
+                             int tier, void* stream) {
+  if (!shape_ok(rows, t_in, N, dtype, tier) || tier == INT8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == F32)
+    launch_radix_matmul_scatter<float>(y, p, q, r, s_r, rot, mats, usvs, rsts,
+                                       out, rows, t_in, N, tier, st);
+  else
+    launch_radix_matmul_scatter<bf16>(y, p, q, r, s_r, rot, mats, usvs, rsts,
+                                      out, rows, t_in, N, tier, st);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
 """MDCT analysis/synthesis filter bank in PyTorch.
 
-The counterpart of ``audiocodec_tpu/mdct.py``, mono kernel design only. The
-sparse fold (ops/folding.py) feeds one [N, N] DCT-IV matmul; at the one-pass
-tiers (``default``, ``int8``) the fold is collapsed into two dense matmuls
+The counterpart of ``audiocodec_tpu/mdct.py``. The sparse fold
+(ops/folding.py) feeds one [N, N] DCT-IV matmul; at the one-pass tiers
+(``default``, ``int8``) the fold is collapsed into two dense matmuls
 (cur @ (H0 M) + prev @ (H1 M)); and where ``use_kernel`` is on, a direction
-runs the hand-written CUDA kernel of ops/cuda_mdct.py.
+runs a hand-written CUDA kernel of ops/cuda_mdct.py, of the mono design (one
+[N, N] product) or the radix design (ops/radix.py: a rotation, two
+[N/2, N/2] products and a butterfly).
 
 Shape contract:
 
@@ -24,10 +26,12 @@ from torch import nn
 from audiocodec_tpu_torch.ops import cuda_mdct as _kernels
 from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.ops import folding as _folding
+from audiocodec_tpu_torch.ops import radix as _radix
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
 
 _FOLD_WEIGHTS = ("wa_r", "wb", "wc", "ffr")
 _UNFOLD_WEIGHTS = ("p", "q", "r", "s_r")
+_KERNEL_DESIGNS = ("auto", "mono", "radix")
 
 
 class MDCT(nn.Module):
@@ -45,6 +49,9 @@ class MDCT(nn.Module):
         N a multiple of 256 and a compute dtype other than float64. It
         never depends on whether the kernels build.
     :param dct_precision: "highest", "high", "default" or "int8".
+    :param kernel_design: the kernels' design, "mono", "radix" (no int8
+        tier) or "auto" (the default), which is "mono" until a benchmark
+        decides between the two on the card.
     :param device: where the buffers live.
     """
 
@@ -56,6 +63,7 @@ class MDCT(nn.Module):
         fast_bf16: bool = False,
         use_kernel="auto",
         dct_precision: str = "highest",
+        kernel_design: str = "auto",
         device="cpu",
     ):
         super().__init__()
@@ -81,6 +89,16 @@ class MDCT(nn.Module):
                 "dct_precision='int8' is not available with a float64 "
                 "compute dtype"
             )
+        if kernel_design not in _KERNEL_DESIGNS:
+            raise ValueError(
+                f"kernel_design must be one of {_KERNEL_DESIGNS}; got "
+                f"{kernel_design!r}"
+            )
+        if kernel_design == "radix" and dct_precision == "int8":
+            raise ValueError(
+                "the radix kernel design has no int8 tier; use "
+                "kernel_design='mono' or 'auto' with dct_precision='int8'"
+            )
         eligible = filters_n % 256 == 0 and dtype != torch.float64
         if use_kernel == "auto":
             use_kernel = eligible and device.type == "cuda"
@@ -96,6 +114,8 @@ class MDCT(nn.Module):
         self.fast_bf16 = fast_bf16
         self.use_kernel = use_kernel
         self.dct_precision = dct_precision
+        self.kernel_design = "mono" if kernel_design == "auto" else kernel_design
+        radix = self.kernel_design == "radix"
         self.kernel_fwd = use_kernel in (True, "forward")
         self.kernel_inv = use_kernel in (True, "inverse")
         # kernels run natively in bf16 only on the fast path, else in f32
@@ -125,6 +145,7 @@ class MDCT(nn.Module):
         # (the JAX package's _host_int8 at mdct.py:283-288)
         q_fwd = q_inv = None
         if dct_precision == "int8" and (self.kernel_fwd or self.kernel_inv):
+            # never radix: that design has no int8 tier
             scales = [None, None]
             if self.kernel_fwd:
                 q_fwd, scales[0] = _kernels.host_int8(m64 * (1.0 / s))
@@ -133,6 +154,16 @@ class MDCT(nn.Module):
             self.int8_scale = tuple(scales)
         buf("kernel_q_fwd", q_fwd, torch.int8)
         buf("kernel_q_inv", q_inv, torch.int8)
+
+        # radix residents: the rotation [2, N] in the kernel dtype (the
+        # rotation runs in it) and the two [N/2, N/2] factors
+        for direction, on, params in (
+            ("fwd", self.kernel_fwd, _radix.forward_params),
+            ("inv", self.kernel_inv, _radix.inverse_params),
+        ):
+            rot, mats = params(filters_n) if radix and on else (None, None)
+            buf(f"radix_rot_{direction}", rot, self.kernel_dtype)
+            buf(f"radix_mat_{direction}", mats, mat_dtype)
 
         # Dense two-matmul formulation at the one-pass tiers, for the
         # directions not on a kernel
@@ -163,19 +194,35 @@ class MDCT(nn.Module):
             return "default"
         return self.dct_precision
 
+    def kernel(self, direction: str):
+        """The wrapper of the ``"forward"`` or ``"inverse"`` kernel of the
+        design (ops/cuda_mdct.py), looked up at each call."""
+        name = "fold_matmul" if direction == "forward" else "matmul_scatter"
+        if self.kernel_design == "radix":
+            name = f"radix_{name}"
+        return getattr(_kernels, name)
+
     def kernel_args(self, direction: str) -> tuple:
-        """The arguments after the signal of the ``"forward"`` kernel
-        (``fold_matmul``) or the ``"inverse"`` one (``matmul_scatter``):
-        fold weights in the kernel dtype, matrix, tier, int8 rescale."""
+        """The arguments after the signal of :meth:`kernel`: fold weights in
+        the kernel dtype, then the matrix, tier and int8 rescale (mono) or
+        the rotation, the two factors and the tier (radix)."""
         fwd = direction == "forward"
-        int8 = self.kernel_precision == "int8"
         names = _FOLD_WEIGHTS if fwd else _UNFOLD_WEIGHTS
+        weights = tuple(getattr(self, n).to(self.kernel_dtype) for n in names)
+        if self.kernel_design == "radix":
+            return (
+                *weights,
+                self.radix_rot_fwd if fwd else self.radix_rot_inv,
+                self.radix_mat_fwd if fwd else self.radix_mat_inv,
+                self.kernel_precision,
+            )
+        int8 = self.kernel_precision == "int8"
         if int8:
             mat = self.kernel_q_fwd if fwd else self.kernel_q_inv
         else:
             mat = self.dct_mat_fwd if fwd else self.dct_mat_inv
         return (
-            *(getattr(self, n).to(self.kernel_dtype) for n in names),
+            *weights,
             mat,
             self.kernel_precision,
             self.int8_scale[0 if fwd else 1] if int8 else 1.0,
@@ -195,7 +242,7 @@ class MDCT(nn.Module):
         xb = x.permute(0, 2, 1).reshape(batches_n, channels_n, blocks_n, n)
         if self.kernel_fwd:
             rows = xb.reshape(batches_n * channels_n, blocks_n, n)
-            y = _kernels.fold_matmul(
+            y = self.kernel("forward")(
                 _kernels.kernel_input(rows, self.kernel_dtype),
                 *self.kernel_args("forward"),
             )
@@ -237,7 +284,7 @@ class MDCT(nn.Module):
         yb = mdct_amplitudes.permute(0, 3, 1, 2)
         if self.kernel_inv:
             rows = yb.reshape(batches_n * channels_n, blocks_n, n)
-            out = _kernels.matmul_scatter(
+            out = self.kernel("inverse")(
                 _kernels.kernel_input(rows, self.kernel_dtype),
                 *self.kernel_args("inverse"),
             ).to(self.compute_dtype)

@@ -1,17 +1,20 @@
-"""The MDCT's two kernels: wrappers, plain versions and launch counts.
+"""The MDCT's kernels: wrappers, plain versions and launch counts.
 
-``fold_matmul`` (analysis) and ``matmul_scatter`` (synthesis) replace the
-Pallas kernels of ``audiocodec_tpu/ops/pallas_mdct.py``. A wrapper given a
-CUDA tensor launches the hand-written kernel of ``csrc/mdct_kernels.cu`` or
-raises; given a CPU tensor it runs the plain torch version beside it, which
-has each tier's exact numerics and is what the kernel is held against.
+The mono design's ``fold_matmul`` (analysis) and ``matmul_scatter``
+(synthesis), and the radix design's ``radix_fold_matmul`` and
+``radix_matmul_scatter`` (ops/radix.py), replace the Pallas kernels of
+``audiocodec_tpu/ops/pallas_mdct.py``. A wrapper given a CUDA tensor
+launches the hand-written kernel of ``csrc/mdct_kernels.cu`` or raises;
+given a CPU tensor it runs the plain torch version beside it, which has each
+tier's exact numerics and is what the kernel is held against.
 
-Both take rows = batch x channels in the natural sample order, [rows, T, N]
--> [rows, T+1, N], and the MDCT's own fold weights. Tiers: ``highest`` and
-``high`` (float32), ``default`` (bf16 operands, float32 sums) and ``int8``,
-which is one scale per frame in the analysis and one per frame and
-128-column group (``int8g``) in the synthesis, against a matrix quantized
-on the host (:func:`host_int8`) with the static rescale ``mat_scale``.
+All take rows = batch x channels in the natural sample order, [rows, T, N]
+-> [rows, T+1, N], and the MDCT's own fold weights; spectra are in standard
+order. Tiers: ``highest`` and ``high`` (float32), ``default`` (bf16
+operands, float32 sums) and, in the mono design only, ``int8``, which is one
+scale per frame in the analysis and one per frame and 128-column group
+(``int8g``) in the synthesis, against a matrix quantized on the host
+(:func:`host_int8`) with the static rescale ``mat_scale``.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import torch
 
 from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.ops import folding as _folding
+from audiocodec_tpu_torch.ops import radix as _radix
 
 GROUP = 128  # int8g column group of the synthesis
 _TIERS = {"highest": 0, "high": 0, "default": 1, "int8": 2}
+_RADIX_TIERS = {t: v for t, v in _TIERS.items() if t != "int8"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -73,14 +78,46 @@ def matmul_scatter_reference(y, p, q, r, s_r, mat, precision="highest",
     return out.to(y.dtype)
 
 
-def _check(x, weights, mat, precision):
+def radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
+                                precision="highest"):
+    """Plain version of :func:`radix_fold_matmul`: the fold and the
+    rotation in x's dtype, the two products at the tier and the butterfly
+    in float32; out in x's dtype."""
+    _check_tier(precision, _RADIX_TIERS)
+    h = x.shape[-1] // 2
+    rt = _radix.rotate(_folding.fold(x, wa_r, wb, wc, ffr), rot)
+    u = _dct.matmul(rt[..., :h], mats[0], precision)
+    v2 = _dct.matmul(rt[..., h:], mats[1], precision)
+    return _radix.butterfly(u, v2).to(x.dtype)
+
+
+def radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
+                                   precision="highest"):
+    """Plain version of :func:`radix_matmul_scatter`: the transposed
+    butterfly in y's dtype, the two products at the tier and the transposed
+    rotation in float32, rounded to y's dtype, then the overlap scatter in
+    y's dtype."""
+    _check_tier(precision, _RADIX_TIERS)
+    us, vs = _radix.butterfly_t(y)
+    rs = _dct.matmul(us, mats[0], precision)
+    ts = _dct.matmul(vs, mats[1], precision)
+    z = _radix.rotate_t(rs, ts, rot).to(y.dtype)
+    return _folding.unfold(z, p, q, r, s_r).to(y.dtype)
+
+
+def _check_tier(precision, tiers=_TIERS):
+    if precision not in tiers:
+        raise ValueError(f"precision {precision!r} is not one of the "
+                         f"kernel's tiers {sorted(tiers)}")
+
+
+def _check(x, weights, mat, precision, mat_shape=None, tiers=_TIERS):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for a tensor on {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel input must be float32 or bfloat16, got "
                         f"{x.dtype}")
-    if precision not in _TIERS:
-        raise ValueError(f"unknown precision {precision!r}")
+    _check_tier(precision, tiers)
     if x.dim() != 3 or x.shape[1] < 1 or x.shape[2] % 256:
         raise ValueError("kernel input must be [rows, T>=1, N] with N a "
                          f"multiple of 256, got {tuple(x.shape)}")
@@ -92,9 +129,10 @@ def _check(x, weights, mat, precision):
             raise ValueError(f"fold weights must be [{n // 2}] {x.dtype}, got "
                              f"{tuple(w.shape)} {w.dtype}")
     want = torch.int8 if precision == "int8" else torch.float32
-    if mat.shape != (n, n) or mat.dtype != want:
-        raise ValueError(f"matrix must be [{n}, {n}] {want} at {precision!r}, "
-                         f"got {tuple(mat.shape)} {mat.dtype}")
+    mat_shape = mat_shape or (n, n)
+    if mat.shape != mat_shape or mat.dtype != want:
+        raise ValueError(f"matrix must be {list(mat_shape)} {want} at "
+                         f"{precision!r}, got {tuple(mat.shape)} {mat.dtype}")
     for t_ in (x, *weights, mat):
         if t_.device != x.device or not t_.is_contiguous():
             raise ValueError("kernel operands must be contiguous and on "
@@ -181,15 +219,87 @@ def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0):
     return out
 
 
-fold_matmul.launches = 0
-matmul_scatter.launches = 0
+def _check_radix(x, weights, rot, mats, precision):
+    n = x.shape[-1]
+    _check(x, weights, mats, precision, mat_shape=(2, n // 2, n // 2),
+           tiers=_RADIX_TIERS)
+    if (rot.shape != (2, n) or rot.dtype != x.dtype
+            or rot.device != x.device or not rot.is_contiguous()):
+        raise ValueError(f"rotation must be a contiguous [2, {n}] {x.dtype} "
+                         f"on {x.device}, got {tuple(rot.shape)} {rot.dtype}")
+    if rot.requires_grad:
+        raise NotImplementedError("the MDCT kernels have no backward yet; "
+                                  "pass tensors that do not require grad")
+
+
+def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest"):
+    """Radix analysis, [rows, T, N] -> [rows, T+1, N] in standard order:
+    the fold, the rotation ``rot`` [2, N] (x's dtype), the two [M, M]
+    products ``mats`` [2, M, M] (float32) and the butterfly."""
+    if x.device.type == "cpu":
+        return radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
+                                           precision)
+    weights = (wa_r, wb, wc, ffr)
+    _check_radix(x, weights, rot, mats, precision)
+    from audiocodec_tpu_torch.ops import _build
+
+    rows, t, n = x.shape
+    out = torch.empty(rows, t + 1, n, dtype=x.dtype, device=x.device)
+    rt = torch.empty_like(out)
+    uv = torch.empty(rows, t + 1, n, dtype=torch.float32, device=x.device)
+    rc = _build.library().acx_radix_fold_matmul(
+        x.data_ptr(), *(w.data_ptr() for w in weights), rot.data_ptr(),
+        mats.data_ptr(), rt.data_ptr(), uv.data_ptr(), out.data_ptr(), rows,
+        t, n, _DTYPES[x.dtype], _TIERS[precision], _stream(x),
+    )
+    if rc:
+        raise RuntimeError(
+            f"radix_fold_matmul kernel launch failed: CUDA error {rc}"
+        )
+    radix_fold_matmul.launches += 1
+    return out
+
+
+def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest"):
+    """Radix synthesis, [rows, T, N] in standard order -> [rows, T+1, N]:
+    the transposed butterfly, the two [M, M] products ``mats`` [2, M, M]
+    (float32), the transposed rotation ``rot`` [2, N] (y's dtype) and the
+    overlap scatter."""
+    if y.device.type == "cpu":
+        return radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
+                                              precision)
+    weights = (p, q, r, s_r)
+    _check_radix(y, weights, rot, mats, precision)
+    from audiocodec_tpu_torch.ops import _build
+
+    rows, t, n = y.shape
+    out = torch.empty(rows, t + 1, n, dtype=y.dtype, device=y.device)
+    usvs = torch.empty_like(y)
+    rsts = torch.empty(rows, t, n, dtype=torch.float32, device=y.device)
+    rc = _build.library().acx_radix_matmul_scatter(
+        y.data_ptr(), *(w.data_ptr() for w in weights), rot.data_ptr(),
+        mats.data_ptr(), usvs.data_ptr(), rsts.data_ptr(), out.data_ptr(),
+        rows, t, n, _DTYPES[y.dtype], _TIERS[precision], _stream(y),
+    )
+    if rc:
+        raise RuntimeError(
+            f"radix_matmul_scatter kernel launch failed: CUDA error {rc}"
+        )
+    radix_matmul_scatter.launches += 1
+    return out
+
+
+KERNELS = (fold_matmul, matmul_scatter, radix_fold_matmul,
+           radix_matmul_scatter)
 
 
 def reset_launch_counts() -> None:
-    fold_matmul.launches = 0
-    matmul_scatter.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"fold_matmul": fold_matmul.launches,
-            "matmul_scatter": matmul_scatter.launches}
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launch_counts()

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from audiocodec_tpu_torch.ops import cuda_noise as _noise
 from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
 
@@ -158,7 +159,8 @@ class PsychoacousticModel(nn.Module):
         # Not kept on the host as the quantizer's are: a CUDA division by a
         # host scalar multiplies by its reciprocal, which rounds twice.
         consts = dict(eps=INTENSITY_EPS, ln10=math.log(10.0), db_max=DB_MAX,
-                      one=1.0, ten=10.0, alpha=alpha)
+                      one=1.0, ten=10.0, alpha=alpha,
+                      sixth=_noise.SIGMA_SCALE)
         for name, value in consts.items():
             self.register_buffer(f"c_{name}",
                                  _dtypes.scalar(value, dtype, device),
@@ -241,3 +243,28 @@ class PsychoacousticModel(nn.Module):
         intensity split, then sqrt."""
         intensity = self._bark_matmul(bark_intensity, self.W_inv)
         return torch.sqrt(torch.maximum(self.c_eps, intensity))
+
+    def add_noise(self, generator: torch.Generator, mdct_amplitudes,
+                  masking_threshold) -> torch.Tensor:
+        """Add inaudible Gaussian noise shaped by the masking threshold,
+        sigma = threshold / 6 ("3 sigma both directions": ~0.27% of samples
+        beyond the threshold). The normals come from ``torch.randn`` with
+        ``generator``, which must be on the spectrum's device; the JAX
+        package's ``add_noise`` takes a PRNG key in its place."""
+        noise = masking_threshold * torch.randn(
+            mdct_amplitudes.shape, generator=generator,
+            dtype=self.compute_dtype, device=mdct_amplitudes.device,
+        ) * self.c_sixth
+        return mdct_amplitudes + noise
+
+    def add_noise_fast(self, seed: int, mdct_amplitudes,
+                       masking_threshold) -> torch.Tensor:
+        """The same operation as :meth:`add_noise` in one pass of the noise
+        kernel (ops/cuda_noise.py): normals from the Philox stream of
+        ``seed``, indexed by the flat element index, so the same seed and
+        shape give the same output. Not equal to :meth:`add_noise`'s
+        stream. Mono spectra are contiguous already; others are copied to
+        their logical order first."""
+        return _noise.add_masked_noise(
+            mdct_amplitudes.contiguous(), masking_threshold.contiguous(), seed
+        )

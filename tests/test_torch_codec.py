@@ -170,6 +170,7 @@ def _leaves_and_meta(jc):
         bark_bands_n=p.bark_bands_n, alpha=p.alpha,
         window_type=m.window_type, compute_dtype=str(m.compute_dtype),
         fast_bf16=m.fast_bf16, use_pallas=m.use_pallas,
+        pallas_kernel=m.pallas_kernel,
         dct_precision=m.dct_precision, bark_precision=p.bark_precision,
         pallas_int8_scale=m.pallas_int8_scale,
     )

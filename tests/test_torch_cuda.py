@@ -13,13 +13,18 @@ import pytest
 import torch
 
 from audiocodec_tpu_torch import MDCT, Codec
-from audiocodec_tpu_torch.ops import cuda_mdct
+from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
 
 pytestmark = [
     pytest.mark.cuda,
     pytest.mark.skipif("not torch.cuda.is_available()",
                        reason="needs an NVIDIA GPU"),
 ]
+
+MONO_ONCE = {"fold_matmul": 1, "matmul_scatter": 1, "radix_fold_matmul": 0,
+             "radix_matmul_scatter": 0}
+RADIX_ONCE = {"fold_matmul": 0, "matmul_scatter": 0, "radix_fold_matmul": 1,
+              "radix_matmul_scatter": 1}
 
 TIERS = [  # (compute dtype, fast_bf16, precision)
     ("float32", False, "highest"),
@@ -56,8 +61,7 @@ def test_kernels_match_plain_versions(n, blocks, dtype, fast, precision):
     out = cuda_mdct.matmul_scatter(y, *inv)
     out_ref = cuda_mdct.matmul_scatter_reference(y, *inv)
     torch.cuda.synchronize()
-    assert cuda_mdct.launch_counts() == {"fold_matmul": 1,
-                                         "matmul_scatter": 1}
+    assert cuda_mdct.launch_counts() == MONO_ONCE
     assert y.shape == (3, blocks + 1, n) and out.shape == (3, blocks + 2, n)
     tier = m.kernel_precision
     assert float((y.float() - y_ref.float()).abs().max()) <= _tol(
@@ -91,8 +95,7 @@ def test_round_trip_quantized_launches_each_kernel_once():
     out = c.round_trip_quantized(x)
     torch.cuda.synchronize()
     assert out.shape == (2, 10 * 1024, 1)
-    assert cuda_mdct.launch_counts() == {"fold_matmul": 1,
-                                         "matmul_scatter": 1}
+    assert cuda_mdct.launch_counts() == MONO_ONCE
 
 
 def test_round_trip_quantized_copies_nothing_to_the_card():
@@ -140,3 +143,124 @@ def test_misaligned_views_are_copied_by_the_mdct_and_refused_by_the_wrapper():
     fwd = m.kernel_args("forward")
     with pytest.raises(ValueError, match="16-byte aligned"):
         cuda_mdct.fold_matmul(flat[1:].view(2, 4, n), *fwd)
+
+
+RADIX_TIERS = [t for t in TIERS if t[2] != "int8"]
+
+
+@pytest.mark.parametrize("n,blocks", [(256, 3), (256, 37), (2048, 8),
+                                      (2048, 130)])
+@pytest.mark.parametrize("dtype,fast,precision", RADIX_TIERS)
+def test_radix_kernels_match_plain_versions(n, blocks, dtype, fast,
+                                            precision):
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, kernel_design="radix", device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(blocks)
+    x = (torch.rand(3, blocks, n, generator=g) * 2 - 1).to("cuda",
+                                                           m.kernel_dtype)
+    fwd, inv = m.kernel_args("forward"), m.kernel_args("inverse")
+    cuda_mdct.reset_launch_counts()
+    y = cuda_mdct.radix_fold_matmul(x, *fwd)
+    y_ref = cuda_mdct.radix_fold_matmul_reference(x, *fwd)
+    out = cuda_mdct.radix_matmul_scatter(y, *inv)
+    out_ref = cuda_mdct.radix_matmul_scatter_reference(y, *inv)
+    torch.cuda.synchronize()
+    assert cuda_mdct.launch_counts() == RADIX_ONCE
+    assert y.shape == (3, blocks + 1, n) and out.shape == (3, blocks + 2, n)
+    tier = m.kernel_precision
+    assert float((y.float() - y_ref.float()).abs().max()) <= _tol(
+        y_ref, tier, x.dtype, "fwd")
+    assert float((out.float() - out_ref.float()).abs().max()) <= _tol(
+        out_ref, tier, x.dtype, "inv")
+
+
+def test_radix_highest_round_trip_through_the_kernels():
+    n = 2048
+    m = MDCT(n, use_kernel=True, kernel_design="radix", device="cuda")
+    t = torch.arange(32 * n, dtype=torch.float64) / 44100
+    x = (0.4 * torch.sin(2 * np.pi * 440 * t))[None, :, None].float().cuda()
+    rt = m.inverse_transform(m.transform(x))[:, n:-n].double()
+    snr = 10 * torch.log10((x.double() ** 2).sum() / ((x - rt) ** 2).sum())
+    assert float(snr) >= 125.0
+
+
+def test_radix_wrappers_refuse_what_the_kernels_do_not_take():
+    m = MDCT(256, use_kernel=True, kernel_design="radix", device="cuda")
+    fwd = m.kernel_args("forward")
+    x = torch.zeros(1, 4, 256, device="cuda")
+    with pytest.raises(ValueError, match="tiers"):
+        cuda_mdct.radix_fold_matmul(x, *fwd[:-1], "int8")
+    with pytest.raises(NotImplementedError, match="backward"):
+        cuda_mdct.radix_fold_matmul(x.clone().requires_grad_(), *fwd)
+    with pytest.raises(ValueError, match="rotation"):
+        cuda_mdct.radix_fold_matmul(x, *fwd[:4], fwd[4][:1], *fwd[5:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_kernel_matches_plain_version(dtype):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    shape = (3, 37, 256, 1)
+    spec = (torch.rand(shape, generator=g) - 0.5).to("cuda", dtype)
+    thr = (torch.rand(shape, generator=g) * 0.1).to("cuda", dtype)
+    cuda_noise.reset_launch_counts()
+    got = cuda_noise.add_masked_noise(spec, thr, 11)
+    want = cuda_noise.add_masked_noise_reference(spec, thr, 11)
+    torch.cuda.synchronize()
+    assert cuda_noise.launch_counts() == {"add_masked_noise": 1}
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * float(thr.max())
+    else:
+        peak = float(want.float().abs().max())
+        assert err <= 2.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    for dev_u, cpu_u in zip(cuda_noise.uniforms(11, spec.numel(), "cuda"),
+                            cuda_noise.uniforms(11, spec.numel(), "cpu")):
+        assert torch.equal(dev_u.cpu(), cpu_u)
+
+
+def test_noise_kernel_moments():
+    shape = (8, 64, 1024, 1)
+    zero = torch.zeros(shape, device="cuda")
+    z = cuda_noise.add_masked_noise(zero, torch.ones_like(zero), 0)
+    z = z.double().flatten()
+    n, sigma = z.numel(), 1.0 / 6.0
+    assert abs(float(z.mean())) < 5 * sigma / math.sqrt(n)
+    assert abs(float(z.std()) / sigma - 1.0) < 0.01
+    assert 0.0020 < float((z.abs() > 3 * sigma).double().mean()) < 0.0035
+    assert abs(float(((z / z.std()) ** 4).mean()) - 3.0) < 0.1
+    again = cuda_noise.add_masked_noise(zero, torch.ones_like(zero), 0)
+    other = cuda_noise.add_masked_noise(zero, torch.ones_like(zero), 1)
+    assert torch.equal(again.double().flatten(), z)
+    assert float((other.double().flatten() - z).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("design", ["mono", "radix"])
+def test_round_trip_fast_launches_each_kernel_once(design):
+    c = Codec.create(44100, filters_n=2048, kernel_design=design,
+                     device="cuda")
+    x = torch.zeros(2, 8 * 2048, 1, device="cuda")
+    cuda_mdct.reset_launch_counts()
+    cuda_noise.reset_launch_counts()
+    out = c.round_trip_fast(x, 5)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 10 * 2048, 1)
+    assert cuda_mdct.launch_counts() == (
+        MONO_ONCE if design == "mono" else RADIX_ONCE)
+    assert cuda_noise.launch_counts() == {"add_masked_noise": 1}
+
+
+def test_round_trip_fast_copies_nothing_to_the_card():
+    from torch.profiler import ProfilerActivity, profile
+
+    c = Codec.create(44100, compute_dtype="bfloat16", fast_bf16=True,
+                     dct_precision="default", device="cuda")
+    x = torch.zeros(2, 8 * 1024, 1, dtype=torch.bfloat16, device="cuda")
+    c.round_trip_fast(x, 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c.round_trip_fast(x, 1)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("noise_kernel" in n for n in names)
+    assert not [n for n in names if "HtoD" in n]

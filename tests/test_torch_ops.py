@@ -153,8 +153,7 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_nothing():
     got = cuda_mdct.fold_matmul(x, *w, q, "int8", scale)
     want = cuda_mdct.fold_matmul_reference(x, *w, q, "int8", scale)
     assert torch.equal(got, want) and got.shape == (2, 6, 256)
-    assert cuda_mdct.launch_counts() == {"fold_matmul": 0,
-                                         "matmul_scatter": 0}
+    assert set(cuda_mdct.launch_counts().values()) == {0}
 
 
 def test_other_devices_raise():
