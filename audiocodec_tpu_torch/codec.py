@@ -39,9 +39,10 @@ class Codec(nn.Module):
         dct_precision: str = "highest",
         bark_precision: str | None = None,
         kernel_design: str = "auto",
-        device="cpu",
+        device="cuda",
     ) -> "Codec":
-        """Build the codec on ``device``.
+        """Build the codec on ``device``: the card unless the caller asks
+        for the CPU.
 
         :param bark_precision: tier of the Bark contractions; defaults to
             ``dct_precision``, except that an ``int8`` MDCT pairs with

@@ -10,6 +10,12 @@ The radix design's residents carry over as they are (ops/radix.py): the
 rotation vectors and the [N/2, N/2] factors are defined on the pairs
 (f_n, f_{N-1-n}), which the TPU's swizzled layout and the port's natural
 order both hold. Each leaf takes the dtype of the buffer it fills.
+
+The kernels' VJP residents have no JAX leaves: the port rebuilds them from
+the forward residents it has set (``MDCT.build_vjp_residents``), so that a
+converted codec's backward pairs with its forward. Model parameters and
+trained gains, plain dicts of arrays in the JAX package, carry over by name
+(:func:`params_from_arrays`).
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ def unpermute_inverse(m: np.ndarray) -> np.ndarray:
     return np.concatenate([m[:, :h], m[:, h:][:, ::-1]], axis=1)
 
 
-def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
+def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
     """Build the port's ``Codec`` from a JAX ``Codec``'s state.
 
     :param leaves: numpy arrays keyed "mdct.<field>" and "psycho.<field>"
@@ -67,6 +73,11 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
         (name), ``fast_bf16``, ``use_pallas`` and ``pallas_kernel``
         (resolved), ``dct_precision``, ``bark_precision`` and
         ``pallas_int8_scale``.
+    :param device: the card unless the caller asks for the CPU.
+
+    The VJP residents are rebuilt from the leaves set here, through
+    ``MDCT.build_vjp_residents`` (the helper the MDCT's constructor calls),
+    not kept from the port's own coefficients.
     """
     codec = Codec.create(
         meta["sample_rate"],
@@ -106,4 +117,18 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cpu") -> Codec:
         setattr(module, name, _tensor(arr, device).to(dtype))
     if meta.get("pallas_int8_scale") is not None:
         mdct.int8_scale = tuple(meta["pallas_int8_scale"])
+    mdct.build_vjp_residents()
     return codec
+
+
+def params_from_arrays(arrays: dict, device="cuda") -> dict:
+    """A JAX params dict (numpy arrays, bf16 as ml_dtypes arrays) -> the
+    port's: the same names and layouts (``[fan_in, fan_out]`` weights), as
+    leaf tensors that require grad. Serves ``models.spectral_ae``,
+    ``models.post_filter`` and the gains of ``parallel.train``
+    (``{"gains": ...}``).
+
+    :param device: the card unless the caller asks for the CPU.
+    """
+    return {name: _tensor(arr, device).requires_grad_()
+            for name, arr in arrays.items()}

@@ -6,7 +6,10 @@ The counterpart of ``audiocodec_tpu/mdct.py``. The sparse fold
 (cur @ (H0 M) + prev @ (H1 M)); and where ``use_kernel`` is on, a direction
 runs a hand-written CUDA kernel of ops/cuda_mdct.py, of the mono design (one
 [N, N] product) or the radix design (ops/radix.py: a rotation, two
-[N/2, N/2] products and a butterfly).
+[N/2, N/2] products and a butterfly). A direction on a kernel runs
+through its ``torch.autograd.Function`` (``cuda_mdct.FUNCTIONS``), whose
+backward is the other direction's kernel with the VJP residents this
+module builds once, as buffers.
 
 Shape contract:
 
@@ -52,7 +55,8 @@ class MDCT(nn.Module):
     :param kernel_design: the kernels' design, "mono", "radix" (no int8
         tier) or "auto" (the default), which is "mono" until a benchmark
         decides between the two on the card.
-    :param device: where the buffers live.
+    :param device: where the buffers live: the card unless the caller
+        asks for the CPU.
     """
 
     def __init__(
@@ -64,7 +68,7 @@ class MDCT(nn.Module):
         use_kernel="auto",
         dct_precision: str = "highest",
         kernel_design: str = "auto",
-        device="cpu",
+        device="cuda",
     ):
         super().__init__()
         if filters_n % 2 != 0:
@@ -177,6 +181,40 @@ class MDCT(nn.Module):
                 dense.update(inv_cur=m64 @ g0 * s, inv_prev=m64 @ g1 * s)
         for name, value in dense.items():
             buf(f"dense_{name}", value, mat_dtype)
+        self.build_vjp_residents()
+
+    def build_vjp_residents(self) -> None:
+        """(Re)build the VJP residents of the directions on a kernel from
+        the forward residents (``cuda_mdct``'s remappings, exact): the
+        weights ``vjp_weights_{fwd,inv}`` [4, N/2] and the rotation
+        ``vjp_rot_*`` in the kernel dtype, the matrix ``vjp_mat_*`` in
+        float32, dequantized at int8. Call it after replacing a forward
+        resident."""
+        radix = self.kernel_design == "radix"
+        for d, on, names in (("fwd", self.kernel_fwd, _FOLD_WEIGHTS),
+                             ("inv", self.kernel_inv, _UNFOLD_WEIGHTS)):
+            weights = rot = mat = None
+            if on:
+                w = [getattr(self, n).to(self.kernel_dtype) for n in names]
+                remap = (_kernels.fold_vjp_weights if d == "fwd"
+                         else _kernels.unfold_vjp_weights)
+                weights = torch.stack(remap(*w))
+                if radix:
+                    rot, mat = (_kernels.radix_fold_vjp_residents if d == "fwd"
+                                else _kernels.radix_unfold_vjp_residents)(
+                        getattr(self, f"radix_rot_{d}"),
+                        getattr(self, f"radix_mat_{d}"))
+                else:
+                    mat = getattr(self, f"dct_mat_{d}")
+                    if self.dct_precision == "int8":
+                        mat = _kernels.dequantized(
+                            getattr(self, f"kernel_q_{d}"),
+                            self.int8_scale[0 if d == "fwd" else 1])
+                    mat = (_kernels.fold_vjp_matrix if d == "fwd"
+                           else _kernels.unfold_vjp_matrix)(mat)
+            self.register_buffer(f"vjp_weights_{d}", weights)
+            self.register_buffer(f"vjp_rot_{d}", rot)
+            self.register_buffer(f"vjp_mat_{d}", mat)
 
     @property
     def inv_precision(self) -> str:
@@ -194,13 +232,16 @@ class MDCT(nn.Module):
             return "default"
         return self.dct_precision
 
+    def kernel_name(self, direction: str) -> str:
+        """The name of the ``"forward"`` or ``"inverse"`` kernel of the
+        design in ops/cuda_mdct.py."""
+        name = "fold_matmul" if direction == "forward" else "matmul_scatter"
+        return f"radix_{name}" if self.kernel_design == "radix" else name
+
     def kernel(self, direction: str):
         """The wrapper of the ``"forward"`` or ``"inverse"`` kernel of the
-        design (ops/cuda_mdct.py), looked up at each call."""
-        name = "fold_matmul" if direction == "forward" else "matmul_scatter"
-        if self.kernel_design == "radix":
-            name = f"radix_{name}"
-        return getattr(_kernels, name)
+        design, looked up at each call."""
+        return getattr(_kernels, self.kernel_name(direction))
 
     def kernel_args(self, direction: str) -> tuple:
         """The arguments after the signal of :meth:`kernel`: fold weights in
@@ -228,6 +269,30 @@ class MDCT(nn.Module):
             self.int8_scale[0 if fwd else 1] if int8 else 1.0,
         )
 
+    @property
+    def vjp_precision(self) -> str:
+        """The VJPs' tier: the kernels', except that int8 runs
+        straight-through at ``default``."""
+        p = self.kernel_precision
+        return "default" if p == "int8" else p
+
+    def vjp_args(self, direction: str) -> tuple:
+        """The arguments after the cotangent of the VJP of :meth:`kernel`
+        (``cuda_mdct.*_vjp``)."""
+        d = "fwd" if direction == "forward" else "inv"
+        rot = () if self.kernel_design == "mono" else (
+            getattr(self, f"vjp_rot_{d}"),)
+        return (*getattr(self, f"vjp_weights_{d}").unbind(),
+                *rot, getattr(self, f"vjp_mat_{d}"), self.vjp_precision)
+
+    def _run_kernel(self, direction: str, rows: torch.Tensor):
+        """rows [B*C, T, N] through the direction's autograd Function."""
+        function = _kernels.FUNCTIONS[self.kernel_name(direction)]
+        return function.apply(
+            _kernels.kernel_input(rows, self.kernel_dtype),
+            self.kernel_args(direction), self.vjp_args(direction),
+        )
+
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         """MDCT analysis: [B, S, C] -> [B, S/N + 1, N, C]."""
         _dtypes.check_input_dtype(x, self.compute_dtype, "transform input")
@@ -242,13 +307,8 @@ class MDCT(nn.Module):
         xb = x.permute(0, 2, 1).reshape(batches_n, channels_n, blocks_n, n)
         if self.kernel_fwd:
             rows = xb.reshape(batches_n * channels_n, blocks_n, n)
-            y = self.kernel("forward")(
-                _kernels.kernel_input(rows, self.kernel_dtype),
-                *self.kernel_args("forward"),
-            )
-            y = y.to(self.compute_dtype).reshape(
-                batches_n, channels_n, blocks_n + 1, n
-            )
+            y = self._run_kernel("forward", rows).to(self.compute_dtype)
+            y = y.reshape(batches_n, channels_n, blocks_n + 1, n)
         elif self.dense_fwd_cur is not None:
             zero = torch.zeros_like(xb[:, :, :1])
             cur = torch.cat([xb, zero], dim=2)
@@ -284,10 +344,7 @@ class MDCT(nn.Module):
         yb = mdct_amplitudes.permute(0, 3, 1, 2)
         if self.kernel_inv:
             rows = yb.reshape(batches_n * channels_n, blocks_n, n)
-            out = self.kernel("inverse")(
-                _kernels.kernel_input(rows, self.kernel_dtype),
-                *self.kernel_args("inverse"),
-            ).to(self.compute_dtype)
+            out = self._run_kernel("inverse", rows).to(self.compute_dtype)
         elif self.dense_inv_cur is not None:
             zero = torch.zeros_like(yb[:, :, :1])
             cur = torch.cat([yb, zero], dim=2)

@@ -15,6 +15,13 @@ operands, float32 sums) and, in the mono design only, ``int8``, which is one
 scale per frame in the analysis and one per frame and 128-column group
 (``int8g``) in the synthesis, against a matrix quantized on the host
 (:func:`host_int8`) with the static rescale ``mat_scale``.
+
+Each kernel has a ``torch.autograd.Function`` (:data:`FUNCTIONS`) whose
+backward is its VJP wrapper (``*_vjp``, replacing ``pallas_mdct.py``
+``_fold_matmul_bwd`` and its three siblings): the other direction's kernel
+on the block-reversed cotangent with remapped residents, counted apart
+from the forward launches; the plain versions ``*_vjp_reference`` run the
+other direction's plain version.
 """
 
 from __future__ import annotations
@@ -140,11 +147,24 @@ def _check(x, weights, mat, precision, mat_shape=None, tiers=_TIERS):
         if t_.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned "
                              "(the kernels load 16-byte vectors)")
-        if t_.requires_grad:
-            raise NotImplementedError(
-                "the MDCT kernels have no backward yet; pass tensors that "
-                "do not require grad"
-            )
+    _check_grad(x, (*weights, mat))
+
+
+def _check_grad(x, constants):
+    """The weights, rotations and matrices are never trained; a signal that
+    requires grad goes through the Functions (:data:`FUNCTIONS`), whose
+    forward runs with grad off: a wrapper called on it with grad on would
+    drop its gradient."""
+    if any(c.requires_grad for c in constants):
+        raise NotImplementedError(
+            "the MDCT kernels' weights, rotations and matrices are constants "
+            "with no gradient; pass tensors that do not require grad"
+        )
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "a wrapper has no backward: call the kernel through its "
+            "autograd Function (cuda_mdct.FUNCTIONS) for a gradient"
+        )
 
 
 def kernel_input(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -158,15 +178,7 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def fold_matmul(x, wa_r, wb, wc, ffr, mat, precision="highest",
-                mat_scale=1.0):
-    """Analysis: y[n] = fold(x)[n] @ mat, [rows, T, N] -> [rows, T+1, N].
-
-    At ``int8``, ``mat`` is the host-quantized int8 matrix and
-    ``mat_scale`` its rescale."""
-    if x.device.type == "cpu":
-        return fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision,
-                                     mat_scale)
+def _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision, mat_scale):
     weights = (wa_r, wb, wc, ffr)
     _check(x, weights, mat, precision)
     from audiocodec_tpu_torch.ops import _build
@@ -184,17 +196,25 @@ def fold_matmul(x, wa_r, wb, wc, ffr, mat, precision="highest",
     )
     if rc:
         raise RuntimeError(f"fold_matmul kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def fold_matmul(x, wa_r, wb, wc, ffr, mat, precision="highest",
+                mat_scale=1.0):
+    """Analysis: y[n] = fold(x)[n] @ mat, [rows, T, N] -> [rows, T+1, N].
+
+    At ``int8``, ``mat`` is the host-quantized int8 matrix and
+    ``mat_scale`` its rescale."""
+    if x.device.type == "cpu":
+        return fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision,
+                                     mat_scale)
+    out = _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision,
+                              mat_scale)
     fold_matmul.launches += 1
     return out
 
 
-def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0):
-    """Synthesis: z = y @ mat, then the overlap scatter, [rows, T, N] ->
-    [rows, T+1, N]. At ``int8`` the tier is int8g (per frame and
-    128-column group)."""
-    if y.device.type == "cpu":
-        return matmul_scatter_reference(y, p, q, r, s_r, mat, precision,
-                                        mat_scale)
+def _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale):
     weights = (p, q, r, s_r)
     _check(y, weights, mat, precision)
     from audiocodec_tpu_torch.ops import _build
@@ -215,6 +235,17 @@ def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0):
         raise RuntimeError(
             f"matmul_scatter kernel launch failed: CUDA error {rc}"
         )
+    return out
+
+
+def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0):
+    """Synthesis: z = y @ mat, then the overlap scatter, [rows, T, N] ->
+    [rows, T+1, N]. At ``int8`` the tier is int8g (per frame and
+    128-column group)."""
+    if y.device.type == "cpu":
+        return matmul_scatter_reference(y, p, q, r, s_r, mat, precision,
+                                        mat_scale)
+    out = _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale)
     matmul_scatter.launches += 1
     return out
 
@@ -227,18 +258,10 @@ def _check_radix(x, weights, rot, mats, precision):
             or rot.device != x.device or not rot.is_contiguous()):
         raise ValueError(f"rotation must be a contiguous [2, {n}] {x.dtype} "
                          f"on {x.device}, got {tuple(rot.shape)} {rot.dtype}")
-    if rot.requires_grad:
-        raise NotImplementedError("the MDCT kernels have no backward yet; "
-                                  "pass tensors that do not require grad")
+    _check_grad(x, (rot,))
 
 
-def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest"):
-    """Radix analysis, [rows, T, N] -> [rows, T+1, N] in standard order:
-    the fold, the rotation ``rot`` [2, N] (x's dtype), the two [M, M]
-    products ``mats`` [2, M, M] (float32) and the butterfly."""
-    if x.device.type == "cpu":
-        return radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
-                                           precision)
+def _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision):
     weights = (wa_r, wb, wc, ffr)
     _check_radix(x, weights, rot, mats, precision)
     from audiocodec_tpu_torch.ops import _build
@@ -256,18 +279,23 @@ def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest"):
         raise RuntimeError(
             f"radix_fold_matmul kernel launch failed: CUDA error {rc}"
         )
+    return out
+
+
+def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest"):
+    """Radix analysis, [rows, T, N] -> [rows, T+1, N] in standard order:
+    the fold, the rotation ``rot`` [2, N] (x's dtype), the two [M, M]
+    products ``mats`` [2, M, M] (float32) and the butterfly."""
+    if x.device.type == "cpu":
+        return radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
+                                           precision)
+    out = _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats,
+                                    precision)
     radix_fold_matmul.launches += 1
     return out
 
 
-def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest"):
-    """Radix synthesis, [rows, T, N] in standard order -> [rows, T+1, N]:
-    the transposed butterfly, the two [M, M] products ``mats`` [2, M, M]
-    (float32), the transposed rotation ``rot`` [2, N] (y's dtype) and the
-    overlap scatter."""
-    if y.device.type == "cpu":
-        return radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
-                                              precision)
+def _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision):
     weights = (p, q, r, s_r)
     _check_radix(y, weights, rot, mats, precision)
     from audiocodec_tpu_torch.ops import _build
@@ -285,21 +313,241 @@ def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest"):
         raise RuntimeError(
             f"radix_matmul_scatter kernel launch failed: CUDA error {rc}"
         )
+    return out
+
+
+def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest"):
+    """Radix synthesis, [rows, T, N] in standard order -> [rows, T+1, N]:
+    the transposed butterfly, the two [M, M] products ``mats`` [2, M, M]
+    (float32), the transposed rotation ``rot`` [2, N] (y's dtype) and the
+    overlap scatter."""
+    if y.device.type == "cpu":
+        return radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
+                                              precision)
+    out = _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision)
     radix_matmul_scatter.launches += 1
     return out
 
 
+# ---- The VJPs -------------------------------------------------------------
+#
+# The transpose of each direction is the other direction's kernel on the
+# block-reversed cotangent (as ``pallas_mdct.py`` _fold_matmul_bwd and its
+# three siblings), with residents remapped for the port's natural order and
+# [N/2] half-vectors; h = N/2:
+#
+#   VJP of fold_matmul: matmul_scatter with p=-ffr, q=wc, r=wb,
+#     s_r=flip(wa_r) and the matrix [M[h:]^T | M[:h]^T] (M the analysis's);
+#   VJP of matmul_scatter: fold_matmul with wa_r=flip(s_r), wb=r, wc=q,
+#     ffr=-p and the matrix [Mi[:, h:]^T ; Mi[:, :h]^T] (Mi the synthesis's);
+#   the radix pair: the same weights, the factors transposed and reversed
+#     along one axis, the rotation's quarters reversed and exchanged
+#     (:func:`radix_fold_vjp_residents`, :func:`radix_unfold_vjp_residents`).
+#
+# The analysis VJP swaps the lane halves of its output, the synthesis VJP
+# those of its input; both reverse the blocks of the result and drop its
+# first and last frame. Every remapping is a sign, a permutation or a
+# transpose, exact in bfloat16, built once on the host side of a module
+# (mdct.py). At int8 the backward is straight-through: the ``default`` tier
+# on the dequantized matrix, q * (mat_scale * 127).
+
+
+def _swap(t: torch.Tensor) -> torch.Tensor:
+    """The two halves of the last axis exchanged."""
+    h = t.shape[-1] // 2
+    return torch.cat([t[..., h:], t[..., :h]], dim=-1)
+
+
+def _flip(t: torch.Tensor) -> torch.Tensor:
+    return torch.flip(t, (-1,))
+
+
+def fold_vjp_weights(wa_r, wb, wc, ffr):
+    """The unfold weights (p, q, r, s_r) of the analysis VJP."""
+    return -ffr, wc, wb, _flip(wa_r)
+
+
+def unfold_vjp_weights(p, q, r, s_r):
+    """The fold weights (wa_r, wb, wc, ffr) of the synthesis VJP."""
+    return _flip(s_r), r, q, -p
+
+
+def fold_vjp_matrix(mat: torch.Tensor) -> torch.Tensor:
+    """The synthesis matrix of the analysis VJP, from the analysis matrix."""
+    h = mat.shape[0] // 2
+    return torch.cat([mat[h:].T, mat[:h].T], dim=1).contiguous()
+
+
+def unfold_vjp_matrix(mat: torch.Tensor) -> torch.Tensor:
+    """The analysis matrix of the synthesis VJP, from the synthesis matrix."""
+    h = mat.shape[1] // 2
+    return torch.cat([mat[:, h:].T, mat[:, :h].T], dim=0).contiguous()
+
+
+def radix_fold_vjp_residents(rot: torch.Tensor, mats: torch.Tensor):
+    """(rotation, factors) of the radix analysis VJP, from the analysis's
+    ``rot`` = [r0; r1] and ``mats`` = [P; Q]."""
+    h = rot.shape[1] // 2
+    r0, r1 = rot
+    vrot = torch.stack([
+        torch.cat([_flip(r1[:h]), _flip(r0[:h])]),
+        torch.cat([_flip(r0[h:]), _flip(r1[h:])]),
+    ])
+    return vrot, torch.stack([m.T.flip(1) for m in mats]).contiguous()
+
+
+def radix_unfold_vjp_residents(rot: torch.Tensor, mats: torch.Tensor):
+    """(rotation, factors) of the radix synthesis VJP, from the synthesis's
+    ``rot`` = [ra; rb] and ``mats`` = [A; B]."""
+    h = rot.shape[1] // 2
+    ra, rb = rot
+    vrot = torch.stack([
+        torch.cat([_flip(ra[h:]), _flip(rb[:h])]),
+        torch.cat([_flip(ra[:h]), _flip(rb[h:])]),
+    ])
+    return vrot, torch.stack([m.T.flip(0) for m in mats]).contiguous()
+
+
+def dequantized(q: torch.Tensor, mat_scale: float) -> torch.Tensor:
+    """The float32 matrix of the int8 tier's straight-through backward."""
+    return q.to(torch.float32) * torch.tensor(mat_scale * 127.0,
+                                              dtype=torch.float32)
+
+
+def _vjp(g, run, args, analysis):
+    """The VJP of an analysis (``analysis``) or synthesis kernel, through
+    ``run``, the other direction's kernel or plain version, with its
+    remapped residents ``args``."""
+    gr = torch.flip(g, (1,))
+    if not analysis:
+        gr = _swap(gr)
+    full = torch.flip(run(kernel_input(gr, g.dtype), *args), (1,))[:, 1:-1]
+    return _swap(full) if analysis else full
+
+
+def fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision="highest"):
+    """Plain version of :func:`fold_matmul_vjp`."""
+    return _vjp(g, matmul_scatter_reference, (p, q, r, s_r, mat, precision),
+                True)
+
+
+def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest"):
+    """The VJP of :func:`fold_matmul`: the cotangent [rows, T+1, N] ->
+    [rows, T, N] through the synthesis kernel, with the residents of
+    :func:`fold_vjp_weights` and :func:`fold_vjp_matrix`."""
+    if g.device.type == "cpu":
+        return fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision)
+    out = _vjp(g, _launch_matmul_scatter, (p, q, r, s_r, mat, precision, 1.0),
+               True)
+    fold_matmul_vjp.launches += 1
+    return out
+
+
+def matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
+                                 precision="highest"):
+    """Plain version of :func:`matmul_scatter_vjp`."""
+    return _vjp(g, fold_matmul_reference, (wa_r, wb, wc, ffr, mat, precision),
+                False)
+
+
+def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest"):
+    """The VJP of :func:`matmul_scatter`: the cotangent [rows, T+1, N] ->
+    [rows, T, N] through the analysis kernel, with the residents of
+    :func:`unfold_vjp_weights` and :func:`unfold_vjp_matrix`."""
+    if g.device.type == "cpu":
+        return matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
+                                            precision)
+    out = _vjp(g, _launch_fold_matmul,
+               (wa_r, wb, wc, ffr, mat, precision, 1.0), False)
+    matmul_scatter_vjp.launches += 1
+    return out
+
+
+def radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
+                                    precision="highest"):
+    """Plain version of :func:`radix_fold_matmul_vjp`."""
+    return _vjp(g, radix_matmul_scatter_reference,
+                (p, q, r, s_r, rot, mats, precision), True)
+
+
+def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest"):
+    """The VJP of :func:`radix_fold_matmul` through the radix synthesis
+    kernel, with the residents of :func:`fold_vjp_weights` and
+    :func:`radix_fold_vjp_residents`."""
+    if g.device.type == "cpu":
+        return radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
+                                               precision)
+    out = _vjp(g, _launch_radix_matmul_scatter,
+               (p, q, r, s_r, rot, mats, precision), True)
+    radix_fold_matmul_vjp.launches += 1
+    return out
+
+
+def radix_matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, rot, mats,
+                                       precision="highest"):
+    """Plain version of :func:`radix_matmul_scatter_vjp`."""
+    return _vjp(g, radix_fold_matmul_reference,
+                (wa_r, wb, wc, ffr, rot, mats, precision), False)
+
+
+def radix_matmul_scatter_vjp(g, wa_r, wb, wc, ffr, rot, mats,
+                             precision="highest"):
+    """The VJP of :func:`radix_matmul_scatter` through the radix analysis
+    kernel, with the residents of :func:`unfold_vjp_weights` and
+    :func:`radix_unfold_vjp_residents`."""
+    if g.device.type == "cpu":
+        return radix_matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, rot,
+                                                  mats, precision)
+    out = _vjp(g, _launch_radix_fold_matmul,
+               (wa_r, wb, wc, ffr, rot, mats, precision), False)
+    radix_matmul_scatter_vjp.launches += 1
+    return out
+
+
+def _function(name: str):
+    """The ``torch.autograd.Function`` of the kernel ``name``: its forward
+    is the wrapper ``name``, its backward the wrapper ``{name}_vjp``, both
+    looked up at each call (so a caller can swap in the plain versions).
+    ``apply(x, args, vjp_args)`` takes the wrapper's arguments after the
+    signal and the VJP's after the cotangent; only the signal has a
+    gradient."""
+
+    def forward(ctx, x, args, vjp_args):
+        if any(isinstance(a, torch.Tensor) and a.requires_grad
+               for a in (*args, *vjp_args)):
+            raise NotImplementedError(
+                "the MDCT kernels' weights, rotations and matrices are "
+                "constants with no gradient; pass tensors that do not "
+                "require grad"
+            )
+        ctx.vjp_args = vjp_args
+        return globals()[name](x, *args)
+
+    def backward(ctx, g):
+        return globals()[f"{name}_vjp"](g.contiguous(), *ctx.vjp_args), \
+            None, None
+
+    camel = "".join(part.title() for part in name.split("_"))
+    return type(camel, (torch.autograd.Function,), dict(
+        forward=staticmethod(forward), backward=staticmethod(backward),
+        __doc__=f"{name} with its VJP as the backward.",
+    ))
+
+
 KERNELS = (fold_matmul, matmul_scatter, radix_fold_matmul,
            radix_matmul_scatter)
+VJPS = (fold_matmul_vjp, matmul_scatter_vjp, radix_fold_matmul_vjp,
+        radix_matmul_scatter_vjp)
+FUNCTIONS = {k.__name__: _function(k.__name__) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + VJPS:
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {k.__name__: k.launches for k in KERNELS + VJPS}
 
 
 reset_launch_counts()

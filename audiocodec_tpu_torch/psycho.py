@@ -110,7 +110,8 @@ class PsychoacousticModel(nn.Module):
     :param compute_dtype: float64, float32 or bfloat16.
     :param bark_precision: tier of the Bark contractions: "highest",
         "high" or "default".
-    :param device: where the buffers live.
+    :param device: where the buffers live: the card unless the caller asks
+        for the CPU.
     """
 
     def __init__(
@@ -121,7 +122,7 @@ class PsychoacousticModel(nn.Module):
         alpha: float = 0.6,
         compute_dtype=torch.float32,
         bark_precision: str = "highest",
-        device="cpu",
+        device="cuda",
     ):
         super().__init__()
         if bark_precision not in _dct.PRECISIONS:

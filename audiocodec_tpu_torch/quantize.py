@@ -68,3 +68,25 @@ def dequantize(codes: torch.Tensor, delta: torch.Tensor, dtype=None,
         mag = mag + torch.sign(mag) * _const(recon_offset, delta)
     out = mag * delta
     return out if dtype is None else out.to(dtype)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mdct_amplitudes, masking_threshold):
+        codes, delta = quantize(mdct_amplitudes, masking_threshold)
+        return dequantize(codes, delta, dtype=mdct_amplitudes.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        zeros = torch.zeros_like(g) if ctx.needs_input_grad[1] else None
+        return g, zeros
+
+
+def quantize_ste(mdct_amplitudes: torch.Tensor,
+                 masking_threshold: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize round trip with a straight-through gradient.
+
+    Forward: dequantize(quantize(x)); backward: identity on the amplitudes,
+    zeros on the threshold. Lets training optimize through the quantizer.
+    """
+    return _QuantizeSTE.apply(mdct_amplitudes, masking_threshold)

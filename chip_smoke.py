@@ -37,11 +37,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    same seed or generator;
 10. an f32 ``highest`` MDCT round trip through the radix kernels at N=2048
    must reach 125 dB and come within 1 dB of their plain versions'; the
-   mono and radix designs are timed side by side at N=2048.
+   mono and radix designs are timed side by side at N=2048;
+11. each VJP (``ops/cuda_mdct.py`` ``*_vjp``: the other direction's kernel
+   on the block-reversed cotangent) against ``torch.autograd.grad``
+   through its plain forward version on the same seeded cotangent, at the
+   main path's shapes: mono [32, 430, 1024] at f32 ``highest``, f32
+   ``default``, bf16 ``default`` and int8 (straight-through: against the
+   ``default`` forward on the dequantized matrix), radix [32, 215, 2048]
+   at f32 ``highest`` and bf16 ``default``; each timed against its plain
+   version and a conv1d / conv_transpose1d call of the same function;
+12. training at full width (32 mono clips of 10 s, 64 Bark bands), Adam
+   1e-3: ``SpectralAE(1024, 512, 64, 1/32)`` in (r) f32 ``highest`` and (b)
+   bf16 ``default``, the per-band-gain trainer in (r2) f32 ``highest``
+   N=2048 radix and (a) bf16 int8, ``PostFilter(1024, 512)`` in (c) f32
+   ``default``. Each step launches the analysis, the synthesis and the
+   synthesis VJP once and no other kernel; the first step's loss and
+   gradients agree with the all-plain step's (``TRAIN_TOL``); five steps
+   stay finite; ms per step, training audio-s/s and peak memory;
+13. the gradient of ``inverse_transform(transform(x))`` with respect to
+   the waveform in every configuration of phase 11 ((r) and (r2) among
+   them), which fires both VJPs, against the all-plain gradient.
 
-The line before the last is a JSON object with one entry per kernel and
-tier; the last line is {"ok": true, "device": {...}}. Without a CUDA device,
-or without the package beside it, the script exits non-zero and prints no
+Each kernel line carries its bound (the larger of its operations over the
+card's peak for the tier and its bytes over 3.35 TB/s) and the time of one
+PyTorch call computing the same function where there is one. The line
+before the last is a JSON object with one entry per kernel and tier; the
+last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the package beside it, the script exits non-zero and prints no
 result. It never imports jax.
 """
 
@@ -73,9 +95,19 @@ REPLACES = {
     "radix_fold_matmul": "audiocodec_tpu/ops/pallas_mdct.py:696",
     "radix_matmul_scatter": "audiocodec_tpu/ops/pallas_mdct.py:708",
     "add_masked_noise": "audiocodec_tpu/ops/pallas_noise.py:53",
+    "fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:641",
+    "matmul_scatter_vjp": "audiocodec_tpu/ops/pallas_mdct.py:675",
+    "radix_fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:729",
+    "radix_matmul_scatter_vjp": "audiocodec_tpu/ops/pallas_mdct.py:760",
 }
-# Dense peaks of an H100 SXM at 700 W (NVIDIA data sheet), TFLOP/s or TOP/s
+# Dense peaks of an H100 SXM at 700 W (NVIDIA data sheet), TFLOP/s or TOP/s,
+# and its memory rate, TB/s
 PEAK = {"int8": 1979.0, "default": 989.0, "highest": 67.0}
+MEMORY_TB_S = 3.35
+# Operations an element of the noise kernel: Philox4x32-10 (10 rounds of
+# 2 32x32->64-bit products, 2 xors and 2 key additions) and Box-Muller
+# (log, sqrt, cos, a few products), counted against the float32 rate
+NOISE_OPS_PER_ELEMENT = 130
 
 CONFIGS = {
     "a": dict(compute_dtype="bfloat16", fast_bf16=True,
@@ -105,6 +137,28 @@ DESIGN_CONFIGS = {
                           fast_bf16=True, dct_precision="default",
                           kernel_design="radix"),
 }
+
+# The VJPs' tiers (phase 11) and the MDCTs of the gradient paths (phases
+# 12-13), by label: (r), (c), (b), (a) and (r2) are the configurations of
+# phases 4 and 9, (b2) the radix bf16 tier
+VJP_CASES = {
+    "r": NOISE_CONFIGS["r"],
+    "c": dict(filters_n=FILTERS_N, compute_dtype="float32",
+              dct_precision="default"),
+    "b": NOISE_CONFIGS["b"],
+    "a": dict(filters_n=FILTERS_N, compute_dtype="bfloat16", fast_bf16=True,
+              dct_precision="int8"),
+    "r2": NOISE_CONFIGS["r2"],
+    "b2": DESIGN_CONFIGS["default-radix"],
+}
+# The trainers of phase 12, on the codec of the VJP case of the same label
+TRAIN_CONFIGS = {"r": "spectral_ae", "b": "spectral_ae", "r2": "gains",
+                 "a": "gains", "c": "post_filter"}
+# (loss rtol, gradient atol as a share of each gradient's peak) of a
+# training step through the kernels against the all-plain step: float32
+# tiers agree to a few float32 ulps of the spectrum, bfloat16 ones to a few
+# bf16 ulps, which the quantizer's rounding and the nonlinearities carry on
+TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-2, 5e-2)}
 
 
 class PhaseError(RuntimeError):
@@ -156,16 +210,16 @@ def expected_counts(**ones):
 
 
 def plain_kernels():
-    """Every kernel wrapper swapped for its plain version (the wrappers are
-    looked up at each call)."""
+    """Every kernel wrapper and VJP swapped for its plain version (the
+    wrappers are looked up at each call, by the MDCT's autograd Functions
+    too)."""
     from contextlib import ExitStack
 
     from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
 
     stack = ExitStack()
-    for module, names in ((cuda_mdct, ("fold_matmul", "matmul_scatter",
-                                       "radix_fold_matmul",
-                                       "radix_matmul_scatter")),
+    mdct_names = [k.__name__ for k in cuda_mdct.KERNELS + cuda_mdct.VJPS]
+    for module, names in ((cuda_mdct, mdct_names),
                           (cuda_noise, ("add_masked_noise",))):
         for name in names:
             stack.enter_context(mock.patch.object(
@@ -253,10 +307,82 @@ def entry(name, tier, dtype, config, n, **numbers):
                 replaces=REPLACES[name], launches=None, **numbers)
 
 
+def nbytes(*tensors):
+    """Bytes of the tensors among the arguments, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if hasattr(t, "element_size"))
+
+
+def bound(flops, n_bytes, tier):
+    """(bound_ms, bound_by): the larger of the operations over the tier's
+    peak and the bytes over the memory rate."""
+    ops_ms = flops / (PEAK["highest" if tier == "high" else tier] * 1e9)
+    bytes_ms = n_bytes / (MEMORY_TB_S * 1e9)
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (
+        bytes_ms, "bytes")
+
+
+def gemm_flops(spectrum_frames, n, radix):
+    """The products' operations: one [N, N] product (two [N/2, N/2] ones in
+    the radix design) per spectrum frame and row."""
+    return 2.0 * BATCH * spectrum_frames * (n * n // 2 if radix else n * n)
+
+
+def library_call(torch, mdct, direction, adjoint=False):
+    """One PyTorch call computing the same function as the kernel of
+    ``direction`` (or, with ``adjoint``, as its VJP), taking and giving the
+    kernels' [rows, frames, N] layout: the analysis is a conv1d of stride N
+    whose [N, 1, 2N] weight is its response to unit frames, the synthesis a
+    conv_transpose1d likewise, and the VJP of each the other on the same
+    weight (built in float64 on the card from the plain versions). cuDNN's
+    TF32 is off at ``highest`` and on at ``default``; the int8 tiers have
+    no such call (None). Timed for ``library_ms`` only."""
+    from audiocodec_tpu_torch.ops import cuda_mdct, dct, folding
+
+    tier = mdct.kernel_precision
+    if tier == "int8":
+        return None
+    n, dev = mdct.filters_n, mdct.wa_r.device
+    coeffs = folding.make_fold_coefficients(n, mdct.window_type)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
+                                    device=dev)
+    m64, s = dct.dct4_matrix(n), math.sqrt(4.0 * n)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)[:, None, :]
+    analysis = direction == "forward"
+    if analysis:  # frame 1 answers x[0] through taps 0..N-1, frame 0 N..2N-1
+        out = cuda_mdct.fold_matmul_reference(
+            eye, *(f64(getattr(coeffs, k)) for k in ("wa_r", "wb", "wc",
+                                                      "ffr")), f64(m64 / s))
+        w = torch.cat([out[:, 1], out[:, 0]]).T
+    else:
+        out = cuda_mdct.matmul_scatter_reference(
+            eye, *(f64(getattr(coeffs, k)) for k in ("p", "q", "r", "s_r")),
+            f64(m64 * s))
+        w = out.reshape(n, 2 * n)
+    weight = w[:, None, :].contiguous().to(mdct.kernel_dtype)
+    pad = n if analysis else 0
+    conv = analysis != adjoint
+    fn = torch.nn.functional
+
+    def call(inp):
+        torch.backends.cudnn.allow_tf32 = tier == "default"
+        rows = inp.shape[0]
+        if conv:
+            out = fn.conv1d(inp.reshape(rows, 1, -1), weight, stride=n,
+                            padding=pad)
+            return out.transpose(1, 2)
+        out = fn.conv_transpose1d(inp.transpose(1, 2), weight, stride=n,
+                                  padding=pad)
+        return out.reshape(rows, -1, n)
+
+    return call
+
+
 def compare_kernels(torch, mdct, label, entries):
     """Both kernels of ``mdct``'s design against their plain versions on
     the card, on the test signal cut into [BATCH, blocks, N] rows: error,
-    tolerance, CUDA-event times and the rate of the products."""
+    tolerance, CUDA-event times, the rate of the products, the bound and
+    the library call's time."""
     from audiocodec_tpu_torch.ops import cuda_mdct
 
     n = mdct.filters_n
@@ -267,8 +393,7 @@ def compare_kernels(torch, mdct, label, entries):
     with torch.no_grad():
         spectrum = mdct.kernel("forward")(rows, *fwd_args)
     tier = mdct.kernel_precision
-    # MACs a frame: one [N, N] product, or two [N/2, N/2] ones
-    macs = n * n if mdct.kernel_design == "mono" else n * n // 2
+    radix = mdct.kernel_design == "radix"
     for direction, inp, args in (("forward", rows, fwd_args),
                                  ("inverse", spectrum, inv_args)):
         kernel = mdct.kernel(direction)
@@ -283,17 +408,29 @@ def compare_kernels(torch, mdct, label, entries):
         tol = tolerance(torch, want, name, tier, inp.dtype)
         ms = cuda_ms(torch, lambda: kernel(inp, *args))
         plain_ms = cuda_ms(torch, lambda: plain(inp, *args))
-        tflops = 2.0 * BATCH * got.shape[1] * macs / (ms * 1e-3) / 1e12
+        spectrum_frames = got.shape[1] if direction == "forward" else (
+            inp.shape[1])
+        flops = gemm_flops(spectrum_frames, n, radix)
+        bound_ms, bound_by = bound(flops, nbytes(inp, got, *args), tier)
+        library = library_call(torch, mdct, direction)
+        library_ms = library_err = None
+        if library is not None:
+            library_err = float((library(inp).float() - want.float())
+                                .abs().max())
+            library_ms = cuda_ms(torch, lambda: library(inp), iters=5)
+        tflops = flops / (ms * 1e-3) / 1e12
         peak = PEAK["highest" if tier == "high" else tier]
         dtype = str(inp.dtype).removeprefix("torch.")
         print(f"kernel {name} {tier} {dtype} {tuple(inp.shape)}: "
               f"max_abs_err {err:.3e} (tol {tol:.3e}), {ms:.4f} ms vs "
-              f"plain {plain_ms:.4f} ms, {tflops:.1f} TF/s = "
-              f"{100 * tflops / peak:.1f}% of {peak:.0f}")
+              f"plain {plain_ms:.4f} ms, library {library_ms} ms (max_abs_err "
+              f"{library_err}), bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{tflops:.1f} TF/s = {100 * tflops / peak:.1f}% of {peak:.0f}")
         check(err <= tol, f"{name} {tier} {dtype}: error {err} > {tol}")
         entries.append(entry(name, tier, dtype, label, n, max_abs_err=err,
                              tol=tol, ms=ms, plain_ms=plain_ms,
-                             tflops=tflops))
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms, tflops=tflops))
 
 
 def set_launches(entries, config, counts):
@@ -334,10 +471,15 @@ def noise_kernel_phase(torch, codecs, entries):
               f"max_abs_err {err:.3e} (tol {tol:.3e}), {ms:.4f} ms vs plain "
               f"{plain_ms:.4f} ms, {gbs:.0f} GB/s")
         check(err <= tol, f"add_masked_noise {dtype}: error {err} > {tol}")
+        bound_ms, bound_by = bound(
+            NOISE_OPS_PER_ELEMENT * spec.numel(), nbytes(spec, thr, got),
+            "highest")
         entries.append(entry("add_masked_noise", None, dtype,
                              f"noise ({label})", codec.mdct.filters_n,
                              max_abs_err=err, tol=tol, ms=ms,
-                             plain_ms=plain_ms, gb_per_s=gbs))
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None,
+                             gb_per_s=gbs))
         del got, want
 
     dev = spec.device
@@ -391,7 +533,7 @@ def noise_path_phase(torch, dev, entries):
         check(codec.mdct.use_kernel is True,
               f"noise ({k}): use_kernel='auto' did not resolve to the kernels")
         x = make_signal(torch, dev, codec.mdct.compute_dtype)
-        mdct_once = {codec.mdct.kernel(d).__name__: 1
+        mdct_once = {codec.mdct.kernel_name(d): 1
                      for d in ("forward", "inverse")}
         gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
         calls = {
@@ -501,6 +643,309 @@ def design_phase(torch, dev, entries):
         del codec, xk
     return dict(radix_fidelity_snr_db=fid, radix_plain_fidelity_snr_db=plain_fid,
                 designs_n2048=designs)
+
+
+def vjp_tolerance(torch, want, tier, dtype):
+    """A VJP's tolerance against autograd through the plain forward
+    version, relative to the peak since a VJP's scale follows its
+    cotangent. ``highest``/``high``: 2e-5 of the peak (the forward
+    analysis's 1e-6 at its outputs' peak of ~0.05). The one-pass tiers
+    (``default``, and ``int8``, whose backward is ``default``): four bf16
+    ulps of the peak: the VJP rounds its cotangent (and, in bf16, its fold,
+    rotation and butterfly) before each product where autograd rounds each
+    product's gradient after it (up to 1.5 ulps apart, measured on the
+    plain versions at these shapes), on top of the kernel's two ulps
+    against its plain version."""
+    peak = float(want.float().abs().max())
+    if tier in ("highest", "high") and dtype == torch.float32:
+        return 2e-5 * peak
+    return 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+
+
+def vjp_phase(torch, dev, entries):
+    """11. Each VJP against torch.autograd through its plain forward
+    version on the same cotangent (numpy seed) at the main path's shapes,
+    timed against its plain version, with the time of its block flips and
+    lane-half swaps (torch passes) alone."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import MDCT
+    from audiocodec_tpu_torch.ops import cuda_mdct
+
+    rng = np.random.default_rng(SEED)
+    for k, cfg in VJP_CASES.items():
+        mdct = MDCT(use_kernel=True, device=dev, **cfg)
+        n, tier = mdct.filters_n, mdct.kernel_precision
+        radix = mdct.kernel_design == "radix"
+        rows = make_signal(torch, dev, mdct.kernel_dtype).reshape(
+            BATCH, SAMPLES // n, n)
+        with torch.no_grad():
+            spectrum = mdct.kernel("forward")(rows,
+                                              *mdct.kernel_args("forward"))
+        for direction, inp in (("forward", rows), ("inverse", spectrum)):
+            name = mdct.kernel_name(direction)
+            args, vjp_args = (mdct.kernel_args(direction),
+                              mdct.vjp_args(direction))
+            cot = torch.from_numpy(rng.uniform(
+                -1.0, 1.0, (BATCH, inp.shape[1] + 1, n)).astype(np.float32)
+            ).to(dev, inp.dtype)
+            vjp = getattr(cuda_mdct, f"{name}_vjp")
+            plain_vjp = getattr(cuda_mdct, f"{name}_vjp_reference")
+            plain = getattr(cuda_mdct, f"{name}_reference")
+            plain_args = args
+            if tier == "int8":  # straight-through: default, dequantized
+                d = "fwd" if direction == "forward" else "inv"
+                deq = cuda_mdct.dequantized(getattr(mdct, f"kernel_q_{d}"),
+                                            args[-1])
+                plain_args = (*args[:4], deq, "default", 1.0)
+            got = vjp(cot, *vjp_args)
+            xg = inp.detach().requires_grad_()
+            want, = torch.autograd.grad(plain(xg, *plain_args), xg, cot)
+            torch.cuda.synchronize()
+            del xg
+            check(got.shape == want.shape == inp.shape,
+                  f"{name}_vjp {tier}: shape {tuple(got.shape)}")
+            err = float((got.float() - want.float()).abs().max())
+            plain_err = float((got.float() - plain_vjp(cot, *vjp_args)
+                               .float()).abs().max())
+            tol = vjp_tolerance(torch, want, tier, inp.dtype)
+            ms = cuda_ms(torch, lambda: vjp(cot, *vjp_args))
+            plain_ms = cuda_ms(torch, lambda: plain_vjp(cot, *vjp_args),
+                               iters=10)
+            analysis = direction == "forward"
+            full = torch.empty(BATCH, cot.shape[1] + 1, n, dtype=inp.dtype,
+                               device=dev)
+            glue_ms = cuda_ms(torch, lambda: cuda_mdct._vjp(
+                cot, lambda *_: full, (), analysis))
+            spectrum_frames = cot.shape[1] if analysis else got.shape[1]
+            bound_ms, bound_by = bound(
+                gemm_flops(spectrum_frames, n, radix),
+                nbytes(cot, got, *vjp_args), mdct.vjp_precision)
+            library = library_call(torch, mdct, direction, adjoint=True)
+            library_ms = library_err = None
+            if library is not None:
+                library_err = float((library(cot).float() - want.float())
+                                    .abs().max())
+                library_ms = cuda_ms(torch, lambda: library(cot), iters=5)
+            dtype = str(inp.dtype).removeprefix("torch.")
+            print(f"vjp {name}_vjp {tier} {dtype} {tuple(cot.shape)} -> "
+                  f"{tuple(got.shape)}: max_abs_err {err:.3e} (tol "
+                  f"{tol:.3e}; against the VJP's plain version "
+                  f"{plain_err:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                  f"flips/swaps {glue_ms:.4f} ms, library {library_ms} ms "
+                  f"(max_abs_err {library_err}), bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+            check(err <= tol, f"{name}_vjp {tier} {dtype}: error {err} > "
+                  f"{tol}")
+            config = (f"train ({k})" if not analysis and k in TRAIN_CONFIGS
+                      else f"waveform grad ({k})")
+            entries.append(entry(f"{name}_vjp", tier, dtype, config, n,
+                                 max_abs_err=err, tol=tol,
+                                 plain_version_err=plain_err, ms=ms,
+                                 plain_ms=plain_ms, glue_ms=glue_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=library_ms))
+            del cot, got, want, full
+        del mdct, rows, spectrum
+
+
+def trainer(torch, codec, model, x):
+    """(params, loss_fn(params, generator), step()) of phase 12's trainer
+    ``model`` on ``codec`` at full width, Adam 1e-3, from seeded weights."""
+    from audiocodec_tpu_torch.models import post_filter, spectral_ae
+    from audiocodec_tpu_torch.parallel import train
+
+    n, dtype = codec.mdct.filters_n, codec.mdct.compute_dtype
+    init = torch.Generator(device="cpu").manual_seed(SEED)
+    if model == "gains":
+        state = train.init_state(codec)
+        step, _ = train.make_train_step(codec)
+        return ({"gains": state.gains},
+                lambda p, gen: train.perceptual_loss(codec, p["gains"], x),
+                lambda gen: step(state, x))
+    if model == "spectral_ae":
+        cfg = spectral_ae.SpectralAE(filters_n=n, hidden_n=512, latent_n=64,
+                                     latent_step=1 / 32)
+        params = spectral_ae.init_params(init, cfg, dtype, device=x.device)
+        loss = lambda p, gen: spectral_ae.perceptual_loss(  # noqa: E731
+            codec, cfg, p, x, gen)
+        step, make_opt = spectral_ae.make_train_step(codec, cfg)
+    else:
+        cfg = post_filter.PostFilter(n, 512)
+        params = post_filter.init_params(init, cfg, dtype, device=x.device)
+        loss = lambda p, gen: post_filter.enhancement_loss(  # noqa: E731
+            codec, cfg, p, x)
+        step, make_opt = post_filter.make_train_step(codec, cfg)
+    opt = make_opt(list(params.values()))
+    return params, loss, lambda gen: step(params, opt, x, gen)
+
+
+# The MDCT kernels' device functions (csrc/mdct_kernels.cu), for the trace
+MDCT_DEVICE_FUNCTIONS = ("fold_scale_kernel", "group_scale_kernel",
+                         "mma_gemm_kernel", "ffma_gemm_kernel",
+                         "scatter_kernel", "fold_rotate_kernel",
+                         "butterfly_in_kernel", "butterfly_out_kernel")
+
+
+def trace_steps(torch, step, steps=5):
+    """Device time of ``steps`` calls of ``step`` under torch.profiler, per
+    step: the MDCT kernels, cuBLAS's GEMMs, every other kernel, and the
+    share of the device's span (first kernel start to last kernel end)
+    with no kernel running."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    spans, split = [], dict(mdct_kernels=0.0, library_gemms=0.0, other=0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        if any(f in e.name for f in MDCT_DEVICE_FUNCTIONS):
+            key = "mdct_kernels"
+        elif "gemm" in e.name.lower() or "cutlass" in e.name.lower():
+            key = "library_gemms"
+        else:
+            key = "other"
+        split[key] += (end - start) / 1e3 / steps
+    spans.sort()
+    busy, reach = 0.0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    span = max(end for _, end in spans) - spans[0][0]
+    return dict(device_ms_per_step=split, idle_share=1.0 - busy / span)
+
+
+def training_phase(torch, dev, entries):
+    """12. The trainers at full width: each step launches the analysis,
+    the synthesis and the synthesis VJP once and no other kernel; the
+    first step's loss and gradients agree with the all-plain step's; five
+    steps stay finite; ms per step, training audio-s/s and peak memory."""
+    from audiocodec_tpu_torch import Codec
+
+    results = {}
+    for k, model in TRAIN_CONFIGS.items():
+        codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                             **VJP_CASES[k])
+        mdct = codec.mdct
+        dtype = str(mdct.compute_dtype).removeprefix("torch.")
+        x = make_signal(torch, dev, mdct.compute_dtype)
+        params, loss_fn, step = trainer(torch, codec, model, x)
+        gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
+
+        def value_and_grads():
+            loss = loss_fn(params, gen())
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return float(loss.detach()), grads
+
+        loss, grads = value_and_grads()
+        with plain_kernels():
+            plain_loss, plain_grads = value_and_grads()
+        loss_rtol, grad_share = TRAIN_TOL[dtype]
+        grad_errs = {}
+        for name, g, pg in zip(params, grads, plain_grads):
+            err = float((g.float() - pg.float()).abs().max())
+            tol = grad_share * float(pg.float().abs().max())
+            grad_errs[name] = (err, tol)
+            check(err <= tol, f"train ({k}): gradient of {name} {err} > "
+                  f"{tol} from the all-plain step's")
+        loss_err = abs(loss - plain_loss) / abs(plain_loss)
+        check(loss_err <= loss_rtol, f"train ({k}): loss {loss} vs "
+              f"all-plain {plain_loss}")
+        del grads, plain_grads
+
+        names = [mdct.kernel_name(d) for d in ("forward", "inverse")]
+        reset_all_launch_counts()
+        losses = [float(step(gen()))]
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        want = expected_counts(**{names[0]: 1, names[1]: 1,
+                                  f"{names[1]}_vjp": 1})
+        check(counts == want, f"train ({k}): launch counts {counts}")
+        set_launches(entries, f"train ({k})", counts)
+        losses += [float(step(gen())) for _ in range(4)]
+        check(all(math.isfinite(v) for v in losses),
+              f"train ({k}): losses {losses}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: step(gen()), iters=10)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        forward_ms = cuda_ms(torch, lambda: loss_fn(params, gen()), iters=10)
+        trace = trace_steps(torch, lambda: step(gen()))
+        rate = BATCH * SAMPLES / SAMPLE_RATE / (ms * 1e-3)
+        results[k] = dict(
+            model=model, loss=loss, plain_loss=plain_loss, loss_rel_err=
+            loss_err, grad_err_tol=grad_errs, losses=losses, ms=ms,
+            forward_ms=forward_ms, audio_s_per_s=rate,
+            max_memory_allocated=peak_bytes, trace=trace)
+        print(f"train ({k}) {model} {VJP_CASES[k]}: launches {counts}; "
+              f"loss {loss:.7g} vs all-plain {plain_loss:.7g} (rel "
+              f"{loss_err:.2e}); gradient err/tol "
+              + ", ".join(f"{nm} {e:.2e}/{t:.2e}"
+                          for nm, (e, t) in grad_errs.items())
+              + f"; 5 losses {losses}; {ms:.3f} ms/step (forward "
+              f"{forward_ms:.3f}) = {rate:.1f} training audio-s/s; peak "
+              f"memory {peak_bytes / 2**30:.2f} GiB; traced device ms a step "
+              f"{trace['device_ms_per_step']}, idle {trace['idle_share']:.3f}")
+        del codec, x, params, loss_fn, step
+    return results
+
+
+def waveform_grad_phase(torch, dev, entries):
+    """13. The gradient of inverse_transform(transform(x)) with respect to
+    the waveform (a seeded cotangent), through all four kernels of the
+    design, against the same gradient through their plain versions."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import MDCT
+
+    rng = np.random.default_rng(SEED + 1)
+    results = {}
+    for k, cfg in VJP_CASES.items():
+        mdct = MDCT(use_kernel=True, device=dev, **cfg)
+        n = mdct.filters_n
+        x = make_signal(torch, dev, mdct.compute_dtype).requires_grad_()
+        cot = torch.from_numpy(rng.uniform(
+            -1.0, 1.0, (BATCH, SAMPLES + 2 * n, 1)).astype(np.float32)
+        ).to(dev, mdct.compute_dtype)
+
+        def grad():
+            out = mdct.inverse_transform(mdct.transform(x))
+            return torch.autograd.grad(out, x, cot)[0]
+
+        reset_all_launch_counts()
+        got = grad()
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        names = [mdct.kernel_name(d) for d in ("forward", "inverse")]
+        check(counts == expected_counts(**{m: 1 for m in names},
+                                        **{f"{m}_vjp": 1 for m in names}),
+              f"waveform grad ({k}): launch counts {counts}")
+        set_launches(entries, f"waveform grad ({k})", counts)
+        with plain_kernels():
+            want = grad()
+        err = float((got.float() - want.float()).abs().max())
+        # two VJPs chained: twice the one VJP's tolerance
+        tol = 2.0 * vjp_tolerance(torch, want, mdct.kernel_precision,
+                                  mdct.kernel_dtype)
+        finite = bool(torch.isfinite(got).all())
+        results[k] = dict(max_abs_err=err, tol=tol,
+                          peak=float(want.float().abs().max()))
+        print(f"waveform grad ({k}) {cfg}: launches {counts}; max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}) against the all-plain gradient")
+        check(finite and err <= tol,
+              f"waveform grad ({k}): error {err} > {tol} (finite {finite})")
+        del mdct, x, cot, got, want
+    return results
 
 
 def noise_phases(torch, dev, entries):
@@ -624,8 +1069,20 @@ def main() -> int:
     # 7-10. the noise-injection codec and its kernels
     noise = noise_phases(torch, dev, entries)
 
+    # 11-13. the VJPs and the training paths
+    t11 = time.monotonic()
+    vjp_phase(torch, dev, entries)
+    t12 = time.monotonic()
+    training = training_phase(torch, dev, entries)
+    t13 = time.monotonic()
+    waveform_grads = waveform_grad_phase(torch, dev, entries)
+    print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
+          f"{t13 - t12:.1f} s, 13 {time.monotonic() - t13:.1f} s")
+
     # 6. the numbers
-    print(json.dumps({"configs": results, "fidelity_snr_db": fid, **noise}))
+    print(json.dumps({"configs": results, "fidelity_snr_db": fid, **noise,
+                      "training": training,
+                      "waveform_grads": waveform_grads}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

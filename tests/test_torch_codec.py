@@ -61,7 +61,7 @@ def _pair(dtype="float32", kernels=False, **kw):
     jc = JaxCodec.create(SR, filters_n=N, compute_dtype=getattr(jnp, dtype),
                          use_pallas=kernels, **kw)
     tc = Codec.create(SR, filters_n=N, compute_dtype=dtype,
-                      use_kernel=kernels, **kw)
+                      use_kernel=kernels, device="cpu", **kw)
     return jc, tc
 
 

@@ -21,10 +21,13 @@ pytestmark = [
                        reason="needs an NVIDIA GPU"),
 ]
 
-MONO_ONCE = {"fold_matmul": 1, "matmul_scatter": 1, "radix_fold_matmul": 0,
-             "radix_matmul_scatter": 0}
-RADIX_ONCE = {"fold_matmul": 0, "matmul_scatter": 0, "radix_fold_matmul": 1,
-              "radix_matmul_scatter": 1}
+def _once(*names):
+    """Every MDCT kernel's and VJP's count 0, except the named ones at 1."""
+    return {k: int(k in names) for k in cuda_mdct.launch_counts()}
+
+
+MONO_ONCE = _once("fold_matmul", "matmul_scatter")
+RADIX_ONCE = _once("radix_fold_matmul", "radix_matmul_scatter")
 
 TIERS = [  # (compute dtype, fast_bf16, precision)
     ("float32", False, "highest"),
@@ -124,6 +127,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.zeros(1, 4, 256, device="cuda")
     with pytest.raises(NotImplementedError, match="backward"):
         cuda_mdct.fold_matmul(x.clone().requires_grad_(), *fwd)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        cuda_mdct.fold_matmul(x, fwd[0].clone().requires_grad_(), *fwd[1:])
     with pytest.raises(ValueError, match="contiguous"):
         cuda_mdct.fold_matmul(torch.zeros(1, 256, 4, device="cuda").mT, *fwd)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -264,3 +269,79 @@ def test_round_trip_fast_copies_nothing_to_the_card():
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert any("noise_kernel" in n for n in names)
     assert not [n for n in names if "HtoD" in n]
+
+
+VJP_TIERS = [  # (design, compute dtype, fast_bf16, precision)
+    ("mono", "float32", False, "highest"),
+    ("mono", "float32", False, "default"),
+    ("mono", "bfloat16", True, "default"),
+    ("mono", "float32", False, "int8"),
+    ("radix", "float32", False, "highest"),
+    ("radix", "bfloat16", True, "default"),
+]
+
+
+@pytest.mark.parametrize("n,blocks", [(256, 37), (1024, 130)])
+@pytest.mark.parametrize("design,dtype,fast,precision", VJP_TIERS)
+def test_vjps_match_autograd_through_the_plain_versions(design, dtype, fast,
+                                                        precision, n, blocks):
+    """Each Function's backward launches the other direction's kernel once
+    and agrees with autograd through the plain forward version (at int8:
+    the plain ``default`` forward on the dequantized matrix), at the
+    forward kernels' tolerances."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, kernel_design=design, device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(blocks)
+    for direction in ("forward", "inverse"):
+        name = m.kernel_name(direction)
+        x = (torch.rand(3, blocks, n, generator=g) * 2 - 1).to(
+            "cuda", m.kernel_dtype).requires_grad_()
+        cot = (torch.rand(3, blocks + 1, n, generator=g) * 2 - 1).to(
+            "cuda", m.kernel_dtype)
+        args = m.kernel_args(direction)
+        cuda_mdct.reset_launch_counts()
+        y = cuda_mdct.FUNCTIONS[name].apply(x, args, m.vjp_args(direction))
+        got, = torch.autograd.grad(y, x, cot)
+        torch.cuda.synchronize()
+        assert cuda_mdct.launch_counts() == _once(name, f"{name}_vjp")
+        plain_args = args
+        if precision == "int8":
+            d = "fwd" if direction == "forward" else "inv"
+            deq = cuda_mdct.dequantized(getattr(m, f"kernel_q_{d}"),
+                                        args[-1])
+            plain_args = (*args[:4], deq, "default", 1.0)
+        plain = getattr(cuda_mdct, f"{name}_reference")
+        want, = torch.autograd.grad(plain(x, *plain_args), x, cot)
+        err = float((got.float() - want.float()).abs().max())
+        assert got.shape == x.shape
+        assert err <= _vjp_tol(want, m.kernel_precision, x.dtype), err
+
+
+def _vjp_tol(want, tier, dtype):
+    """chip_smoke.py's ``vjp_tolerance``: 2e-5 of the peak at float32
+    ``highest``; four bf16 ulps of the peak at the one-pass tiers, whose
+    VJP rounds its operands to bf16 before each product where autograd
+    through the plain forward rounds each product's gradient after it."""
+    peak = float(want.float().abs().max())
+    if tier in ("highest", "high") and dtype == torch.float32:
+        return 2e-5 * peak
+    return 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+
+
+@pytest.mark.parametrize("design", ["mono", "radix"])
+def test_training_step_launches_each_kernel_once(design):
+    from audiocodec_tpu_torch.models import spectral_ae as sae
+
+    c = Codec.create(44100, filters_n=1024, kernel_design=design,
+                     device="cuda")
+    cfg = sae.SpectralAE(1024, 64, 16)
+    params = sae.init_params(torch.Generator().manual_seed(0), cfg)
+    step, make_opt = sae.make_train_step(c, cfg)
+    opt = make_opt(list(params.values()))
+    x = torch.rand(2, 8 * 1024, 1, device="cuda") - 0.5
+    cuda_mdct.reset_launch_counts()
+    loss = step(params, opt, x)
+    torch.cuda.synchronize()
+    names = [c.mdct.kernel_name(d) for d in ("forward", "inverse")]
+    assert cuda_mdct.launch_counts() == _once(*names, f"{names[1]}_vjp")
+    assert bool(torch.isfinite(loss))

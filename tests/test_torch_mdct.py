@@ -42,7 +42,7 @@ def test_mdct_highest_matches_jax(dtype, fwd_atol, inv_atol, window_type):
     n = 256
     jm = JaxMDCT.create(n, window_type=window_type,
                         compute_dtype=getattr(jnp, dtype), use_pallas=False)
-    tm = MDCT(n, window_type=window_type, compute_dtype=dtype)
+    tm = MDCT(n, window_type=window_type, compute_dtype=dtype, device="cpu")
     xj, xt = _inputs((2, 6 * n, 2), dtype, 0)
     yj, yt = jm.transform(xj), tm.transform(xt)
     assert yt.shape == (2, 7, n, 2) and yt.dtype == getattr(torch, dtype)
@@ -61,7 +61,7 @@ def test_dense_formulation_matches_jax(precision):
     tier's error."""
     n = 256
     jm = JaxMDCT.create(n, dct_precision=precision, use_pallas=False)
-    tm = MDCT(n, dct_precision=precision)
+    tm = MDCT(n, dct_precision=precision, device="cpu")
     assert tm.dense_fwd_cur is not None and not tm.kernel_fwd
     np.testing.assert_array_equal(tm.dense_fwd_cur.numpy(),
                                   np.asarray(jm.dense_fwd_cur))
@@ -101,7 +101,7 @@ def test_kernel_plain_versions_match_pallas(n, blocks, dtype, precision, fast,
                         use_pallas=True, dct_precision=precision,
                         pallas_kernel="mono")
     tm = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
-              dct_precision=precision)
+              dct_precision=precision, device="cpu")
     xj, xt = _inputs((2, blocks * n, 1), dtype, blocks)
     sj, st = _inputs((2, blocks, n, 1), dtype, blocks + 1, scale=0.05)
     with pltpu.force_tpu_interpret_mode():
@@ -113,7 +113,7 @@ def test_kernel_plain_versions_match_pallas(n, blocks, dtype, precision, fast,
 
 def test_kernel_round_trip_reconstructs():
     n = 256
-    tm = MDCT(n, use_kernel=True)
+    tm = MDCT(n, use_kernel=True, device="cpu")
     _, xt = _inputs((1, 10 * n, 1), "float32", 5)
     rt = tm.inverse_transform(tm.transform(xt))
     assert float((xt - rt[:, n:-n]).abs().max()) < 1e-5
@@ -121,7 +121,7 @@ def test_kernel_round_trip_reconstructs():
 
 class TestUseKernel:
     def test_auto_is_off_on_the_cpu(self):
-        m = MDCT(1024)
+        m = MDCT(1024, device="cpu")
         assert m.use_kernel is False
         assert m.kernel_q_fwd is None and m.kernel_q_inv is None
 
@@ -129,7 +129,7 @@ class TestUseKernel:
         ("forward", True, False), ("inverse", False, True), (True, True, True),
     ])
     def test_directions(self, mode, fwd, inv):
-        m = MDCT(256, use_kernel=mode, dct_precision="int8")
+        m = MDCT(256, use_kernel=mode, dct_precision="int8", device="cpu")
         assert (m.kernel_fwd, m.kernel_inv) == (fwd, inv)
         assert (m.kernel_q_fwd is not None) == fwd
         assert (m.dense_inv_cur is not None) == (not inv)
@@ -145,17 +145,19 @@ class TestUseKernel:
     ])
     def test_rejected(self, kwargs, match):
         with pytest.raises(ValueError, match=match):
-            MDCT(**kwargs)
+            MDCT(device="cpu", **kwargs)
 
     def test_bf16_kernel_runs_one_pass(self):
         m = MDCT(256, compute_dtype="bfloat16", fast_bf16=True,
-                 use_kernel=True)
+                 use_kernel=True, device="cpu")
         assert m.kernel_dtype == torch.bfloat16
         assert m.kernel_precision == "default"
-        slow = MDCT(256, compute_dtype="bfloat16", use_kernel=True)
+        slow = MDCT(256, compute_dtype="bfloat16", use_kernel=True,
+                    device="cpu")
         assert slow.kernel_dtype == torch.float32
         assert slow.kernel_precision == "highest"
 
     def test_input_dtype_enforced(self):
         with pytest.raises(TypeError, match="never casts"):
-            MDCT(256).transform(torch.zeros(1, 256, 1, dtype=torch.float64))
+            MDCT(256, device="cpu").transform(
+                torch.zeros(1, 256, 1, dtype=torch.float64))

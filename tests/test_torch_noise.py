@@ -120,7 +120,7 @@ def _signal(blocks=6, n=256, batch=2):
 
 
 def test_encode_fast_with_zero_threshold_returns_the_spectrum(monkeypatch):
-    c = Codec.create(SR, filters_n=256, bark_bands_n=32)
+    c = Codec.create(SR, filters_n=256, bark_bands_n=32, device="cpu")
     x = torch.from_numpy(_signal())
     spectrum = c.mdct.transform(x)
     monkeypatch.setattr(c.psycho, "global_masking_threshold",
@@ -129,7 +129,7 @@ def test_encode_fast_with_zero_threshold_returns_the_spectrum(monkeypatch):
 
 
 def test_encode_and_encode_fast_draw_their_own_streams():
-    c = Codec.create(SR, filters_n=256, bark_bands_n=32)
+    c = Codec.create(SR, filters_n=256, bark_bands_n=32, device="cpu")
     x = torch.from_numpy(_signal())
     spectrum, threshold = c._analyze(x)
     assert spectrum.is_contiguous() and threshold.is_contiguous()  # no copy
@@ -173,7 +173,7 @@ def test_deterministic_part_matches_jax(config):
     jc = JaxCodec.create(SR, filters_n=n, compute_dtype=getattr(jnp, dtype),
                          use_pallas=True, pallas_kernel=design, **kw)
     tc = Codec.create(SR, filters_n=n, compute_dtype=dtype, use_kernel=True,
-                      kernel_design=design, **kw)
+                      kernel_design=design, device="cpu", **kw)
     x = _signal(n=n)
     xj = jnp.asarray(x, dtype=getattr(jnp, dtype))
     xt = torch.from_numpy(x).to(getattr(torch, dtype))

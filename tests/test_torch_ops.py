@@ -174,7 +174,8 @@ def test_build_without_nvcc_raises(tmp_path):
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, audiocodec_tpu_torch, audiocodec_tpu_torch.convert; "
+    code = ("import sys, audiocodec_tpu_torch, audiocodec_tpu_torch.convert, "
+            "audiocodec_tpu_torch.models, audiocodec_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'audiocodec_tpu.')) or "
             "m == 'audiocodec_tpu']; "

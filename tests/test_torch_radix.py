@@ -45,7 +45,7 @@ def _pair(n, **kw):
     jm = JaxMDCT.create(n, compute_dtype=getattr(jnp, dtype), use_pallas=True,
                         pallas_kernel="radix", **kw)
     tm = MDCT(n, compute_dtype=dtype, use_kernel=True, kernel_design="radix",
-              **kw)
+              device="cpu", **kw)
     return jm, tm
 
 
@@ -126,14 +126,14 @@ def test_builders_carry_the_jax_factors_over_as_they_are():
 
 def test_radix_round_trip_reconstructs():
     n = 256
-    tm = MDCT(n, use_kernel=True, kernel_design="radix")
+    tm = MDCT(n, use_kernel=True, kernel_design="radix", device="cpu")
     _, xt = _inputs((1, 10 * n, 1), "float32", 5)
     rt = tm.inverse_transform(tm.transform(xt))
     assert float((xt - rt[:, n:-n]).abs().max()) < 1e-5
 
 
 def test_radix_cpu_tensor_takes_the_plain_version_and_counts_nothing():
-    m = MDCT(256, use_kernel=True, kernel_design="radix")
+    m = MDCT(256, use_kernel=True, kernel_design="radix", device="cpu")
     x = torch.rand(2, 5, 256) - 0.5
     cuda_mdct.reset_launch_counts()
     fwd = m.kernel_args("forward")
@@ -150,21 +150,24 @@ def test_radix_cpu_tensor_takes_the_plain_version_and_counts_nothing():
 
 class TestKernelDesign:
     def test_auto_is_mono(self):
-        assert MDCT(2048, use_kernel=True).kernel_design == "mono"
-        assert Codec.create(44100, filters_n=2048).mdct.kernel_design == "mono"
+        assert MDCT(2048, use_kernel=True,
+                    device="cpu").kernel_design == "mono"
+        assert Codec.create(44100, filters_n=2048,
+                            device="cpu").mdct.kernel_design == "mono"
 
     def test_radix_buffers_only_where_a_kernel_runs(self):
-        m = MDCT(256, use_kernel="forward", kernel_design="radix")
+        m = MDCT(256, use_kernel="forward", kernel_design="radix",
+                 device="cpu")
         assert m.radix_rot_fwd.shape == (2, 256)
         assert m.radix_rot_inv is None and m.radix_mat_inv is None
-        off = MDCT(256, kernel_design="radix")
+        off = MDCT(256, kernel_design="radix", device="cpu")
         assert off.radix_mat_fwd is None and off.kernel_design == "radix"
-        mono = MDCT(256, use_kernel=True)
+        mono = MDCT(256, use_kernel=True, device="cpu")
         assert mono.radix_mat_fwd is None
 
     def test_codec_passes_it_through(self):
         c = Codec.create(44100, filters_n=256, bark_bands_n=32,
-                         use_kernel=True, kernel_design="radix")
+                         use_kernel=True, kernel_design="radix", device="cpu")
         assert c.mdct.kernel_design == "radix"
         assert c.mdct.kernel("forward") is cuda_mdct.radix_fold_matmul
 
@@ -176,7 +179,7 @@ class TestKernelDesign:
     ])
     def test_rejected(self, kwargs, match):
         with pytest.raises(ValueError, match=match):
-            MDCT(256, **kwargs)
+            MDCT(256, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("precision", ["highest", "high"])
@@ -185,7 +188,8 @@ def test_convert_carries_a_jax_radix_codec(precision):
     jc = JaxCodec.create(sr, filters_n=n, bark_bands_n=32, use_pallas=True,
                          pallas_kernel="radix", dct_precision=precision)
     tc = Codec.create(sr, filters_n=n, bark_bands_n=32, use_kernel=True,
-                      kernel_design="radix", dct_precision=precision)
+                      kernel_design="radix", dct_precision=precision,
+                      device="cpu")
     leaves, meta = _leaves_and_meta(jc)
     got = codec_from_arrays(leaves, meta, device="cpu")
     assert got.mdct.kernel_design == "radix"
