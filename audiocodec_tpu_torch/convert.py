@@ -11,9 +11,10 @@ rotation vectors and the [N/2, N/2] factors are defined on the pairs
 (f_n, f_{N-1-n}), which the TPU's swizzled layout and the port's natural
 order both hold. Each leaf takes the dtype of the buffer it fills.
 
-The kernels' VJP residents have no JAX leaves: the port rebuilds them from
-the forward residents it has set (``MDCT.build_vjp_residents``), so that a
-converted codec's backward pairs with its forward. Model parameters and
+The kernels' operand forms and VJP residents have no JAX leaves: the port
+rebuilds them from the forward residents it has set
+(``MDCT.build_kernel_residents``), so that a converted codec's kernels and
+backward pair with its forward. Model parameters and
 trained gains, plain dicts of arrays in the JAX package, carry over by name
 (:func:`params_from_arrays`).
 """
@@ -75,9 +76,9 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         ``pallas_int8_scale``.
     :param device: the card unless the caller asks for the CPU.
 
-    The VJP residents are rebuilt from the leaves set here, through
-    ``MDCT.build_vjp_residents`` (the helper the MDCT's constructor calls),
-    not kept from the port's own coefficients.
+    The kernels' operand forms and VJP residents are rebuilt from the
+    leaves set here, through ``MDCT.build_kernel_residents`` (the helper the
+    MDCT's constructor calls), not kept from the port's own coefficients.
     """
     codec = Codec.create(
         meta["sample_rate"],
@@ -117,7 +118,7 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         setattr(module, name, _tensor(arr, device).to(dtype))
     if meta.get("pallas_int8_scale") is not None:
         mdct.int8_scale = tuple(meta["pallas_int8_scale"])
-    mdct.build_vjp_residents()
+    mdct.build_kernel_residents()
     return codec
 
 

@@ -35,18 +35,19 @@
 // N=1024) one direction is 2*32*431*1024^2 = 29 GFLOP against ~113 MB of
 // device memory traffic in float32 (~55 MB in bfloat16), i.e. ~250
 // FLOP/byte. The card needs ~295 bf16 FLOP per byte before its tensor cores
-// rather than its memory are the limit, so both kernels are compute bound
-// once the matmul runs on the tensor cores, and far more so in FFMA.
+// rather than its memory are the limit, so the bound is the products' at
+// `default` and the bytes' at int8, and the FFMA tiers are far above both;
+// what holds tc_kernel back in practice is its note's subject (below).
 //
-// What the design does about it: the matmul of the `default` and `int8`
-// tiers runs on the tensor cores (WMMA bf16 -> f32 and s8 -> s32 tiles) in
-// 128x128 output tiles, so each staged A and B value feeds 128 MACs; the
-// fold is an A-operand prologue computed while the tile is staged into
-// shared memory, so the folded signal never goes to device memory; the next
-// K step's global loads are issued before the current step's MMAs (register
-// staging into a double-buffered shared tile). Still missing on the way to
-// the card's tensor-core peak: wgmma, TMA/cp.async and a persistent
-// schedule. The FFMA tiers keep a plain 64x64 tile.
+// What the design does about it: the mono design's `default` and `int8`
+// tiers run tc_kernel (below): wgmma on Hopper's tensor cores, the matrix
+// streamed into shared memory by TMA, the fold (or the spectrum rows)
+// built once per frame into a shared A tile, the int8 scales taken in the
+// same pass, and the synthesis's overlap scatter in the epilogue, so a
+// direction is one launch and nothing but x and the output goes through
+// device memory. The FFMA tiers (`highest`, `high`) keep a plain 64x64
+// tile, and the synthesis there a z scratch and scatter_kernel; the radix
+// design keeps its three passes and the WMMA products.
 //
 // Numerics, which the plain torch versions in ops/cuda_mdct.py share:
 //   * the fold rounds each product and each sum to the input dtype, with
@@ -64,12 +65,18 @@
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
 #include <type_traits>
+#include <vector>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -161,52 +168,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// int8 pre-pass of the analysis: scales[row, n] = max_k |folded[n, k]| +
-// 1e-12. One block per (frame, row).
-template <typename T>
-__global__ void __launch_bounds__(THREADS) fold_scale_kernel(
-    const T* __restrict__ x, const T* __restrict__ wa_r,
-    const T* __restrict__ wb, const T* __restrict__ wc,
-    const T* __restrict__ ffr, float* __restrict__ scales, int t_in, int N) {
-  const int n = blockIdx.x;
-  const int row = blockIdx.y;
-  const T* xr = x + (size_t)row * t_in * N;
-  float m = 0.f;
-  for (int k = threadIdx.x; k < N; k += THREADS)
-    m = fmaxf(m, fabsf(fold_value<T>(xr, wa_r, wb, wc, ffr, n, k, t_in, N)));
-  __shared__ float red[THREADS / 32];
-  m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < THREADS / 32 ? red[threadIdx.x] : 0.f;
-    m = warp_max(m);
-    if (threadIdx.x == 0)
-      scales[(size_t)row * (t_in + 1) + n] = __fadd_rn(m, 1e-12f);
-  }
-}
-
-// int8g pre-pass of the synthesis: scales[row, n, g] = max over the 128
-// columns of group g of |y[row, n]| + 1e-12. One block per (frame, row),
-// one warp per group.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) group_scale_kernel(
-    const T* __restrict__ y, float* __restrict__ scales, int t_in, int N) {
-  const int n = blockIdx.x;
-  const int row = blockIdx.y;
-  const int groups = N / GROUP;
-  const T* yr = y + ((size_t)row * t_in + n) * N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int g = warp; g < groups; g += THREADS / 32) {
-    float m = 0.f;
-    for (int c = lane; c < GROUP; c += 32)
-      m = fmaxf(m, fabsf(to_f(yr[g * GROUP + c])));
-    m = warp_max(m);
-    if (lane == 0)
-      scales[((size_t)row * t_in + n) * groups + g] = __fadd_rn(m, 1e-12f);
-  }
 }
 
 // Where a GEMM's operands lie, by the number of HALVES (a template
@@ -312,43 +273,27 @@ struct Raw16 {
   }
 };
 
-// Tensor-core tiers (`default`: WMMA bf16 -> f32; `int8`: WMMA s8 -> s32,
-// per frame for the analysis, per frame and 128-column group for the
-// synthesis). One [MM frames x MN columns] tile for one row; 8 warps as
-// 2 (frames) x 4 (columns), each warp 64 x 32 = 4 x 2 WMMA tiles.
+// The radix design's `default` products (WMMA bf16 -> f32): one [MM frames
+// x MN columns] tile of the spectrum rows A @ mat for one row, the halves of
+// Geometry; 8 warps as 2 (frames) x 4 (columns), each warp 64 x 32 = 4 x 2
+// WMMA tiles. The mono design's tensor-core tiers run tc_kernel below.
 //
 // Staging: each thread stages 16 consecutive K values of one frame (A) and
 // of one column (B) per 32-deep K step, into a double-buffered shared
-// tile: the next step's global loads are issued before this step's MMAs,
-// and folded/quantized/stored after them, so their latency hides behind
-// the tensor cores. Shared tiles are [chunk of 16 K][frame or column][16]:
-// A row-major and B column-major, every WMMA pointer 32-byte aligned.
+// tile: the next step's global loads start before this step's MMAs,
+// and converted/stored after them, so their latency hides behind the
+// tensor cores. Shared tiles are [chunk of 16 K][frame or column][16]:
+// A row-major and B column-major, every WMMA pointer 32-byte aligned. Two
+// blocks share an SM (128 registers a thread).
 constexpr int MM = 128, MN = 128, MK = 32;
 
-// Two blocks share an SM when a kernel fits in 128 registers a thread
-// (measured: int8 analysis 0.655 -> 0.495 ms, bf16 analysis 0.51 -> 0.37
-// ms at the main path's shapes). The int8g synthesis (per-group float sums)
-// and the float32-input analysis (twice the staged bytes) spill under that
-// cap and slow down, so they keep one block.
-template <typename T>
-__host__ __device__ constexpr int blocks_per_sm(int tier, bool fold) {
-  return (tier == INT8 && !fold) || (fold && sizeof(T) == 4) ? 1 : 2;
-}
-
-template <typename T, int TIER, bool FOLD, typename O, int HALVES = 1>
-__global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
-    mma_gemm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w0,
-    const T* __restrict__ w1, const T* __restrict__ w2,
-    const T* __restrict__ w3, const void* __restrict__ mat_v,
-    const float* __restrict__ scales, O* __restrict__ out, int t_in, int N,
-    float mat_scale) {
-  using AT = typename std::conditional<TIER == BF16, bf16, signed char>::type;
-  using AccT = typename std::conditional<TIER == BF16, float, int>::type;
-  constexpr bool GROUPED = TIER == INT8 && !FOLD;
-  __shared__ __align__(128) AT As[2][MK / 16][MM][16];
-  __shared__ __align__(128) AT Bs[2][MK / 16][MN][16];
-  __shared__ __align__(128) AccT scr[THREADS / 32][256];  // per-warp tile
+template <typename T, typename O, int HALVES>
+__global__ void __launch_bounds__(THREADS, 2) mma_gemm_kernel(
+    const T* __restrict__ x, const float* __restrict__ mat,
+    O* __restrict__ out, int t_in, int N) {
+  __shared__ __align__(128) bf16 As[2][MK / 16][MM][16];
+  __shared__ __align__(128) bf16 Bs[2][MK / 16][MN][16];
+  __shared__ __align__(128) float scr[THREADS / 32][256];  // per-warp tile
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
@@ -356,125 +301,50 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
   const int cg = blockIdx.y * MN;  // output column (see Geometry)
   const Geometry<HALVES> g(N, cg);
   const int a0 = g.half * g.K;
-  const size_t b0 = (size_t)a0 * g.K;
-  const int h = N >> 1;
-  const int t_out = FOLD ? t_in + 1 : t_in;
-  const int groups = N / GROUP;
   const T* xr = x + (size_t)row * t_in * N;
-  O* outr = out + (size_t)row * t_out * N;
+  O* outr = out + (size_t)row * t_in * N;
 
   // this thread's staging slot: frame / column sm, K chunk skc
   const int sm = tid >> 1, skc = tid & 1;
   const int sn = n0 + sm;
-  float inv = 0.f;  // 127 / scale of this thread's frame (int8)
-  if (TIER == INT8 && FOLD && sn < t_out)
-    inv = __fdiv_rn(127.f, scales[(size_t)row * t_out + sn]);
-
-  Raw16<T> ra, rb;  // A raw: (P, Q) for the fold, P for the synthesis
-  float bv[16];     // B raw (one column, 16 K)
-  const float* matf = static_cast<const float*>(mat_v) + b0;
-  const signed char* mati = static_cast<const signed char*>(mat_v) + b0;
+  Raw16<T> ra;   // A raw
+  float bv[16];  // B raw (one column, 16 K)
+  const float* matf = mat + (size_t)a0 * g.K;
 
   // global loads of K step k0
   auto load = [&](int k0) {
     const int kg = k0 + skc * 16;
-    if constexpr (FOLD) {
-      const int frame = kg < h ? sn - 1 : sn;
-      if (frame >= 0 && frame < t_in) {
-        const T* xb = xr + (size_t)frame * N;
-        if (kg < h) {
-          ra.load(xb + h + kg);       // P = x[n-1, h+k]
-          rb.load(xb + h - 16 - kg);  // Q = x[n-1, h-1-k], reversed
-        } else {
-          ra.load(xb + kg - h);           // P = x[n, j]
-          rb.load(xb + N - 16 - (kg - h));  // Q = x[n, N-1-j], reversed
-        }
-      } else {
-        ra.zero();
-        rb.zero();
-      }
-    } else {
-      if (sn < t_in) ra.load(xr + (size_t)sn * N + a0 + kg);
-      else ra.zero();
-    }
+    if (sn < t_in) ra.load(xr + (size_t)sn * N + a0 + kg);
+    else ra.zero();
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const size_t at = (size_t)(kg + i) * g.K + g.c0 + sm;
-      if constexpr (TIER == BF16) bv[i] = matf[at];
-      else bv[i] = (float)mati[at];
-    }
+    for (int i = 0; i < 16; ++i)
+      bv[i] = matf[(size_t)(kg + i) * g.K + g.c0 + sm];
   };
 
-  // fold / convert / quantize the loaded step into shared stage s
-  auto store = [&](int k0, int s) {
-    const int kg = k0 + skc * 16;
-    float v[16];
-    if constexpr (FOLD) {
-      if (kg < h) {
-        Raw16<T> wa, wb_;
-        wa.load(w0 + kg);   // wa_r, pairs with Q
-        wb_.load(w1 + kg);  // wb, pairs with P
+  // convert the loaded step into shared stage s
+  auto store = [&](int s) {
+    uint32_t pa[8], pb[8];
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
-          v[i] = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(rb[15 - i], wa[i])),
-                                  rnd<T>(__fmul_rn(ra[i], wb_[i]))));
-      } else {
-        Raw16<T> wc_, wf;
-        wc_.load(w2 + kg - h);  // wc, pairs with P
-        wf.load(w3 + kg - h);   // ffr, pairs with Q
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          v[i] = rnd<T>(__fsub_rn(rnd<T>(__fmul_rn(ra[i], wc_[i])),
-                                  rnd<T>(__fmul_rn(rb[15 - i], wf[i]))));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) v[i] = ra[i];
+    for (int i = 0; i < 8; ++i) {
+      pa[i] = pack_bf16(ra[2 * i], ra[2 * i + 1]);
+      pb[i] = pack_bf16(bv[2 * i], bv[2 * i + 1]);
     }
     uint4* a = reinterpret_cast<uint4*>(&As[s][skc][sm][0]);
     uint4* b = reinterpret_cast<uint4*>(&Bs[s][skc][sm][0]);
-    if constexpr (TIER == BF16) {
-      uint32_t pa[8], pb[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        pa[i] = pack_bf16(v[2 * i], v[2 * i + 1]);
-        pb[i] = pack_bf16(bv[2 * i], bv[2 * i + 1]);
-      }
-      a[0] = make_uint4(pa[0], pa[1], pa[2], pa[3]);
-      a[1] = make_uint4(pa[4], pa[5], pa[6], pa[7]);
-      b[0] = make_uint4(pb[0], pb[1], pb[2], pb[3]);
-      b[1] = make_uint4(pb[4], pb[5], pb[6], pb[7]);
-    } else {
-      float q = inv;
-      if (GROUPED)
-        q = sn < t_in ? __fdiv_rn(127.f, scales[((size_t)row * t_in + sn) *
-                                                    groups + kg / GROUP])
-                      : 0.f;
-      uint32_t pa[4], pb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = pack_s8(quant8(v[4 * i], q), quant8(v[4 * i + 1], q),
-                        quant8(v[4 * i + 2], q), quant8(v[4 * i + 3], q));
-        pb[i] = pack_s8((signed char)(int)bv[4 * i],
-                        (signed char)(int)bv[4 * i + 1],
-                        (signed char)(int)bv[4 * i + 2],
-                        (signed char)(int)bv[4 * i + 3]);
-      }
-      a[0] = make_uint4(pa[0], pa[1], pa[2], pa[3]);
-      b[0] = make_uint4(pb[0], pb[1], pb[2], pb[3]);
-    }
+    a[0] = make_uint4(pa[0], pa[1], pa[2], pa[3]);
+    a[1] = make_uint4(pa[4], pa[5], pa[6], pa[7]);
+    b[0] = make_uint4(pb[0], pb[1], pb[2], pb[3]);
+    b[1] = make_uint4(pb[4], pb[5], pb[6], pb[7]);
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, AccT> acc[4][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
   for (int fm = 0; fm < 4; ++fm)
 #pragma unroll
-    for (int fn = 0; fn < 2; ++fn) wmma::fill_fragment(acc[fm][fn], AccT(0));
-  // the synthesis's float sum over 128-column groups (int8g)
-  float sum[GROUPED ? 4 : 1][GROUPED ? 2 : 1][8];
+    for (int fn = 0; fn < 2; ++fn) wmma::fill_fragment(acc[fm][fn], 0.f);
 
   load(0);
-  store(0, 0);
+  store(0);
   __syncthreads();
   const int steps = g.K / MK;
   for (int st = 0; st < steps; ++st) {
@@ -483,46 +353,20 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
     if (more) load(k0 + MK);
 #pragma unroll
     for (int kc = 0; kc < MK / 16; ++kc) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, AT, wmma::col_major> b[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
 #pragma unroll
       for (int fn = 0; fn < 2; ++fn)
         wmma::load_matrix_sync(b[fn], &Bs[cur][kc][wn * 32 + fn * 16][0], 16);
 #pragma unroll
       for (int fm = 0; fm < 4; ++fm) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, AT, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
         wmma::load_matrix_sync(a, &As[cur][kc][wm * 64 + fm * 16][0], 16);
 #pragma unroll
         for (int fn = 0; fn < 2; ++fn)
           wmma::mma_sync(acc[fm][fn], a, b[fn], acc[fm][fn]);
       }
     }
-    if constexpr (GROUPED) {
-      if ((k0 + MK) % GROUP == 0) {
-        // close group g: sum += float(acc_g) * s_g, in group order
-        const int g = k0 / GROUP;
-#pragma unroll
-        for (int fm = 0; fm < 4; ++fm)
-#pragma unroll
-          for (int fn = 0; fn < 2; ++fn) {
-            wmma::store_matrix_sync(&scr[warp][0], acc[fm][fn], 16,
-                                    wmma::mem_row_major);
-            __syncwarp();
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const int e = lane + 32 * i;
-              const int n = n0 + wm * 64 + fm * 16 + (e >> 4);
-              const float s =
-                  n < t_in ? scales[((size_t)row * t_in + n) * groups + g]
-                           : 0.f;
-              const float term = __fmul_rn(__int2float_rn(scr[warp][e]), s);
-              sum[fm][fn][i] = g == 0 ? term : __fadd_rn(sum[fm][fn][i], term);
-            }
-            __syncwarp();
-            wmma::fill_fragment(acc[fm][fn], 0);
-          }
-      }
-    }
-    if (more) store(k0 + MK, cur ^ 1);
+    if (more) store(cur ^ 1);
     __syncthreads();
   }
 
@@ -530,29 +374,17 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm<T>(TIER, FOLD))
   for (int fm = 0; fm < 4; ++fm)
 #pragma unroll
     for (int fn = 0; fn < 2; ++fn) {
-      if constexpr (!GROUPED) {
-        wmma::store_matrix_sync(&scr[warp][0], acc[fm][fn], 16,
-                                wmma::mem_row_major);
-        __syncwarp();
-      }
+      wmma::store_matrix_sync(&scr[warp][0], acc[fm][fn], 16,
+                              wmma::mem_row_major);
+      __syncwarp();
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int e = lane + 32 * i;
         const int n = n0 + wm * 64 + fm * 16 + (e >> 4);
         const int col = cg + wn * 32 + fn * 16 + (e & 15);
-        if (n >= t_out) continue;
-        float v;
-        if constexpr (GROUPED) {
-          v = __fmul_rn(sum[fm][fn][i], mat_scale);
-        } else if constexpr (TIER == INT8) {
-          v = __fmul_rn(__int2float_rn(scr[warp][e]),
-                        __fmul_rn(scales[(size_t)row * t_out + n], mat_scale));
-        } else {
-          v = scr[warp][e];
-        }
-        outr[(size_t)n * N + col] = from_f<O>(v);
+        if (n < t_in) outr[(size_t)n * N + col] = from_f<O>(scr[warp][e]);
       }
-      if constexpr (!GROUPED) __syncwarp();
+      __syncwarp();
     }
 }
 
@@ -674,73 +506,828 @@ __global__ void __launch_bounds__(THREADS) butterfly_in_kernel(
   }
 }
 
+// ---- The mono design's tensor-core tiers on Hopper -------------------------
+//
+// One kernel per direction and tier: tc_kernel<T, TIER, FOLD>. A block owns
+// a tile of frames of one row and loops over all N output columns itself,
+// as the TPU kernels' _fwd_kernel / _inv_kernel do:
+//
+//   * A, the block's frames as the products' left operand, is built once in
+//     shared memory (128-byte-swizzled K-major tiles, hopper.cuh; N <=
+//     TC_KA, else see K passes below): the fold of x (analysis) or the rows
+//     of y (synthesis), rounded to bf16 or quantized to int8. One warp per
+//     frame, so the int8 scales (one per frame in the analysis, one per
+//     frame and 128-column group in the synthesis) are warp reductions over
+//     values held in registers: no pre-pass, no second read of x or y. A
+//     bf16 fold runs on packed bf16 pairs (one rounding an operation, as the
+//     float fold rounds).
+//   * B, the matrix in its operand form ([N_out, K], K contiguous: bf16 at
+//     `default`, int8 codes at int8; the synthesis's output columns in pair
+//     order, below), streams through a ring of shared-memory stages by TMA
+//     from one producer warp (mbarriers full/empty per stage). The matrix is
+//     1-2 MB and stays in L2.
+//   * Two consumer warpgroups run wgmma (m64 nW k16 bf16 -> f32, k32 s8 ->
+//     s32) on every stage: at `default` they share the block's 64 frames
+//     and split the stage's columns (SPLIT_N), at int8 they split the
+//     block's 128 frames and share the columns.
+//   * Analysis epilogue: float32 sums (times s * mat_scale at int8) rounded
+//     to the output dtype and stored from registers (bf16 as 16-byte
+//     vectors after an exchange within each quad of lanes).
+//   * Synthesis epilogue: the overlap scatter. The operand's columns are in
+//     pair order (ops/cuda_mdct.py::pair_permutation): each 64-column block
+//     holds z[:, c] for 32 consecutive c < N/2, then z[:, N-1-c] for the
+//     same c, which are all that output columns h-1-c and h+c need. The
+//     block's z tile, rounded as the plain version rounds z, is staged in
+//     shared memory and each output frame n reads z[n] and z[n-1] from it.
+//     Frame tiles overlap by that one frame (BM input frames give BM-1
+//     output frames), so every output frame is written by one block: no
+//     atomics, one summation order.
+//   * int8g: each 128-column group is one stage; its four k32 steps run
+//     with a fresh int32 sum, and float(sum_g) * s_g joins a float32 sum in
+//     group order. That sum reads the group's accumulator, so a warpgroup
+//     waits for its products each group (ptxas serializes them anyway when
+//     two accumulators take turns, and that variant measured 9% slower);
+//     the other warpgroup's products run meanwhile.
+//
+// Shared memory: A 128 KB (64 frames bf16, 128 frames int8, K up to
+// TC_KA) + the ring (3-6 stages, 96/64/80/48 KB) + the synthesis's z tile
+// (32 KB) + the int8 scales; one block an SM, 2 + 1/4 warpgroups.
+//
+// K passes (N > TC_KA): A holds TC_KA columns of K at a time. A chunk runs
+// its K tiles pass by pass, and the consumers rebuild A (both warpgroups'
+// products done, then the build, between two named barriers) where the
+// pass changes. Chunks take the passes in alternate directions, so the
+// pass A holds at a chunk's end starts the next (one rebuild a chunk at
+// N = 2 TC_KA); int8g keeps the group order (its float sum) and rebuilds
+// twice. The int8 analysis first takes each frame's max over all passes
+// (a fold that stores nothing), since its one scale covers the frame.
+//
+// Tiling: 431 analysis frames of a row are 7 tiles of 64 (default) or 4
+// of 128 (int8): 224 or 128 blocks for 32 rows against 132 SMs. The
+// synthesis's 432 output frames are 7 tiles of 63 or 4 of 127, the same
+// counts. A persistent schedule would even out default's second wave (224
+// blocks on 132 SMs); it is left for later.
+
+constexpr int TC_THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int TC_KA = 1024;      // K columns of an A tile
+constexpr int PAIR_BLOCK = 64;   // synthesis operand columns per pair block
+
+template <int TIER, bool FOLD> struct TcCfg;
+template <> struct TcCfg<BF16, true> {
+  static constexpr int BM = 64, BNW = 128, STAGES = 3;
+  static constexpr bool SPLIT_N = true;
+};
+template <> struct TcCfg<BF16, false> {
+  static constexpr int BM = 64, BNW = 64, STAGES = 4;
+  static constexpr bool SPLIT_N = true;
+};
+template <> struct TcCfg<INT8, true> {
+  static constexpr int BM = 128, BNW = 128, STAGES = 5;
+  static constexpr bool SPLIT_N = false;
+};
+template <> struct TcCfg<INT8, false> {
+  static constexpr int BM = 128, BNW = 64, STAGES = 6;
+  static constexpr bool SPLIT_N = false;
+};
+
+template <int TIER, bool FOLD>
+struct Tc : TcCfg<TIER, FOLD> {
+  using C = TcCfg<TIER, FOLD>;
+  static constexpr int ESZ = TIER == BF16 ? 2 : 1;  // operand bytes
+  static constexpr int KT_ELEMS = 128 / ESZ;        // K of one 128-byte tile
+  static constexpr int BN = C::SPLIT_N ? 2 * C::BNW : C::BNW;  // stage rows
+  static constexpr int STAGE_BYTES = BN * 128;
+  static constexpr int TILE = FOLD ? C::BM : C::BM - 1;  // output frames
+  static constexpr bool GROUPED = TIER == INT8 && !FOLD;
+  // the synthesis's z tile: per warpgroup [64][BNW] (SPLIT_N) or [BM][BNW]
+  static constexpr int ZS_FLOATS =
+      FOLD ? 0 : (C::SPLIT_N ? 2 * 64 * C::BNW : C::BM * C::BNW);
+  static constexpr int BAR_BYTES = 128;  // full and empty barriers
+  static_assert(2 * C::STAGES * 8 <= BAR_BYTES, "barrier space");
+  static_assert(FOLD || C::BNW == PAIR_BLOCK, "one pair block a warpgroup");
+
+  __host__ __device__ static size_t a_bytes(int N) {
+    return (size_t)C::BM * (N < TC_KA ? N : TC_KA) * ESZ;
+  }
+  __host__ __device__ static int scale_floats(int N) {
+    return TIER != INT8 ? 0 : FOLD ? C::BM : C::BM * (N / GROUP);
+  }
+  __host__ __device__ static size_t smem_bytes(int N) {  // +1024: aligned by hand
+    return 1024 + a_bytes(N) + (size_t)C::STAGES * STAGE_BYTES + BAR_BYTES +
+           4 * (size_t)(ZS_FLOATS + scale_floats(N));
+  }
+};
+
+// Eight consecutive elements of T, loaded raw (one or two 16-byte loads) and
+// read as floats.
 template <typename T>
-void launch_fold_matmul(const void* x, const void* wa_r, const void* wb,
-                        const void* wc, const void* ffr, const void* mat,
-                        void* scales, void* out, int rows, int t_in, int N,
-                        int tier, float mat_scale, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const T* w0 = static_cast<const T*>(wa_r);
-  const T* w1 = static_cast<const T*>(wb);
-  const T* w2 = static_cast<const T*>(wc);
-  const T* w3 = static_cast<const T*>(ffr);
-  T* o = static_cast<T*>(out);
-  float* sc = static_cast<float*>(scales);
-  const dim3 grid((t_in + 1 + BM - 1) / BM, N / BN, rows);
-  const dim3 mgrid((t_in + 1 + MM - 1) / MM, N / MN, rows);
-  if (tier == FFMA) {
-    ffma_gemm_kernel<T, true, T><<<grid, THREADS, 0, st>>>(
-        xt, w0, w1, w2, w3, static_cast<const float*>(mat), o, t_in, N);
-  } else if (tier == BF16) {
-    mma_gemm_kernel<T, BF16, true, T><<<mgrid, THREADS, 0, st>>>(
-        xt, w0, w1, w2, w3, mat, sc, o, t_in, N, mat_scale);
-  } else {
-    fold_scale_kernel<T><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
-        xt, w0, w1, w2, w3, sc, t_in, N);
-    mma_gemm_kernel<T, INT8, true, T><<<mgrid, THREADS, 0, st>>>(
-        xt, w0, w1, w2, w3, mat, sc, o, t_in, N, mat_scale);
+struct Raw8 {
+  uint4 v[sizeof(T) / 2];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int i = 0; i < (int)sizeof(T) / 2; ++i)
+      v[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < (int)sizeof(T) / 2; ++i) v[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    return to_f(reinterpret_cast<const T*>(v)[i]);
+  }
+};
+
+// Packed bf16 pairs, one rounding per operation: op 0 multiplies, 1 adds,
+// 2 subtracts. The explicit .rn keeps ptxas from contracting a product and
+// a sum into one fma (one rounding for both). For bf16 operands each equals
+// the fold's float operation rounded to bf16: the product of two bf16
+// values is exact in float32, and their float32 sum is exact or far from a
+// bf16 rounding tie.
+__device__ __forceinline__ uint32_t bf2_op(uint32_t a, uint32_t b, int op) {
+  uint32_t r;
+  if (op == 0)
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  else if (op == 1)
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  else
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
+
+// Bf16 words 2w, 2w+1 of the fold from raw bf16 chunks (Q reversed).
+__device__ __forceinline__ uint32_t fold_word(bool lo, const uint4& p,
+                                              const uint4& q, const uint4& w0,
+                                              const uint4& w1, int w) {
+  const uint32_t qr = __byte_perm(word(q, 3 - w), 0, 0x1032);  // Q[7-e]
+  const uint32_t pw = word(p, w);
+  return lo ? bf2_op(bf2_op(qr, word(w0, w), 0), bf2_op(pw, word(w1, w), 0), 1)
+            : bf2_op(bf2_op(pw, word(w0, w), 0), bf2_op(qr, word(w1, w), 0), 2);
+}
+
+// The 16-byte chunk `c` (0-7) of row m of a swizzled A tile.
+__device__ __forceinline__ uint4* a_chunk(uint8_t* tile, int m, int c) {
+  return reinterpret_cast<uint4*>(tile + m * 128 + ((c ^ (m & 7)) << 4));
+}
+
+// Build the block's A, K columns [kb, kb + TC_KA) of it: row m of the
+// tile is folded frame tile0 + m (FOLD) or spectrum frame tile0 - 1 + m,
+// zero outside the signal. One warp a frame, FR frames a round with every
+// load of the round in flight before any arithmetic (the build is bound by
+// load latency); the fold weights of a lane's chunks are loaded once. A
+// lane holds 8-value chunks lane + 32i (bf16 A, K tiles of 64) or 16-value
+// chunks (int8 A, K tiles and int8g groups of 128) of the pass. At int8
+// the frame's (FOLD) or each 128-column group's scale max|v| + 1e-12 is a
+// warp reduction over the values in registers, written to `scales` ([BM]
+// or [BM][N/128]); then v is quantized with 127 / scale as the plain
+// version does. A frame wider than TC_KA takes its one scale from `scan`
+// builds of every pass first, which store only the running max (and at
+// the last pass the scale).
+//
+// Fold, for k = k0 + e (fold_value's operations and roundings):
+//   k0 <  h: v = wa_r[k]*x[n-1, h-1-k] + wb[k]*x[n-1, h+k]
+//   k0 >= h: v = wc[j]*x[n, j] - ffr[j]*x[n, N-1-j],  j = k - h
+template <typename T, int TIER, bool FOLD>
+__device__ __forceinline__ void build_a(
+    uint8_t* A, float* scales, const T* __restrict__ xr,
+    const T* __restrict__ w0, const T* __restrict__ w1,
+    const T* __restrict__ w2, const T* __restrict__ w3, int tile0, int t_in,
+    int N, int kb, bool scan, int warp, int lane) {
+  constexpr int BM = Tc<TIER, FOLD>::BM;
+  constexpr int CW = TIER == BF16 ? 8 : 16;  // values a chunk
+  constexpr int HW = CW / 8;                 // 8-value halves a chunk
+  constexpr int CPL = TC_KA / CW / 32;       // chunks a lane
+  constexpr int FR = sizeof(T) == 2 ? 2 : 1;  // frames a round
+  const int h = N >> 1;
+  const int first = FOLD ? tile0 : tile0 - 1;
+  const int chunks = (N - kb < TC_KA ? N - kb : TC_KA) / CW;  // of the pass
+
+  Raw8<T> W0[FOLD ? CPL : 1][HW], W1[FOLD ? CPL : 1][HW];
+  if constexpr (FOLD) {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+#pragma unroll
+      for (int hf = 0; hf < HW; ++hf) {
+        const int k0 = kb + (lane + 32 * i) * CW + 8 * hf;
+        if (lane + 32 * i >= chunks) {
+          W0[i][hf].zero();
+          W1[i][hf].zero();
+        } else if (k0 < h) {
+          W0[i][hf].load(w0 + k0);      // wa_r
+          W1[i][hf].load(w1 + k0);      // wb
+        } else {
+          W0[i][hf].load(w2 + k0 - h);  // wc
+          W1[i][hf].load(w3 + k0 - h);  // ffr
+        }
+      }
+  }
+
+  for (int m0 = warp; m0 < BM; m0 += 8 * FR) {
+    Raw8<T> P[FR][CPL][HW], Q[FOLD ? FR : 1][CPL][HW];
+#pragma unroll
+    for (int f = 0; f < FR; ++f)
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+#pragma unroll
+        for (int hf = 0; hf < HW; ++hf) {
+          const int ci = lane + 32 * i, k0 = kb + ci * CW + 8 * hf;
+          const int n = first + m0 + 8 * f;
+          if constexpr (FOLD) {
+            const int src = k0 < h ? n - 1 : n;
+            if (ci < chunks && src >= 0 && src < t_in) {
+              const T* xb = xr + (size_t)src * N;
+              P[f][i][hf].load(k0 < h ? xb + h + k0 : xb + k0 - h);
+              Q[f][i][hf].load(k0 < h ? xb + h - 8 - k0 : xb + N - 8 - (k0 - h));
+            } else {
+              P[f][i][hf].zero();
+              Q[f][i][hf].zero();
+            }
+          } else {
+            if (ci < chunks && n >= 0 && n < t_in)
+              P[f][i][hf].load(xr + (size_t)n * N + k0);
+            else
+              P[f][i][hf].zero();
+          }
+        }
+#pragma unroll
+    for (int f = 0; f < FR; ++f) {
+      const int m = m0 + 8 * f;
+      float v[CPL][HW][8];
+      uint4 packed[CPL][HW];  // bf16 fold: the values as bf16 pairs
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+#pragma unroll
+        for (int hf = 0; hf < HW; ++hf) {
+          const int k0 = kb + (lane + 32 * i) * CW + 8 * hf;
+          if constexpr (FOLD && sizeof(T) == 2) {
+            const uint4 &p = P[f][i][hf].v[0], &q = Q[f][i][hf].v[0];
+            const uint4 &a = W0[i][hf].v[0], &b = W1[i][hf].v[0];
+            const bool lo = k0 < h;
+            packed[i][hf] = make_uint4(fold_word(lo, p, q, a, b, 0),
+                                       fold_word(lo, p, q, a, b, 1),
+                                       fold_word(lo, p, q, a, b, 2),
+                                       fold_word(lo, p, q, a, b, 3));
+            const bf16* pb = reinterpret_cast<const bf16*>(&packed[i][hf]);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[i][hf][e] = to_f(pb[e]);
+            continue;
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if constexpr (FOLD) {
+              const Raw8<T>& p = P[f][i][hf];
+              const Raw8<T>& q = Q[f][i][hf];
+              v[i][hf][e] =
+                  k0 < h
+                      ? rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(q[7 - e], W0[i][hf][e])),
+                                         rnd<T>(__fmul_rn(p[e], W1[i][hf][e]))))
+                      : rnd<T>(__fsub_rn(rnd<T>(__fmul_rn(p[e], W0[i][hf][e])),
+                                         rnd<T>(__fmul_rn(q[7 - e], W1[i][hf][e]))));
+            } else {
+              v[i][hf][e] = P[f][i][hf][e];
+            }
+          }
+        }
+      if constexpr (TIER == BF16) {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) {
+          const int ci = lane + 32 * i;
+          if (ci >= chunks) continue;
+          const float* u = v[i][0];
+          *a_chunk(A + (size_t)(ci >> 3) * BM * 128, m, ci & 7) =
+              FOLD && sizeof(T) == 2
+                  ? packed[i][0]
+                  : make_uint4(pack_bf16(u[0], u[1]), pack_bf16(u[2], u[3]),
+                               pack_bf16(u[4], u[5]), pack_bf16(u[6], u[7]));
+        }
+      } else {
+        float gmax[CPL], amax = 0.f;
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) {
+          gmax[i] = 0.f;
+#pragma unroll
+          for (int hf = 0; hf < HW; ++hf)
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              gmax[i] = fmaxf(gmax[i], fabsf(v[i][hf][e]));
+          amax = fmaxf(amax, gmax[i]);
+        }
+        float inv[CPL];
+        if constexpr (FOLD) {  // one scale for the frame
+          float s = warp_max(amax);
+          if (N <= TC_KA) {
+            s = __fadd_rn(s, 1e-12f);
+            if (lane == 0) scales[m] = s;
+          } else if (scan) {  // the running max over the passes
+            if (kb > 0) s = fmaxf(s, scales[m]);
+            if (kb + TC_KA >= N) s = __fadd_rn(s, 1e-12f);
+            if (lane == 0) scales[m] = s;
+            continue;
+          } else {
+            s = scales[m];
+          }
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) inv[i] = __fdiv_rn(127.f, s);
+        } else {  // one per 128-column group: 8 neighbouring lanes
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) {
+            float g = gmax[i];
+#pragma unroll
+            for (int o = 1; o < 8; o <<= 1)
+              g = fmaxf(g, __shfl_xor_sync(0xffffffffu, g, o));
+            const float s = __fadd_rn(g, 1e-12f);
+            const int ci = lane + 32 * i;
+            if ((lane & 7) == 0 && ci < chunks)
+              scales[m * (N / GROUP) + kb / GROUP + (ci >> 3)] = s;
+            inv[i] = __fdiv_rn(127.f, s);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) {
+          const int ci = lane + 32 * i;
+          if (ci >= chunks) continue;
+          uint32_t w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* u = &v[i][e >> 1][4 * (e & 1)];
+            w[e] = pack_s8(quant8(u[0], inv[i]), quant8(u[1], inv[i]),
+                           quant8(u[2], inv[i]), quant8(u[3], inv[i]));
+          }
+          *a_chunk(A + (size_t)(ci >> 3) * BM * 128, m, ci & 7) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    }
   }
 }
 
+// a[jj] of lane q of a quad is M[q][jj]; afterwards a[k] = M[k][q]: the
+// off-diagonal 2 x 2 blocks swapped between lanes q and q ^ 2, then each
+// 2 x 2 block transposed between lanes q and q ^ 1.
+template <typename V>
+__device__ __forceinline__ void quad_transpose(V (&a)[4], int q) {
+  const bool hb = q & 2, lb = q & 1;
+  V s0 = hb ? a[0] : a[2], s1 = hb ? a[1] : a[3];
+  V r0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+  V r1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (hb) {
+    a[0] = r0;
+    a[1] = r1;
+  } else {
+    a[2] = r0;
+    a[3] = r1;
+  }
+  s0 = lb ? a[0] : a[1];
+  s1 = lb ? a[2] : a[3];
+  r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+  r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  if (lb) {
+    a[0] = r0;
+    a[2] = r1;
+  } else {
+    a[1] = r0;
+    a[3] = r1;
+  }
+}
+
+// Four consecutive elements of T at p (8- or 16-byte aligned), rounded.
 template <typename T>
-void launch_matmul_scatter(const void* y, const void* p, const void* q,
-                           const void* r, const void* s_r, const void* mat,
-                           void* scales, void* z, void* out, int rows,
-                           int t_in, int N, int tier, float mat_scale,
-                           cudaStream_t st) {
-  const T* yt = static_cast<const T*>(y);
-  const T* wp = static_cast<const T*>(p);
-  const T* wq = static_cast<const T*>(q);
-  const T* wr = static_cast<const T*>(r);
-  const T* ws = static_cast<const T*>(s_r);
-  T* o = static_cast<T*>(out);
-  float* sc = static_cast<float*>(scales);
-  const dim3 grid((t_in + BM - 1) / BM, N / BN, rows);
-  const dim3 mgrid((t_in + MM - 1) / MM, N / MN, rows);
-  const dim3 sgrid(t_in + 1, rows);
-  if (tier == INT8) {
-    float* zf = static_cast<float*>(z);
-    group_scale_kernel<T><<<dim3(t_in, rows), THREADS, 0, st>>>(yt, sc, t_in,
-                                                                 N);
-    mma_gemm_kernel<T, INT8, false, float><<<mgrid, THREADS, 0, st>>>(
-        yt, nullptr, nullptr, nullptr, nullptr, mat, sc, zf, t_in, N,
-        mat_scale);
-    scatter_kernel<float, T, false><<<sgrid, THREADS, 0, st>>>(
-        zf, wp, wq, wr, ws, nullptr, o, t_in, N);
+__device__ __forceinline__ void store4(T* p, float a, float b, float c,
+                                       float d) {
+  if constexpr (sizeof(T) == 2)
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b),
+                                              pack_bf16(c, d));
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// x [rows, T, N] -> out [rows, T+1, N]: the analysis (FOLD; w = wa_r, wb,
+// wc, ffr) or the synthesis (w = p, q, r, s_r) at a tensor-core tier, the
+// operand matrix behind `tmap` (boxes of 128 bytes of K by BN rows).
+template <typename T, int TIER, bool FOLD>
+__global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
+    const __grid_constant__ CUtensorMap tmap, const T* __restrict__ x,
+    const T* __restrict__ w0, const T* __restrict__ w1,
+    const T* __restrict__ w2, const T* __restrict__ w3, T* __restrict__ out,
+    int t_in, int N, float mat_scale) {
+  using Cfg = Tc<TIER, FOLD>;
+  using Acc = typename std::conditional<TIER == BF16, float, int>::type;
+  constexpr int BM = Cfg::BM, BNW = Cfg::BNW, STAGES = Cfg::STAGES;
+  constexpr int NR = BNW / 2;  // accumulator registers a thread
+  constexpr bool SPLIT_N = Cfg::SPLIT_N;
+
+  extern __shared__ uint8_t raw_smem[];
+  const uint32_t raw = hopper::smem_addr(raw_smem);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = raw_smem + pad;
+  const uint32_t sbase = raw + pad;
+  const size_t a_bytes = Cfg::a_bytes(N);
+  const uint32_t ring = sbase + (uint32_t)a_bytes;
+  const uint32_t bars = ring + STAGES * Cfg::STAGE_BYTES;
+  float* zs = reinterpret_cast<float*>(smem + (bars - sbase) +
+                                       Cfg::BAR_BYTES);
+  float* scales = zs + Cfg::ZS_FLOATS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.y;
+  const int tile0 = blockIdx.x * Cfg::TILE;  // first output frame
+  const int t_out = t_in + 1;
+  const int kt_n = N / Cfg::KT_ELEMS;  // K tiles
+  const int kt_a = TC_KA / Cfg::KT_ELEMS;  // K tiles of a pass
+  const int passes = (kt_n + kt_a - 1) / kt_a;
+  const int chunks = N / Cfg::BN;
+  // pass pi of a chunk: odd chunks take them backwards, except int8g
+  auto pass_of = [&](int chunk, int pi) {
+    return !Cfg::GROUPED && (chunk & 1) ? passes - 1 - pi : pi;
+  };
+  auto pass_end = [&](int p) {  // one past the pass's last K tile
+    return (p + 1) * kt_a < kt_n ? (p + 1) * kt_a : kt_n;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp: one thread streams B
+    if (tid == 256) {
+      hopper::prefetch_tmap(&tmap);
+      int it = 0;
+      for (int chunk = 0; chunk < chunks; ++chunk)
+        for (int pi = 0; pi < passes; ++pi) {
+          const int p = pass_of(chunk, pi);
+          for (int kt = p * kt_a; kt < pass_end(p); ++kt, ++it) {
+            const int s = it % STAGES, use = it / STAGES;
+            if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);
+            hopper::mbar_expect_tx(full(s), Cfg::STAGE_BYTES);
+            hopper::tma_load_2d(ring + s * Cfg::STAGE_BYTES, &tmap, full(s),
+                                kt * Cfg::KT_ELEMS, chunk * Cfg::BN);
+          }
+        }
+    }
     return;
   }
-  T* zt = static_cast<T*>(z);
-  if (tier == FFMA) {
-    ffma_gemm_kernel<T, false, T><<<grid, THREADS, 0, st>>>(
-        yt, nullptr, nullptr, nullptr, nullptr,
-        static_cast<const float*>(mat), zt, t_in, N);
-  } else {
-    mma_gemm_kernel<T, BF16, false, T><<<mgrid, THREADS, 0, st>>>(
-        yt, nullptr, nullptr, nullptr, nullptr, mat, sc, zt, t_in, N,
-        mat_scale);
+
+  // consumers: build A, then the products
+  const T* xr = x + (size_t)row * t_in * N;
+  auto build = [&](int p, bool scan) {
+    build_a<T, TIER, FOLD>(smem, scales, xr, w0, w1, w2, w3, tile0, t_in, N,
+                           p * TC_KA, scan, tid >> 5, tid & 31);
+  };
+  if (TIER == INT8 && FOLD && passes > 1) {  // the frames' scales first
+    for (int p = 0; p < passes; ++p) build(p, true);
+    hopper::named_sync(1, 256);
   }
-  scatter_kernel<T, T, false><<<sgrid, THREADS, 0, st>>>(
-      zt, wp, wq, wr, ws, nullptr, o, t_in, N);
+  build(0, false);
+  hopper::fence_proxy_async();
+  hopper::named_sync(1, 256);
+  int held = 0;  // the pass A holds
+  // A takes pass p once both warpgroups' products (waited for) are done
+  auto hold = [&](int p) {
+    hopper::named_sync(1, 256);
+    build(p, false);
+    hopper::fence_proxy_async();
+    hopper::named_sync(1, 256);
+    held = p;
+  };
+
+  const int wg = tid >> 7, t = tid & 127;
+  const int a_row0 = SPLIT_N ? 0 : 64 * wg;  // this warpgroup's A rows
+  const uint32_t a_base = sbase + a_row0 * 128;
+  const uint32_t b_off = SPLIT_N ? wg * BNW * 128 : 0;
+  const int r0 = 16 * (t >> 5) + ((t & 31) >> 2);  // + 8i: rows of the tile
+  const int c0 = 2 * (t & 3);                      // + 8j + c: columns
+  const int h = N >> 1;
+  T* outr = out + (size_t)row * t_out * N;
+
+  // K tile kt (of the pass A holds) of stage s into acc (scale_d = 0 on
+  // the first step if fresh)
+  auto mma_step = [&](Acc(&acc)[NR], int s, int kt, bool fresh) {
+    const uint32_t a = a_base + (kt - held * kt_a) * BM * 128;
+    const uint32_t b = ring + s * Cfg::STAGE_BYTES + b_off;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma(acc, hopper::sw128_desc(a + 32 * kk),
+                    hopper::sw128_desc(b + 32 * kk), fresh && kk == 0 ? 0 : 1);
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
+  };
+  auto release = [&](int it) {
+    if (t == 0) hopper::mbar_arrive(empty(it % STAGES));
+  };
+
+  int it = 0;  // stage loads consumed so far
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    const int col0 = chunk * Cfg::BN + (SPLIT_N ? wg * BNW : 0);
+    float z[NR];  // the tile's result, before the epilogue's rounding
+    if constexpr (Cfg::GROUPED) {
+      // int8g: group g = K tile g; sum += float(acc_g) * s_g in group order
+      int acc[NR];
+      for (int p = 0; p < passes; ++p) {
+        if (p != held) hold(p);  // the last group's products are done
+        for (int g = p * kt_a; g < pass_end(p); ++g, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(full(s), (it / STAGES) & 1);
+          mma_step(acc, s, g, true);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
+          release(it);
+          const float s0 = scales[(a_row0 + r0) * (N / GROUP) + g];
+          const float s1 = scales[(a_row0 + r0 + 8) * (N / GROUP) + g];
+#pragma unroll
+          for (int e = 0; e < NR; ++e) {
+            const float term =
+                __fmul_rn(__int2float_rn(acc[e]), e & 2 ? s1 : s0);
+            z[e] = g == 0 ? term : __fadd_rn(z[e], term);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < NR; ++e) z[e] = __fmul_rn(z[e], mat_scale);
+    } else {
+      Acc acc[NR];
+#pragma unroll
+      for (int e = 0; e < NR; ++e) acc[e] = 0;
+      int j = 0;  // the chunk's K steps so far
+      for (int pi = 0; pi < passes; ++pi) {
+        const int p = pass_of(chunk, pi);
+        if (p != held) {
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
+          hold(p);
+        }
+        for (int kt = p * kt_a; kt < pass_end(p); ++kt, ++it, ++j) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(full(s), (it / STAGES) & 1);
+          mma_step(acc, s, kt, j == 0);
+          hopper::wgmma_wait<1>();  // the previous K tile's products are done
+          hopper::fence_regs(acc);
+          if (j > 0) release(it - 1);
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(it - 1);
+      if constexpr (TIER == INT8) {  // the analysis: one scale a frame
+        const float s0 = __fmul_rn(scales[a_row0 + r0], mat_scale);
+        const float s1 = __fmul_rn(scales[a_row0 + r0 + 8], mat_scale);
+#pragma unroll
+        for (int e = 0; e < NR; ++e)
+          z[e] = __fmul_rn(__int2float_rn(acc[e]), e & 2 ? s1 : s0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < NR; ++e) z[e] = acc[e];
+      }
+    }
+
+    if constexpr (FOLD) {
+      // out[tile0 + row of the tile, col] = z, rounded to T. A lane holds
+      // columns 2q, 2q+1 of each 8-column group (q = lane % 4): float32
+      // pairs fill 32-byte sectors as they are; bf16 pairs go through a
+      // 4 x 4 exchange in the quad that gives a lane all 8 columns of group
+      // 4J + q, stored as one 16-byte vector (64 contiguous bytes a row).
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int n = tile0 + a_row0 + r0 + 8 * i;
+        const bool store = n < t_out;
+        T* o = outr + (size_t)n * N + col0;
+        if constexpr (sizeof(T) == 2) {
+#pragma unroll
+          for (int J = 0; J < NR / 16; ++J) {
+            uint32_t pr[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              pr[jj] = pack_bf16(z[4 * (4 * J + jj) + 2 * i],
+                                 z[4 * (4 * J + jj) + 2 * i + 1]);
+            quad_transpose(pr, t & 3);
+            if (store)
+              *reinterpret_cast<uint4*>(o + 8 * (4 * J + (t & 3))) =
+                  make_uint4(pr[0], pr[1], pr[2], pr[3]);
+          }
+        } else if (store) {
+#pragma unroll
+          for (int j = 0; j < NR / 4; ++j)
+            *reinterpret_cast<float2*>(o + 8 * j + c0) =
+                make_float2(z[4 * j + 2 * i], z[4 * j + 2 * i + 1]);
+        }
+      }
+    } else {
+      // the overlap scatter of this warpgroup's pair block: z rounded as
+      // the plain version rounds it (to T, or float32 at int8g) into the
+      // staged tile zt [rows][BNW] (8-float groups of row r at group ^ r % 8,
+      // so a quad's float2 stores of 8 rows meet no bank twice), then for
+      // output frame n = tile0 + m and pair u: z[n, c] = zt[m + 1][u],
+      // z[n-1, N-1-c] = zt[m][32 + u]. A thread takes 4 neighbouring pairs.
+      using R = typename std::conditional<TIER == INT8, float, T>::type;
+      float* zt = SPLIT_N ? zs + wg * 64 * BNW : zs;
+      auto zat = [&](int r, int col) {
+        return zt + r * BNW + (col ^ ((r & 7) << 3));
+      };
+      const int zrow0 = SPLIT_N ? 0 : a_row0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NR / 4; ++j)
+          *reinterpret_cast<float2*>(zat(zrow0 + r0 + 8 * i, 8 * j + c0)) =
+              make_float2(rnd<R>(z[4 * j + 2 * i]),
+                          rnd<R>(z[4 * j + 2 * i + 1]));
+      const int bar = SPLIT_N ? 2 + wg : 1;
+      const int nthreads = SPLIT_N ? 128 : 256;
+      const int me = SPLIT_N ? t : tid;
+      const int zrows = SPLIT_N ? 64 : BM;
+      hopper::named_sync(bar, nthreads);
+      const int u0 = 4 * (me & 7);
+      const int c0p = (col0 / PAIR_BLOCK) * (PAIR_BLOCK / 2) + u0;
+      float pc[4], qc[4], rc[4], sc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pc[e] = to_f(w0[c0p + e]);
+        qc[e] = to_f(w1[c0p + e]);
+        rc[e] = to_f(w2[h - 1 - c0p - e]);
+        sc[e] = to_f(w3[c0p + e]);
+      }
+      for (int m = me >> 3; m < zrows - 1; m += nthreads / 8) {
+        const int n = tile0 + m;
+        if (n >= t_out) break;
+        const float4 zc4 = *reinterpret_cast<const float4*>(zat(m + 1, u0));
+        const float4 zp4 = *reinterpret_cast<const float4*>(
+            zat(m, PAIR_BLOCK / 2 + u0));
+        const float zc[4] = {zc4.x, zc4.y, zc4.z, zc4.w};
+        const float zp[4] = {zp4.x, zp4.y, zp4.z, zp4.w};
+        const bool cur = n < t_in, prev = n >= 1;
+        float lo[4], hi[4];  // columns h-1-c and h+c, c = c0p + e
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lo_a = cur ? rnd<R>(__fmul_rn(zc[e], pc[e])) : 0.f;
+          const float lo_b = prev ? rnd<R>(__fmul_rn(zp[e], rc[e])) : 0.f;
+          lo[e] = rnd<R>(__fadd_rn(lo_a, lo_b));
+          const float hi_a = cur ? rnd<R>(__fmul_rn(zc[e], qc[e])) : 0.f;
+          const float hi_b = prev ? rnd<R>(__fmul_rn(zp[e], sc[e])) : 0.f;
+          hi[e] = rnd<R>(__fadd_rn(hi_a, hi_b));
+        }
+        T* o = outr + (size_t)n * N;
+        store4<T>(o + h + c0p, hi[0], hi[1], hi[2], hi[3]);
+        store4<T>(o + h - 4 - c0p, lo[3], lo[2], lo[1], lo[0]);
+      }
+      hopper::named_sync(bar, nthreads);  // zt is free for the next chunk
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no link
+// against libcuda).
+typedef decltype(&cuTensorMapEncodeTiled) EncodeTiled;
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of the operand `op` ([N, N], K contiguous) for one
+// tc_kernel instance, into `map`. The operands are residents built once,
+// so each is encoded once: the map holds only the address and the
+// geometry, which the key holds too. Returns a CUDA error code.
+template <int TIER, bool FOLD>
+int operand_map(const void* op, int N, CUtensorMap* map) {
+  using Cfg = Tc<TIER, FOLD>;
+  struct Entry {
+    const void* op;
+    int n;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.op == op && e.n == N) {
+      *map = e.map;
+      return 0;
+    }
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * Cfg::ESZ};
+  const cuuint32_t box[2] = {(cuuint32_t)Cfg::KT_ELEMS, (cuuint32_t)Cfg::BN};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map,
+             TIER == BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             2, const_cast<void*>(op), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  if (cache.size() == 64) cache.erase(cache.begin());
+  cache.push_back(Entry{op, N, *map});
+  return 0;
+}
+
+// Let `kernel` take as much dynamic shared memory as a block of the
+// current device may, once per device (bit d of `done`).
+template <typename K>
+int allow_shared(K kernel, std::atomic<uint64_t>& done) {
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return 0;
+  cudaFuncAttributes attr;
+  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most - (int)attr.sharedSizeBytes);
+  if (e != cudaSuccess) return (int)e;
+  done |= bit;
+  return 0;
+}
+
+// Launch tc_kernel on the operand matrix `op` ([N, N], K contiguous).
+template <typename T, int TIER, bool FOLD>
+int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
+              const void* w3, const void* op, void* out, int rows, int t_in,
+              int N, float mat_scale, cudaStream_t st) {
+  using Cfg = Tc<TIER, FOLD>;
+  CUtensorMap map;
+  int rc = operand_map<TIER, FOLD>(op, N, &map);
+  if (rc) return rc;
+  auto kernel = tc_kernel<T, TIER, FOLD>;
+  static std::atomic<uint64_t> shared_set{0};
+  rc = allow_shared(kernel, shared_set);
+  if (rc) return rc;
+  const size_t smem = Cfg::smem_bytes(N);
+  const dim3 grid((t_in + 1 + Cfg::TILE - 1) / Cfg::TILE, rows);
+  kernel<<<grid, TC_THREADS, smem, st>>>(
+      map, static_cast<const T*>(x), static_cast<const T*>(w0),
+      static_cast<const T*>(w1), static_cast<const T*>(w2),
+      static_cast<const T*>(w3), static_cast<T*>(out), t_in, N, mat_scale);
+  return 0;
+}
+
+template <typename T>
+int launch_fold_matmul(const void* x, const void* wa_r, const void* wb,
+                       const void* wc, const void* ffr, const void* mat,
+                       void* out, int rows, int t_in, int N, int tier,
+                       float mat_scale, cudaStream_t st) {
+  if (tier == BF16)
+    return launch_tc<T, BF16, true>(x, wa_r, wb, wc, ffr, mat, out, rows,
+                                    t_in, N, mat_scale, st);
+  if (tier == INT8)
+    return launch_tc<T, INT8, true>(x, wa_r, wb, wc, ffr, mat, out, rows,
+                                    t_in, N, mat_scale, st);
+  const dim3 grid((t_in + 1 + BM - 1) / BM, N / BN, rows);
+  ffma_gemm_kernel<T, true, T><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wa_r),
+      static_cast<const T*>(wb), static_cast<const T*>(wc),
+      static_cast<const T*>(ffr), static_cast<const float*>(mat),
+      static_cast<T*>(out), t_in, N);
+  return 0;
+}
+
+// The FFMA tiers run the product into the scratch z [rows, T, N] and the
+// overlap scatter after it; the tensor-core tiers are one kernel.
+template <typename T>
+int launch_matmul_scatter(const void* y, const void* p, const void* q,
+                          const void* r, const void* s_r, const void* mat,
+                          void* z, void* out, int rows, int t_in, int N,
+                          int tier, float mat_scale, cudaStream_t st) {
+  if (tier == BF16)
+    return launch_tc<T, BF16, false>(y, p, q, r, s_r, mat, out, rows, t_in,
+                                     N, mat_scale, st);
+  if (tier == INT8)
+    return launch_tc<T, INT8, false>(y, p, q, r, s_r, mat, out, rows, t_in,
+                                     N, mat_scale, st);
+  const T* yt = static_cast<const T*>(y);
+  T* zt = static_cast<T*>(z);
+  ffma_gemm_kernel<T, false, T>
+      <<<dim3((t_in + BM - 1) / BM, N / BN, rows), THREADS, 0, st>>>(
+          yt, nullptr, nullptr, nullptr, nullptr,
+          static_cast<const float*>(mat), zt, t_in, N);
+  scatter_kernel<T, T, false><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
+      zt, static_cast<const T*>(p), static_cast<const T*>(q),
+      static_cast<const T*>(r), static_cast<const T*>(s_r), nullptr,
+      static_cast<T*>(out), t_in, N);
+  return 0;
 }
 
 // The two [M, M] products of the radix design: a [rows, frames, N] holds
@@ -755,10 +1342,9 @@ void launch_radix_products(const T* a, const float* mats, float* prod,
         <<<dim3((frames + BM - 1) / BM, N / BN, rows), THREADS, 0, st>>>(
             a, nullptr, nullptr, nullptr, nullptr, mats, prod, frames, N);
   } else {
-    mma_gemm_kernel<T, BF16, false, float, 2>
+    mma_gemm_kernel<T, float, 2>
         <<<dim3((frames + MM - 1) / MM, N / MN, rows), THREADS, 0, st>>>(
-            a, nullptr, nullptr, nullptr, nullptr, mats, nullptr, prod,
-            frames, N, 1.f);
+            a, mats, prod, frames, N);
   }
 }
 
@@ -809,38 +1395,52 @@ bool shape_ok(int rows, int t_in, int N, int dtype, int tier) {
 
 extern "C" {
 
-// x [rows, T, N] -> out [rows, T+1, N]; scales: float [rows, T+1] (int8).
+// x [rows, T, N] -> out [rows, T+1, N]. mat: the float32 matrix [N, N]
+// at the FFMA tiers, its operand form [N_out, K] (bf16 at `default`, int8
+// codes at int8) at the tensor-core tiers.
 int acx_fold_matmul(const void* x, const void* wa_r, const void* wb,
                     const void* wc, const void* ffr, const void* mat,
-                    void* scales, void* out, int rows, int t_in, int N,
-                    int dtype, int tier, float mat_scale, void* stream) {
+                    void* out, int rows, int t_in, int N, int dtype, int tier,
+                    float mat_scale, void* stream) {
   if (!shape_ok(rows, t_in, N, dtype, tier)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    launch_fold_matmul<float>(x, wa_r, wb, wc, ffr, mat, scales, out, rows,
-                              t_in, N, tier, mat_scale, st);
-  else
-    launch_fold_matmul<bf16>(x, wa_r, wb, wc, ffr, mat, scales, out, rows,
-                             t_in, N, tier, mat_scale, st);
-  return (int)cudaGetLastError();
+  const int rc =
+      dtype == F32
+          ? launch_fold_matmul<float>(x, wa_r, wb, wc, ffr, mat, out, rows,
+                                      t_in, N, tier, mat_scale, st)
+          : launch_fold_matmul<bf16>(x, wa_r, wb, wc, ffr, mat, out, rows,
+                                     t_in, N, tier, mat_scale, st);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
-// y [rows, T, N] -> out [rows, T+1, N] through the scratch z [rows, T, N]
-// (float at int8, else y's dtype); scales: float [rows, T, N/128] (int8).
+// y [rows, T, N] -> out [rows, T+1, N]. mat as for acx_fold_matmul, the
+// operand form's output columns in pair order; z: the FFMA tiers' scratch
+// [rows, T, N] in y's dtype (unused at the tensor-core tiers).
 int acx_matmul_scatter(const void* y, const void* p, const void* q,
                        const void* r, const void* s_r, const void* mat,
-                       void* scales, void* z, void* out, int rows, int t_in,
-                       int N, int dtype, int tier, float mat_scale,
-                       void* stream) {
+                       void* z, void* out, int rows, int t_in, int N,
+                       int dtype, int tier, float mat_scale, void* stream) {
   if (!shape_ok(rows, t_in, N, dtype, tier)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    launch_matmul_scatter<float>(y, p, q, r, s_r, mat, scales, z, out, rows,
-                                 t_in, N, tier, mat_scale, st);
-  else
-    launch_matmul_scatter<bf16>(y, p, q, r, s_r, mat, scales, z, out, rows,
-                                t_in, N, tier, mat_scale, st);
-  return (int)cudaGetLastError();
+  const int rc =
+      dtype == F32
+          ? launch_matmul_scatter<float>(y, p, q, r, s_r, mat, z, out, rows,
+                                         t_in, N, tier, mat_scale, st)
+          : launch_matmul_scatter<bf16>(y, p, q, r, s_r, mat, z, out, rows,
+                                        t_in, N, tier, mat_scale, st);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// The dynamic shared memory a tc_kernel block takes at N (tier BF16 or
+// INT8; fold 1 for the analysis), in bytes; -1 for another tier.
+int acx_tc_shared_bytes(int tier, int fold, int N) {
+  if (tier == BF16)
+    return (int)(fold ? Tc<BF16, true>::smem_bytes(N)
+                      : Tc<BF16, false>::smem_bytes(N));
+  if (tier == INT8)
+    return (int)(fold ? Tc<INT8, true>::smem_bytes(N)
+                      : Tc<INT8, false>::smem_bytes(N));
+  return -1;
 }
 
 // Radix analysis: x [rows, T, N] -> out [rows, T+1, N] in standard order,

@@ -181,19 +181,33 @@ class MDCT(nn.Module):
                 dense.update(inv_cur=m64 @ g0 * s, inv_prev=m64 @ g1 * s)
         for name, value in dense.items():
             buf(f"dense_{name}", value, mat_dtype)
-        self.build_vjp_residents()
+        self.build_kernel_residents()
 
-    def build_vjp_residents(self) -> None:
-        """(Re)build the VJP residents of the directions on a kernel from
-        the forward residents (``cuda_mdct``'s remappings, exact): the
-        weights ``vjp_weights_{fwd,inv}`` [4, N/2] and the rotation
-        ``vjp_rot_*`` in the kernel dtype, the matrix ``vjp_mat_*`` in
-        float32, dequantized at int8. Call it after replacing a forward
-        resident."""
+    def build_kernel_residents(self) -> None:
+        """(Re)build what the kernels derive from the forward residents.
+        The operand forms of the mono matrices at the tensor-core tiers
+        (``kernel_op_{fwd,inv}``: ``cuda_mdct.analysis_operand`` /
+        ``synthesis_operand`` of the matrix or its int8 codes). The VJP
+        residents of the directions on a kernel (``cuda_mdct``'s
+        remappings, exact): the weights ``vjp_weights_*`` [4, N/2] and the
+        rotation ``vjp_rot_*`` in the kernel dtype, the matrix ``vjp_mat_*``
+        in float32, dequantized at int8, and its operand form
+        ``vjp_op_*``. Call it after replacing a forward resident."""
         radix = self.kernel_design == "radix"
+        tier = self.kernel_precision
+        for d, on, build in (("fwd", self.kernel_fwd,
+                              _kernels.analysis_operand),
+                             ("inv", self.kernel_inv,
+                              _kernels.synthesis_operand)):
+            op = None
+            if on and not radix:
+                mat = getattr(self, f"kernel_q_{d}" if tier == "int8"
+                              else f"dct_mat_{d}")
+                op = build(mat, tier)
+            self.register_buffer(f"kernel_op_{d}", op)
         for d, on, names in (("fwd", self.kernel_fwd, _FOLD_WEIGHTS),
                              ("inv", self.kernel_inv, _UNFOLD_WEIGHTS)):
-            weights = rot = mat = None
+            weights = rot = mat = op = None
             if on:
                 w = [getattr(self, n).to(self.kernel_dtype) for n in names]
                 remap = (_kernels.fold_vjp_weights if d == "fwd"
@@ -212,9 +226,14 @@ class MDCT(nn.Module):
                             self.int8_scale[0 if d == "fwd" else 1])
                     mat = (_kernels.fold_vjp_matrix if d == "fwd"
                            else _kernels.unfold_vjp_matrix)(mat)
+                    # the analysis VJP runs the synthesis kernel and back
+                    op = (_kernels.synthesis_operand if d == "fwd"
+                          else _kernels.analysis_operand)(
+                              mat, self.vjp_precision)
             self.register_buffer(f"vjp_weights_{d}", weights)
             self.register_buffer(f"vjp_rot_{d}", rot)
             self.register_buffer(f"vjp_mat_{d}", mat)
+            self.register_buffer(f"vjp_op_{d}", op)
 
     @property
     def inv_precision(self) -> str:
@@ -245,8 +264,9 @@ class MDCT(nn.Module):
 
     def kernel_args(self, direction: str) -> tuple:
         """The arguments after the signal of :meth:`kernel`: fold weights in
-        the kernel dtype, then the matrix, tier and int8 rescale (mono) or
-        the rotation, the two factors and the tier (radix)."""
+        the kernel dtype, then the matrix, tier, int8 rescale and the
+        matrix's operand form (mono; None at the FFMA tiers) or the
+        rotation, the two factors and the tier (radix)."""
         fwd = direction == "forward"
         names = _FOLD_WEIGHTS if fwd else _UNFOLD_WEIGHTS
         weights = tuple(getattr(self, n).to(self.kernel_dtype) for n in names)
@@ -267,6 +287,7 @@ class MDCT(nn.Module):
             mat,
             self.kernel_precision,
             self.int8_scale[0 if fwd else 1] if int8 else 1.0,
+            self.kernel_op_fwd if fwd else self.kernel_op_inv,
         )
 
     @property
@@ -280,10 +301,11 @@ class MDCT(nn.Module):
         """The arguments after the cotangent of the VJP of :meth:`kernel`
         (``cuda_mdct.*_vjp``)."""
         d = "fwd" if direction == "forward" else "inv"
-        rot = () if self.kernel_design == "mono" else (
-            getattr(self, f"vjp_rot_{d}"),)
+        mono = self.kernel_design == "mono"
+        rot = () if mono else (getattr(self, f"vjp_rot_{d}"),)
+        op = (getattr(self, f"vjp_op_{d}"),) if mono else ()
         return (*getattr(self, f"vjp_weights_{d}").unbind(),
-                *rot, getattr(self, f"vjp_mat_{d}"), self.vjp_precision)
+                *rot, getattr(self, f"vjp_mat_{d}"), self.vjp_precision, *op)
 
     def _run_kernel(self, direction: str, rows: torch.Tensor):
         """rows [B*C, T, N] through the direction's autograd Function."""

@@ -21,6 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mdct_kernels.cu", "noise_kernel.cu")
+HEADERS = ("hopper.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audiocodec_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,7 +55,7 @@ def build(nvcc: str | None = None, build_dir: Path = BUILD_DIR):
                            "CUDA kernels of audiocodec_tpu_torch")
     sources = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + [CSRC / h for h in HEADERS]:
         digest.update(src.read_bytes())
     lib = Path(build_dir) / f"libacx_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists():
@@ -89,8 +90,9 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        "acx_fold_matmul": [ptr] * 8 + [i32] * 5 + [f32, ptr],
-        "acx_matmul_scatter": [ptr] * 9 + [i32] * 5 + [f32, ptr],
+        "acx_fold_matmul": [ptr] * 7 + [i32] * 5 + [f32, ptr],
+        "acx_matmul_scatter": [ptr] * 8 + [i32] * 5 + [f32, ptr],
+        "acx_tc_shared_bytes": [i32] * 3,
         "acx_radix_fold_matmul": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_radix_matmul_scatter": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_add_masked_noise": [ptr] * 3 + [

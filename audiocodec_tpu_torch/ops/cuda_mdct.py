@@ -16,6 +16,14 @@ scale per frame in the analysis and one per frame and 128-column group
 (``int8g``) in the synthesis, against a matrix quantized on the host
 (:func:`host_int8`) with the static rescale ``mat_scale``.
 
+The mono kernels' tensor-core tiers (``default``, ``int8``) read the matrix
+in its operand form, built once beside it (:func:`analysis_operand`,
+:func:`synthesis_operand`): transposed to [N_out, K] and in bfloat16 (the
+kernel's RNE rounding of the float32 matrix) or as the int8 codes, the
+synthesis's output columns in pair order (:func:`pair_permutation`). The
+wrappers take it as their last argument; the plain versions take and ignore
+it.
+
 Each kernel has a ``torch.autograd.Function`` (:data:`FUNCTIONS`) whose
 backward is its VJP wrapper (``*_vjp``, replacing ``pallas_mdct.py``
 ``_fold_matmul_bwd`` and its three siblings): the other direction's kernel
@@ -34,6 +42,8 @@ from audiocodec_tpu_torch.ops import folding as _folding
 from audiocodec_tpu_torch.ops import radix as _radix
 
 GROUP = 128  # int8g column group of the synthesis
+PAIR_BLOCK = 64  # synthesis operand columns that close over their outputs
+_TC_TIERS = frozenset(("default", "int8"))  # the tensor-core tiers
 _TIERS = {"highest": 0, "high": 0, "default": 1, "int8": 2}
 _RADIX_TIERS = {t: v for t, v in _TIERS.items() if t != "int8"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +55,37 @@ def host_int8(m64: np.ndarray):
     s_m = float(np.max(np.abs(m64)))
     q = np.clip(np.round(m64 * (127.0 / s_m)), -127, 127).astype(np.int8)
     return q, s_m / (127.0 * 127.0)
+
+
+def pair_permutation(n: int) -> torch.Tensor:
+    """The synthesis operand's column order: pair block b (PAIR_BLOCK
+    columns) holds z columns c = b * PAIR_BLOCK/2 + u, u < PAIR_BLOCK/2,
+    then their mirrors N-1-c, which are all that output columns h-1-c and
+    h+c of the overlap scatter read."""
+    half = PAIR_BLOCK // 2
+    c = torch.arange(n // 2).reshape(-1, half)
+    return torch.cat([c, n - 1 - c], dim=1).reshape(-1)
+
+
+def _operand(mat, precision, columns=None):
+    if precision not in _TC_TIERS:
+        return None
+    m = mat if columns is None else mat[:, columns]
+    m = m.T if precision == "int8" else m.T.to(torch.bfloat16)
+    return m.contiguous()
+
+
+def analysis_operand(mat: torch.Tensor, precision: str):
+    """The analysis kernel's form of ``mat`` (float32 [K, N], or the int8
+    codes at ``int8``): [N, K] in bfloat16 at ``default``, int8 at
+    ``int8``; None at the FFMA tiers, which read ``mat`` itself."""
+    return _operand(mat, precision)
+
+
+def synthesis_operand(mat: torch.Tensor, precision: str):
+    """The synthesis kernel's form of ``mat``: as :func:`analysis_operand`,
+    with the output columns in :func:`pair_permutation` order."""
+    return _operand(mat, precision, pair_permutation(mat.shape[1]))
 
 
 def _tier_matmul(u, mat, precision, mat_scale, grouped):
@@ -65,19 +106,19 @@ def _tier_matmul(u, mat, precision, mat_scale, grouped):
 
 
 def fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision="highest",
-                          mat_scale=1.0):
+                          mat_scale=1.0, operand=None):
     """Plain version of :func:`fold_matmul`: the fold in x's dtype, then the
-    tier's matmul; out in x's dtype."""
+    tier's matmul; out in x's dtype. ``operand`` is not read."""
     folded = _folding.fold(x, wa_r, wb, wc, ffr)
     y = _tier_matmul(folded, mat, precision, mat_scale, grouped=False)
     return y.to(x.dtype)
 
 
 def matmul_scatter_reference(y, p, q, r, s_r, mat, precision="highest",
-                             mat_scale=1.0):
+                             mat_scale=1.0, operand=None):
     """Plain version of :func:`matmul_scatter`: z = y @ mat at the tier
     (kept in float32 at int8, else rounded to y's dtype), then the overlap
-    scatter in z's dtype; out in y's dtype."""
+    scatter in z's dtype; out in y's dtype. ``operand`` is not read."""
     z = _tier_matmul(y, mat, precision, mat_scale, grouped=True)
     zt = torch.float32 if precision == "int8" else y.dtype
     z = z.to(zt)
@@ -178,21 +219,38 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision, mat_scale):
+def _check_operand(x, mat, operand, precision):
+    """The tensor-core tiers' operand form of ``mat``, as the kernels take
+    it (:func:`analysis_operand`, :func:`synthesis_operand`)."""
+    n = x.shape[-1]
+    want = torch.int8 if precision == "int8" else torch.bfloat16
+    if (operand is None or operand.shape != (n, n) or operand.dtype != want
+            or operand.device != x.device or not operand.is_contiguous()
+            or operand.data_ptr() % 16):
+        got = None if operand is None else (tuple(operand.shape),
+                                            operand.dtype)
+        raise ValueError(f"the {precision!r} tier takes the matrix's "
+                         f"operand form, a contiguous [{n}, {n}] {want} on "
+                         f"{x.device} (cuda_mdct.analysis_operand / "
+                         f"synthesis_operand), got {got}")
+    _check_grad(x, (operand,))
+
+
+def _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision, mat_scale,
+                        operand=None):
     weights = (wa_r, wb, wc, ffr)
     _check(x, weights, mat, precision)
+    tc = precision in _TC_TIERS
+    if tc:
+        _check_operand(x, mat, operand, precision)
     from audiocodec_tpu_torch.ops import _build
 
     rows, t, n = x.shape
     out = torch.empty(rows, t + 1, n, dtype=x.dtype, device=x.device)
-    scales = torch.empty(
-        rows * (t + 1) if precision == "int8" else 1,
-        dtype=torch.float32, device=x.device,
-    )
     rc = _build.library().acx_fold_matmul(
-        x.data_ptr(), *(w.data_ptr() for w in weights), mat.data_ptr(),
-        scales.data_ptr(), out.data_ptr(), rows, t, n, _DTYPES[x.dtype],
-        _TIERS[precision], float(mat_scale), _stream(x),
+        x.data_ptr(), *(w.data_ptr() for w in weights),
+        (operand if tc else mat).data_ptr(), out.data_ptr(), rows, t, n,
+        _DTYPES[x.dtype], _TIERS[precision], float(mat_scale), _stream(x),
     )
     if rc:
         raise RuntimeError(f"fold_matmul kernel launch failed: CUDA error {rc}")
@@ -200,36 +258,41 @@ def _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision, mat_scale):
 
 
 def fold_matmul(x, wa_r, wb, wc, ffr, mat, precision="highest",
-                mat_scale=1.0):
+                mat_scale=1.0, operand=None):
     """Analysis: y[n] = fold(x)[n] @ mat, [rows, T, N] -> [rows, T+1, N].
 
     At ``int8``, ``mat`` is the host-quantized int8 matrix and
-    ``mat_scale`` its rescale."""
+    ``mat_scale`` its rescale. At ``default`` and ``int8`` the kernel reads
+    ``operand``, :func:`analysis_operand` of ``mat``."""
     if x.device.type == "cpu":
         return fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision,
                                      mat_scale)
     out = _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision,
-                              mat_scale)
+                              mat_scale, operand)
     fold_matmul.launches += 1
     return out
 
 
-def _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale):
+def _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale,
+                           operand=None):
     weights = (p, q, r, s_r)
     _check(y, weights, mat, precision)
+    tc = precision in _TC_TIERS
+    if tc:
+        _check_operand(y, mat, operand, precision)
     from audiocodec_tpu_torch.ops import _build
 
     rows, t, n = y.shape
-    int8 = precision == "int8"
     out = torch.empty(rows, t + 1, n, dtype=y.dtype, device=y.device)
-    z = torch.empty(rows, t, n, dtype=torch.float32 if int8 else y.dtype,
-                    device=y.device)
-    scales = torch.empty(rows * t * (n // GROUP) if int8 else 1,
-                         dtype=torch.float32, device=y.device)
+    # the FFMA tiers' product goes through z; the tensor-core tiers scatter
+    # in the kernel's epilogue
+    z = None if tc else torch.empty(rows, t, n, dtype=y.dtype,
+                                    device=y.device)
     rc = _build.library().acx_matmul_scatter(
-        y.data_ptr(), *(w.data_ptr() for w in weights), mat.data_ptr(),
-        scales.data_ptr(), z.data_ptr(), out.data_ptr(), rows, t, n,
-        _DTYPES[y.dtype], _TIERS[precision], float(mat_scale), _stream(y),
+        y.data_ptr(), *(w.data_ptr() for w in weights),
+        (operand if tc else mat).data_ptr(), None if tc else z.data_ptr(),
+        out.data_ptr(), rows, t, n, _DTYPES[y.dtype], _TIERS[precision],
+        float(mat_scale), _stream(y),
     )
     if rc:
         raise RuntimeError(
@@ -238,14 +301,17 @@ def _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale):
     return out
 
 
-def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0):
+def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0,
+                   operand=None):
     """Synthesis: z = y @ mat, then the overlap scatter, [rows, T, N] ->
     [rows, T+1, N]. At ``int8`` the tier is int8g (per frame and
-    128-column group)."""
+    128-column group). At ``default`` and ``int8`` the kernel reads
+    ``operand``, :func:`synthesis_operand` of ``mat``."""
     if y.device.type == "cpu":
         return matmul_scatter_reference(y, p, q, r, s_r, mat, precision,
                                         mat_scale)
-    out = _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale)
+    out = _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale,
+                                 operand)
     matmul_scatter.launches += 1
     return out
 
@@ -425,40 +491,45 @@ def _vjp(g, run, args, analysis):
     return _swap(full) if analysis else full
 
 
-def fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision="highest"):
+def fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision="highest",
+                              operand=None):
     """Plain version of :func:`fold_matmul_vjp`."""
     return _vjp(g, matmul_scatter_reference, (p, q, r, s_r, mat, precision),
                 True)
 
 
-def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest"):
+def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest",
+                    operand=None):
     """The VJP of :func:`fold_matmul`: the cotangent [rows, T+1, N] ->
     [rows, T, N] through the synthesis kernel, with the residents of
-    :func:`fold_vjp_weights` and :func:`fold_vjp_matrix`."""
+    :func:`fold_vjp_weights` and :func:`fold_vjp_matrix` (and that matrix's
+    :func:`synthesis_operand` at ``default``)."""
     if g.device.type == "cpu":
         return fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision)
-    out = _vjp(g, _launch_matmul_scatter, (p, q, r, s_r, mat, precision, 1.0),
-               True)
+    out = _vjp(g, _launch_matmul_scatter,
+               (p, q, r, s_r, mat, precision, 1.0, operand), True)
     fold_matmul_vjp.launches += 1
     return out
 
 
 def matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
-                                 precision="highest"):
+                                 precision="highest", operand=None):
     """Plain version of :func:`matmul_scatter_vjp`."""
     return _vjp(g, fold_matmul_reference, (wa_r, wb, wc, ffr, mat, precision),
                 False)
 
 
-def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest"):
+def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
+                       operand=None):
     """The VJP of :func:`matmul_scatter`: the cotangent [rows, T+1, N] ->
     [rows, T, N] through the analysis kernel, with the residents of
-    :func:`unfold_vjp_weights` and :func:`unfold_vjp_matrix`."""
+    :func:`unfold_vjp_weights` and :func:`unfold_vjp_matrix` (and that
+    matrix's :func:`analysis_operand` at ``default``)."""
     if g.device.type == "cpu":
         return matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
                                             precision)
     out = _vjp(g, _launch_fold_matmul,
-               (wa_r, wb, wc, ffr, mat, precision, 1.0), False)
+               (wa_r, wb, wc, ffr, mat, precision, 1.0, operand), False)
     matmul_scatter_vjp.launches += 1
     return out
 

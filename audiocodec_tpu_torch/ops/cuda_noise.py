@@ -78,10 +78,11 @@ def add_masked_noise(spectrum, threshold, seed: int,
     return out
 
 
-def uniforms(seed: int, count: int, device="cpu"):
+def uniforms(seed: int, count: int, device="cuda"):
     """(u1, u2), float32 [count]: the kernel's uniforms of elements
     0..count-1 on a CUDA device (a launch of the same generator, not
-    counted), ops/philox.py's on the CPU."""
+    counted), ops/philox.py's on the CPU. The card unless the caller asks
+    for the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return _philox.uniforms(seed, count)

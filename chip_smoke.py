@@ -6,9 +6,16 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from audiocodec_tpu_torch/csrc/;
+2. build the CUDA kernels from audiocodec_tpu_torch/csrc/; each of the
+   eight tensor-core kernel instances must hold warpgroup MMA (HGMMA or
+   IGMMA) and TMA load (UTMALDG) instructions in its SASS (cuobjdump);
 3. hold each kernel against its plain torch version on the card, at the
-   main path's shapes and at every tier the path uses, plus ``highest``;
+   main path's shapes and at every tier the path uses, plus ``highest``
+   (the int8 tiers bit for bit); the tensor-core kernels also at 5 rows of
+   1, 127 and 129 frames (tiles of 64 or 128 frames, no full wave), with
+   their registers, spills and shared memory, and the bare product's time
+   through ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) beside them
+   as yardsticks the port never calls;
 4. run ``Codec.round_trip_quantized`` at full width (44.1 kHz, N=1024, 64
    Bark bands, 32 mono clips of 10 s) in the three configurations of
    bench.py: (a) bf16 int8, (b) bf16 default, (c) f32 default. Each kernel
@@ -27,7 +34,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    output while another seed does not;
 8. the radix kernels against their plain versions at N=2048, [32, 215,
    2048] -> [32, 216, 2048], at ``highest`` (float32) and ``default``
-   (bfloat16);
+   (bfloat16), and the mono kernels there at ``highest``, ``default`` and
+   int8 (bit for bit);
 9. ``Codec.round_trip`` and ``round_trip_fast`` at full width in three
    configurations: (r) float32 ``highest``, N=1024, mono design (the
    reference's configuration); (r2) float32 ``highest``, N=2048, radix
@@ -37,7 +45,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    same seed or generator;
 10. an f32 ``highest`` MDCT round trip through the radix kernels at N=2048
    must reach 125 dB and come within 1 dB of their plain versions'; the
-   mono and radix designs are timed side by side at N=2048;
+   mono and radix designs are timed side by side in ``round_trip_fast`` at
+   N=2048, at ``highest`` and bf16 ``default``, and the mono design at
+   int8 (its tensor-core kernels run K in two passes there);
 11. each VJP (``ops/cuda_mdct.py`` ``*_vjp``: the other direction's kernel
    on the block-reversed cotangent) against ``torch.autograd.grad``
    through its plain forward version on the same seeded cotangent, at the
@@ -136,6 +146,9 @@ DESIGN_CONFIGS = {
     "default-radix": dict(filters_n=RADIX_N, compute_dtype="bfloat16",
                           fast_bf16=True, dct_precision="default",
                           kernel_design="radix"),
+    "int8-mono": dict(filters_n=RADIX_N, compute_dtype="bfloat16",
+                      fast_bf16=True, dct_precision="int8",
+                      kernel_design="mono"),
 }
 
 # The VJPs' tiers (phase 11) and the MDCTs of the gradient paths (phases
@@ -268,22 +281,54 @@ def stage_ms(torch, codec, x, noise=None):
 
 def ptxas_summary(log):
     """One line per compiled kernel from nvcc's -Xptxas=-v output: its
-    (mangled) name, registers, stack frame and spills."""
-    lines, name, frame = [], None, ""
+    (mangled) name, registers, barriers and static shared memory, stack
+    frame and spills; then ptxas's notes on serialized wgmma."""
+    lines, notes, name, frame = [], [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
             name = ln.rsplit(" ", 1)[-1]
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
-            regs = ln.split("Used", 1)[1].split(",")[0].strip()
-            lines.append(f"{name}: {regs}; {frame}")
+            used = ln.split("Used", 1)[1].strip()
+            lines.append(f"{name}: {used}; {frame}")
             name, frame = None, ""
-    return lines
+        elif "C7514" in ln or "C7517" in ln:
+            notes.append(ln.split("ptxas info    : ", 1)[-1].strip())
+    return lines + notes
+
+
+# The tensor-core kernels' warpgroup products and TMA loads in SASS
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+
+
+def sass_summary(lib_path):
+    """Per tc_kernel instance of the built library, the count of its
+    warpgroup MMA (HGMMA bf16, IGMMA int8) and TMA load (UTMALDG)
+    instructions in the SASS (cuobjdump), and one such line of each."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, lines, name = {}, {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+        elif name and "tc_kernel" in name:
+            for op in SASS_OPS:
+                if op in ln:
+                    counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+                    counts[name][op] += 1
+                    lines.setdefault(op, ln.strip())
+    return counts, lines
 
 
 def tolerance(torch, ref, kernel, tier, dtype):
-    """The CPU tests' tolerances, in the working dtype."""
+    """The CPU tests' tolerances, in the working dtype; none at int8, whose
+    kernels keep integer sums and the plain version's float order."""
+    if tier == "int8":
+        return 0.0
     peak = float(ref.float().abs().max())
     if dtype == torch.bfloat16:
         return 2.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)  # 2 bf16 ulp
@@ -291,8 +336,6 @@ def tolerance(torch, ref, kernel, tier, dtype):
         if kernel == "radix_fold_matmul":  # the CPU tests' bound at N>=512
             return 2e-6
         return 1e-6 if kernel == "fold_matmul" else 1e-4
-    if tier == "int8":
-        return 1e-6 * peak
     return 1e-5 * peak
 
 
@@ -311,6 +354,15 @@ def nbytes(*tensors):
     """Bytes of the tensors among the arguments, each counted once."""
     return sum(t.numel() * t.element_size() for t in tensors
                if hasattr(t, "element_size"))
+
+
+def read_args(mdct, args, tier):
+    """The arguments a kernel of ``mdct`` (or its VJP) reads: at the mono
+    design's tensor-core tiers the matrix's operand form and not the
+    matrix, which its plain version reads."""
+    if mdct.kernel_design == "mono" and tier in ("default", "int8"):
+        return args[:4] + args[5:]
+    return args
 
 
 def bound(flops, n_bytes, tier):
@@ -411,7 +463,8 @@ def compare_kernels(torch, mdct, label, entries):
         spectrum_frames = got.shape[1] if direction == "forward" else (
             inp.shape[1])
         flops = gemm_flops(spectrum_frames, n, radix)
-        bound_ms, bound_by = bound(flops, nbytes(inp, got, *args), tier)
+        read = nbytes(inp, got, *read_args(mdct, args, tier))
+        bound_ms, bound_by = bound(flops, read, tier)
         library = library_call(torch, mdct, direction)
         library_ms = library_err = None
         if library is not None:
@@ -431,6 +484,69 @@ def compare_kernels(torch, mdct, label, entries):
                              tol=tol, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms, tflops=tflops))
+
+
+def tensor_core_phase(torch, codecs):
+    """3, continued. The tensor-core kernels of configurations (a), (b),
+    (c) at 5 rows of 1, 127 and 129 frames (around their tiles of 64 or 128
+    frames; no full wave of the card) against their plain versions, each
+    kernel's dynamic shared memory, and the bare [13792 x 1024] x [1024 x
+    1024] product through torch.matmul (bf16) and torch._int_mm (int8):
+    yardsticks of the product alone, which the port never calls."""
+    from audiocodec_tpu_torch.ops import _build, cuda_mdct
+
+    lib = _build.library()
+    out = dict(ragged_max_abs_err={}, shared_bytes={}, yardsticks={})
+    for tier, code in (("default", 1), ("int8", 2)):
+        for fold, name in ((1, "fold_matmul"), (0, "matmul_scatter")):
+            for n in (FILTERS_N, RADIX_N):
+                b = lib.acx_tc_shared_bytes(code, fold, n)
+                out["shared_bytes"][f"{name} {tier} N={n}"] = b
+                print(f"build: tc_kernel {name} {tier} N={n}: {b} bytes "
+                      "of dynamic shared memory")
+    for k, codec in codecs.items():
+        mdct = codec.mdct
+        tier = mdct.kernel_precision
+        for blocks in (1, 127, 129):
+            gen = torch.Generator(device="cpu").manual_seed(blocks)
+            x = (torch.rand(5, blocks, FILTERS_N, generator=gen) * 2 - 1).to(
+                mdct.wa_r.device, mdct.kernel_dtype)
+            for direction in ("forward", "inverse"):
+                kernel = mdct.kernel(direction)
+                name = kernel.__name__
+                plain = getattr(cuda_mdct, f"{name}_reference")
+                args = mdct.kernel_args(direction)
+                got, want = kernel(x, *args), plain(x, *args)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                tol = tolerance(torch, want, name, tier, x.dtype)
+                out["ragged_max_abs_err"][f"{name} ({k}) T={blocks}"] = err
+                check(got.shape == want.shape == (5, blocks + 1, FILTERS_N),
+                      f"{name} ({k}) T={blocks}: shape {tuple(got.shape)}")
+                check(err <= tol, f"{name} ({k}) T={blocks}: error {err} > "
+                      f"{tol}")
+    print("ragged frame counts, max_abs_err: "
+          + ", ".join(f"{c} {e:.3e}"
+                      for c, e in out["ragged_max_abs_err"].items()))
+    dev = codecs["b"].mdct.wa_r.device
+    m, n = BATCH * (SAMPLES // FILTERS_N + 1), FILTERS_N
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    a = torch.randn(m, n, generator=gen).to(dev, torch.bfloat16)
+    b = torch.randn(n, n, generator=gen).to(dev, torch.bfloat16)
+    qa = torch.randint(-127, 128, (m, n), generator=gen,
+                       dtype=torch.int8).to(dev)
+    qb = torch.randint(-127, 128, (n, n), generator=gen,
+                       dtype=torch.int8).to(dev)
+    for label, fn, peak in (
+            ("torch.matmul bf16", lambda: torch.matmul(a, b), PEAK["default"]),
+            ("torch._int_mm int8", lambda: torch._int_mm(qa, qb),
+             PEAK["int8"])):
+        ms = cuda_ms(torch, fn)
+        tflops = 2.0 * m * n * n / (ms * 1e-3) / 1e12
+        out["yardsticks"][label] = dict(ms=ms, tflops=tflops)
+        print(f"yardstick {label} [{m} x {n}] x [{n} x {n}]: {ms:.4f} ms = "
+              f"{tflops:.1f} TF/s = {100 * tflops / peak:.1f}% of {peak:.0f}")
+    return out
 
 
 def set_launches(entries, config, counts):
@@ -586,10 +702,11 @@ def noise_path_phase(torch, dev, entries):
 
 def radix_kernel_phase(torch, dev, entries):
     """8. The radix kernels against their plain versions at N=2048, and the
-    mono kernels there at ``highest`` for comparison."""
+    mono kernels there for comparison."""
     from audiocodec_tpu_torch import MDCT
 
-    for k in ("highest-radix", "default-radix", "highest-mono"):
+    for k in ("highest-radix", "default-radix", "highest-mono",
+              "default-mono", "int8-mono"):
         label = "noise (r2)" if k == "highest-radix" else f"design {k}"
         compare_kernels(torch, MDCT(use_kernel=True, device=dev,
                                     **DESIGN_CONFIGS[k]), label, entries)
@@ -696,7 +813,7 @@ def vjp_phase(torch, dev, entries):
             if tier == "int8":  # straight-through: default, dequantized
                 d = "fwd" if direction == "forward" else "inv"
                 deq = cuda_mdct.dequantized(getattr(mdct, f"kernel_q_{d}"),
-                                            args[-1])
+                                            args[6])
                 plain_args = (*args[:4], deq, "default", 1.0)
             got = vjp(cot, *vjp_args)
             xg = inp.detach().requires_grad_()
@@ -720,7 +837,9 @@ def vjp_phase(torch, dev, entries):
             spectrum_frames = cot.shape[1] if analysis else got.shape[1]
             bound_ms, bound_by = bound(
                 gemm_flops(spectrum_frames, n, radix),
-                nbytes(cot, got, *vjp_args), mdct.vjp_precision)
+                nbytes(cot, got, *read_args(mdct, vjp_args,
+                                            mdct.vjp_precision)),
+                mdct.vjp_precision)
             library = library_call(torch, mdct, direction, adjoint=True)
             library_ms = library_err = None
             if library is not None:
@@ -781,8 +900,7 @@ def trainer(torch, codec, model, x):
 
 
 # The MDCT kernels' device functions (csrc/mdct_kernels.cu), for the trace
-MDCT_DEVICE_FUNCTIONS = ("fold_scale_kernel", "group_scale_kernel",
-                         "mma_gemm_kernel", "ffma_gemm_kernel",
+MDCT_DEVICE_FUNCTIONS = ("tc_kernel", "mma_gemm_kernel", "ffma_gemm_kernel",
                          "scatter_kernel", "fold_rotate_kernel",
                          "butterfly_in_kernel", "butterfly_out_kernel")
 
@@ -996,6 +1114,16 @@ def main() -> int:
           + ("" if log else " (cached)"))
     for line in ptxas_summary(log):
         print(f"build: {line}")
+    sass, sass_lines = sass_summary(lib_path)
+    for name, ops in sass.items():
+        print(f"sass: {name}: " + ", ".join(f"{n} {op}" for op, n in
+                                             ops.items()))
+    for line in sass_lines.values():
+        print(f"sass: e.g. {line}")
+    check(len(sass) == 8 and all(
+        (ops["HGMMA"] or ops["IGMMA"]) and ops["UTMALDG"]
+        for ops in sass.values()),
+        f"tc_kernel: not 8 instances with wgmma and TMA in SASS: {sass}")
 
     codecs = {k: Codec.create(SAMPLE_RATE, filters_n=FILTERS_N,
                               bark_bands_n=64, device=dev, **cfg)
@@ -1011,6 +1139,7 @@ def main() -> int:
     cases = [(k, codecs[k].mdct) for k in "abc"] + [("highest", fidelity)]
     for label, mdct in cases:
         compare_kernels(torch, mdct, label, entries)
+    tensor_core = tensor_core_phase(torch, codecs)
 
     # 4. the main path, through the entry point a user calls
     results = {}
@@ -1080,7 +1209,8 @@ def main() -> int:
           f"{t13 - t12:.1f} s, 13 {time.monotonic() - t13:.1f} s")
 
     # 6. the numbers
-    print(json.dumps({"configs": results, "fidelity_snr_db": fid, **noise,
+    print(json.dumps({"configs": results, "fidelity_snr_db": fid,
+                      "tensor_core": tensor_core, **noise,
                       "training": training,
                       "waveform_grads": waveform_grads}))
     for e in entries:

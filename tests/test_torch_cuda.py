@@ -73,6 +73,61 @@ def test_kernels_match_plain_versions(n, blocks, dtype, fast, precision):
         out_ref, tier, x.dtype, "inv")
 
 
+TC_TIERS = [t for t in TIERS if t[2] in ("default", "int8")]
+
+
+@pytest.mark.parametrize("n,blocks", [(1024, 1), (1024, 127), (1024, 129),
+                                      (2048, 1), (2048, 64), (2048, 129)])
+@pytest.mark.parametrize("dtype,fast,precision", TC_TIERS)
+def test_tensor_core_kernels_at_ragged_frame_counts(n, blocks, dtype, fast,
+                                                    precision):
+    """Frame counts around the tiles (64 frames at default, 128 at int8;
+    the synthesis's tiles overlap by one) and five rows, which fill no
+    wave of the card. At N=2048 the A tile holds half of K: every chunk
+    runs two K passes and rebuilds A between them, int8 takes each frame's
+    scale over both passes first, and int8g keeps its group order."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(blocks)
+    x = (torch.rand(5, blocks, n, generator=g) * 2 - 1).to("cuda",
+                                                           m.kernel_dtype)
+    fwd, inv = m.kernel_args("forward"), m.kernel_args("inverse")
+    cuda_mdct.reset_launch_counts()
+    y = cuda_mdct.fold_matmul(x, *fwd)
+    out = cuda_mdct.matmul_scatter(y, *inv)
+    torch.cuda.synchronize()
+    assert cuda_mdct.launch_counts() == MONO_ONCE
+    y_ref = cuda_mdct.fold_matmul_reference(x, *fwd)
+    out_ref = cuda_mdct.matmul_scatter_reference(y, *inv)
+    tier = m.kernel_precision
+    assert float((y.float() - y_ref.float()).abs().max()) <= _tol(
+        y_ref, tier, x.dtype, "fwd")
+    assert float((out.float() - out_ref.float()).abs().max()) <= _tol(
+        out_ref, tier, x.dtype, "inv")
+    if precision == "int8":  # integer sums, the plain version's float order
+        assert torch.equal(y, y_ref) and torch.equal(out, out_ref)
+
+
+@pytest.mark.parametrize("precision", ["default", "int8"])
+def test_operand_residents_on_the_card(precision):
+    m = MDCT(1024, compute_dtype="bfloat16", fast_bf16=True, use_kernel=True,
+             dct_precision=precision, device="cuda")
+    src = "kernel_q" if precision == "int8" else "dct_mat"
+    for d, build in (("fwd", cuda_mdct.analysis_operand),
+                     ("inv", cuda_mdct.synthesis_operand)):
+        op = getattr(m, f"kernel_op_{d}")
+        assert op.is_cuda and op.is_contiguous()
+        assert torch.equal(op, build(getattr(m, f"{src}_{d}"), precision))
+        assert getattr(m, f"vjp_op_{d}").dtype == torch.bfloat16
+    fwd = m.kernel_args("forward")
+    x = torch.zeros(2, 4, 1024, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="operand form"):
+        cuda_mdct.fold_matmul(x, *fwd[:-1], None)
+    with pytest.raises(ValueError, match="operand form"):
+        cuda_mdct.matmul_scatter(x, *m.kernel_args("inverse")[:-1],
+                                 fwd[-1].T)  # not contiguous
+
+
 def test_auto_resolves_to_the_kernels_on_the_card():
     assert MDCT(1024, device="cuda").use_kernel is True
     assert MDCT(1024, compute_dtype="float32", dct_precision="default",
@@ -117,7 +172,7 @@ def test_round_trip_quantized_copies_nothing_to_the_card():
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert any("mma_gemm_kernel" in n for n in names)
+    assert any("tc_kernel" in n for n in names)
     assert not [n for n in names if "HtoD" in n]
 
 
@@ -308,7 +363,7 @@ def test_vjps_match_autograd_through_the_plain_versions(design, dtype, fast,
         if precision == "int8":
             d = "fwd" if direction == "forward" else "inv"
             deq = cuda_mdct.dequantized(getattr(m, f"kernel_q_{d}"),
-                                        args[-1])
+                                        args[6])
             plain_args = (*args[:4], deq, "default", 1.0)
         plain = getattr(cuda_mdct, f"{name}_reference")
         want, = torch.autograd.grad(plain(x, *plain_args), x, cot)
