@@ -185,9 +185,9 @@ class MDCT(nn.Module):
 
     def build_kernel_residents(self) -> None:
         """(Re)build what the kernels derive from the forward residents.
-        The operand forms of the mono matrices at the tensor-core tiers
-        (``kernel_op_{fwd,inv}``: ``cuda_mdct.analysis_operand`` /
-        ``synthesis_operand`` of the matrix or its int8 codes). The VJP
+        The operand forms of the mono matrices (``kernel_op_{fwd,inv}``:
+        ``cuda_mdct.analysis_operand`` / ``synthesis_operand`` of the matrix
+        or its int8 codes, bf16 planes at ``highest``/``high``). The VJP
         residents of the directions on a kernel (``cuda_mdct``'s
         remappings, exact): the weights ``vjp_weights_*`` [4, N/2] and the
         rotation ``vjp_rot_*`` in the kernel dtype, the matrix ``vjp_mat_*``
@@ -265,8 +265,8 @@ class MDCT(nn.Module):
     def kernel_args(self, direction: str) -> tuple:
         """The arguments after the signal of :meth:`kernel`: fold weights in
         the kernel dtype, then the matrix, tier, int8 rescale and the
-        matrix's operand form (mono; None at the FFMA tiers) or the
-        rotation, the two factors and the tier (radix)."""
+        matrix's operand form (mono) or the rotation, the two factors and
+        the tier (radix)."""
         fwd = direction == "forward"
         names = _FOLD_WEIGHTS if fwd else _UNFOLD_WEIGHTS
         weights = tuple(getattr(self, n).to(self.kernel_dtype) for n in names)

@@ -16,13 +16,15 @@ scale per frame in the analysis and one per frame and 128-column group
 (``int8g``) in the synthesis, against a matrix quantized on the host
 (:func:`host_int8`) with the static rescale ``mat_scale``.
 
-The mono kernels' tensor-core tiers (``default``, ``int8``) read the matrix
-in its operand form, built once beside it (:func:`analysis_operand`,
-:func:`synthesis_operand`): transposed to [N_out, K] and in bfloat16 (the
-kernel's RNE rounding of the float32 matrix) or as the int8 codes, the
-synthesis's output columns in pair order (:func:`pair_permutation`). The
-wrappers take it as their last argument; the plain versions take and ignore
-it.
+The mono kernels run every tier on the tensor cores and read the matrix in
+its operand form, built once beside it (:func:`analysis_operand`,
+:func:`synthesis_operand`), transposed to [N_out, K]: in bfloat16 (the
+kernel's RNE rounding of the float32 matrix) at ``default``, as the int8
+codes at ``int8``, the synthesis's output columns there in pair order
+(:func:`pair_permutation`); and at the split tiers ``highest``/``high`` as
+three bf16 planes [3, N_out, K] (:func:`split_planes`), whose products the
+kernels sum in six passes. The wrappers take it as their last argument;
+the plain versions take and ignore it.
 
 Each kernel has a ``torch.autograd.Function`` (:data:`FUNCTIONS`) whose
 backward is its VJP wrapper (``*_vjp``, replacing ``pallas_mdct.py``
@@ -43,8 +45,13 @@ from audiocodec_tpu_torch.ops import radix as _radix
 
 GROUP = 128  # int8g column group of the synthesis
 PAIR_BLOCK = 64  # synthesis operand columns that close over their outputs
-_TC_TIERS = frozenset(("default", "int8"))  # the tensor-core tiers
-_TIERS = {"highest": 0, "high": 0, "default": 1, "int8": 2}
+# bf16 planes of a float32 operand at the split tiers, whose kernels sum the
+# products of the plane pairs (i, j) with i + j < planes: six passes on
+# three planes. `high` runs six too (csrc/mdct_kernels.cu HIGH_PASSES:
+# three passes on two planes miss 1e-5 of the peak on the synthesis)
+SPLIT_PLANES = {"highest": 3, "high": 3}
+SPLIT_ROWS = 128  # A rows of a split_gemm_kernel block (csrc SPLIT_BM)
+_TIERS = {"highest": 0, "default": 1, "int8": 2, "high": 3}
 _RADIX_TIERS = {t: v for t, v in _TIERS.items() if t != "int8"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,25 +74,45 @@ def pair_permutation(n: int) -> torch.Tensor:
     return torch.cat([c, n - 1 - c], dim=1).reshape(-1)
 
 
+def split_planes(a: torch.Tensor, planes: int) -> torch.Tensor:
+    """float32 ``a`` as ``planes`` bfloat16 planes [planes, *a.shape]:
+    a0 = bf16(a), a1 = bf16(a - a0), a2 = bf16(a - a0 - a1), each rounded
+    to nearest even. Every residual is exact in float32, so three planes sum
+    to a exactly for normal a (|a| >= 2^-110: a2's last bit stays above
+    bf16's least subnormal), and two leave about 2^-16 |a| out. The
+    kernels' split (csrc split3) does the same operations."""
+    out, r = [], a.to(torch.float32)
+    for _ in range(planes):
+        h = r.to(torch.bfloat16)
+        out.append(h)
+        r = r - h.to(torch.float32)
+    return torch.stack(out)
+
+
 def _operand(mat, precision, columns=None):
-    if precision not in _TC_TIERS:
-        return None
     m = mat if columns is None else mat[:, columns]
+    if precision in SPLIT_PLANES:
+        return split_planes(m.T, SPLIT_PLANES[precision]).contiguous()
     m = m.T if precision == "int8" else m.T.to(torch.bfloat16)
     return m.contiguous()
 
 
 def analysis_operand(mat: torch.Tensor, precision: str):
     """The analysis kernel's form of ``mat`` (float32 [K, N], or the int8
-    codes at ``int8``): [N, K] in bfloat16 at ``default``, int8 at
-    ``int8``; None at the FFMA tiers, which read ``mat`` itself."""
+    codes at ``int8``), K contiguous: [N, K] in bfloat16 at ``default``,
+    int8 at ``int8``, and the bf16 planes [P, N, K] of :func:`split_planes`
+    at the split tiers (P = ``SPLIT_PLANES[precision]``)."""
     return _operand(mat, precision)
 
 
 def synthesis_operand(mat: torch.Tensor, precision: str):
     """The synthesis kernel's form of ``mat``: as :func:`analysis_operand`,
-    with the output columns in :func:`pair_permutation` order."""
-    return _operand(mat, precision, pair_permutation(mat.shape[1]))
+    with the output columns in :func:`pair_permutation` order at the
+    one-pass tiers, whose kernel scatters in its epilogue (the split tiers'
+    product goes through a z scratch in natural order)."""
+    pairs = precision not in SPLIT_PLANES
+    return _operand(mat, precision,
+                    pair_permutation(mat.shape[1]) if pairs else None)
 
 
 def _tier_matmul(u, mat, precision, mat_scale, grouped):
@@ -219,38 +246,59 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_operand(x, mat, operand, precision):
-    """The tensor-core tiers' operand form of ``mat``, as the kernels take
-    it (:func:`analysis_operand`, :func:`synthesis_operand`)."""
+def _check_operand(x, operand, precision):
+    """The matrix's operand form, as the mono kernels take it
+    (:func:`analysis_operand`, :func:`synthesis_operand`); the split tiers
+    take float32 input only (bfloat16 operands admit one pass)."""
     n = x.shape[-1]
+    if precision in SPLIT_PLANES and x.dtype != torch.float32:
+        raise TypeError(f"the {precision!r} tier's kernels take float32 "
+                        f"input, got {x.dtype} (bfloat16 runs 'default')")
     want = torch.int8 if precision == "int8" else torch.bfloat16
-    if (operand is None or operand.shape != (n, n) or operand.dtype != want
+    shape = (n, n)
+    if precision in SPLIT_PLANES:
+        shape = (SPLIT_PLANES[precision], n, n)
+    if (operand is None or operand.shape != shape or operand.dtype != want
             or operand.device != x.device or not operand.is_contiguous()
             or operand.data_ptr() % 16):
         got = None if operand is None else (tuple(operand.shape),
                                             operand.dtype)
         raise ValueError(f"the {precision!r} tier takes the matrix's "
-                         f"operand form, a contiguous [{n}, {n}] {want} on "
-                         f"{x.device} (cuda_mdct.analysis_operand / "
+                         f"operand form, a contiguous {list(shape)} {want} "
+                         f"on {x.device} (cuda_mdct.analysis_operand / "
                          f"synthesis_operand), got {got}")
     _check_grad(x, (operand,))
+
+
+def _split_scratch(x, a_rows, precision):
+    """The split tiers' A planes [P, a_rows rounded up to SPLIT_ROWS, N]
+    (bf16, written by the kernels' split pass); None at the one-pass
+    tiers."""
+    if precision not in SPLIT_PLANES:
+        return None
+    m_pad = -(-a_rows // SPLIT_ROWS) * SPLIT_ROWS
+    return torch.empty(SPLIT_PLANES[precision], m_pad, x.shape[-1],
+                       dtype=torch.bfloat16, device=x.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision, mat_scale,
                         operand=None):
     weights = (wa_r, wb, wc, ffr)
     _check(x, weights, mat, precision)
-    tc = precision in _TC_TIERS
-    if tc:
-        _check_operand(x, mat, operand, precision)
+    _check_operand(x, operand, precision)
     from audiocodec_tpu_torch.ops import _build
 
     rows, t, n = x.shape
     out = torch.empty(rows, t + 1, n, dtype=x.dtype, device=x.device)
+    planes = _split_scratch(x, rows * (t + 1), precision)
     rc = _build.library().acx_fold_matmul(
-        x.data_ptr(), *(w.data_ptr() for w in weights),
-        (operand if tc else mat).data_ptr(), out.data_ptr(), rows, t, n,
-        _DTYPES[x.dtype], _TIERS[precision], float(mat_scale), _stream(x),
+        x.data_ptr(), *(w.data_ptr() for w in weights), operand.data_ptr(),
+        _ptr(planes), out.data_ptr(), rows, t, n, _DTYPES[x.dtype],
+        _TIERS[precision], float(mat_scale), _stream(x),
     )
     if rc:
         raise RuntimeError(f"fold_matmul kernel launch failed: CUDA error {rc}")
@@ -262,8 +310,8 @@ def fold_matmul(x, wa_r, wb, wc, ffr, mat, precision="highest",
     """Analysis: y[n] = fold(x)[n] @ mat, [rows, T, N] -> [rows, T+1, N].
 
     At ``int8``, ``mat`` is the host-quantized int8 matrix and
-    ``mat_scale`` its rescale. At ``default`` and ``int8`` the kernel reads
-    ``operand``, :func:`analysis_operand` of ``mat``."""
+    ``mat_scale`` its rescale. The kernel reads ``operand``,
+    :func:`analysis_operand` of ``mat``."""
     if x.device.type == "cpu":
         return fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision,
                                      mat_scale)
@@ -277,22 +325,20 @@ def _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale,
                            operand=None):
     weights = (p, q, r, s_r)
     _check(y, weights, mat, precision)
-    tc = precision in _TC_TIERS
-    if tc:
-        _check_operand(y, mat, operand, precision)
+    _check_operand(y, operand, precision)
     from audiocodec_tpu_torch.ops import _build
 
     rows, t, n = y.shape
     out = torch.empty(rows, t + 1, n, dtype=y.dtype, device=y.device)
-    # the FFMA tiers' product goes through z; the tensor-core tiers scatter
-    # in the kernel's epilogue
-    z = None if tc else torch.empty(rows, t, n, dtype=y.dtype,
-                                    device=y.device)
+    # the split tiers' product goes through z (float32); the one-pass tiers
+    # scatter in the kernel's epilogue
+    planes = _split_scratch(y, rows * t, precision)
+    z = None if planes is None else torch.empty(rows, t, n, dtype=y.dtype,
+                                                device=y.device)
     rc = _build.library().acx_matmul_scatter(
-        y.data_ptr(), *(w.data_ptr() for w in weights),
-        (operand if tc else mat).data_ptr(), None if tc else z.data_ptr(),
-        out.data_ptr(), rows, t, n, _DTYPES[y.dtype], _TIERS[precision],
-        float(mat_scale), _stream(y),
+        y.data_ptr(), *(w.data_ptr() for w in weights), operand.data_ptr(),
+        _ptr(planes), _ptr(z), out.data_ptr(), rows, t, n, _DTYPES[y.dtype],
+        _TIERS[precision], float(mat_scale), _stream(y),
     )
     if rc:
         raise RuntimeError(
@@ -305,8 +351,8 @@ def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0,
                    operand=None):
     """Synthesis: z = y @ mat, then the overlap scatter, [rows, T, N] ->
     [rows, T+1, N]. At ``int8`` the tier is int8g (per frame and
-    128-column group). At ``default`` and ``int8`` the kernel reads
-    ``operand``, :func:`synthesis_operand` of ``mat``."""
+    128-column group). The kernel reads ``operand``,
+    :func:`synthesis_operand` of ``mat``."""
     if y.device.type == "cpu":
         return matmul_scatter_reference(y, p, q, r, s_r, mat, precision,
                                         mat_scale)
@@ -502,8 +548,8 @@ def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest",
                     operand=None):
     """The VJP of :func:`fold_matmul`: the cotangent [rows, T+1, N] ->
     [rows, T, N] through the synthesis kernel, with the residents of
-    :func:`fold_vjp_weights` and :func:`fold_vjp_matrix` (and that matrix's
-    :func:`synthesis_operand` at ``default``)."""
+    :func:`fold_vjp_weights` and :func:`fold_vjp_matrix` and that matrix's
+    :func:`synthesis_operand`."""
     if g.device.type == "cpu":
         return fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision)
     out = _vjp(g, _launch_matmul_scatter,
@@ -523,8 +569,8 @@ def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
                        operand=None):
     """The VJP of :func:`matmul_scatter`: the cotangent [rows, T+1, N] ->
     [rows, T, N] through the analysis kernel, with the residents of
-    :func:`unfold_vjp_weights` and :func:`unfold_vjp_matrix` (and that
-    matrix's :func:`analysis_operand` at ``default``)."""
+    :func:`unfold_vjp_weights` and :func:`unfold_vjp_matrix` and that
+    matrix's :func:`analysis_operand`."""
     if g.device.type == "cpu":
         return matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
                                             precision)

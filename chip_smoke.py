@@ -7,15 +7,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from audiocodec_tpu_torch/csrc/; each of the
-   eight tensor-core kernel instances must hold warpgroup MMA (HGMMA or
-   IGMMA) and TMA load (UTMALDG) instructions in its SASS (cuobjdump);
+   eight ``tc_kernel`` instances must hold warpgroup MMA (HGMMA or IGMMA)
+   and TMA load (UTMALDG) instructions in its SASS (cuobjdump), and each
+   ``split_gemm_kernel`` instance (the split tiers) bf16 HGMMA into
+   float32 (``HGMMA.*.F32.BF16``) and UTMALDG;
 3. hold each kernel against its plain torch version on the card, at the
    main path's shapes and at every tier the path uses, plus ``highest``
-   (the int8 tiers bit for bit); the tensor-core kernels also at 5 rows of
-   1, 127 and 129 frames (tiles of 64 or 128 frames, no full wave), with
-   their registers, spills and shared memory, and the bare product's time
-   through ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) beside them
-   as yardsticks the port never calls;
+   and ``high`` (the int8 tiers bit for bit); the mono kernels also at 5
+   rows of 1, 127 and 129 frames (tiles of 64 or 128 frames, no full
+   wave), with their registers, spills and shared memory, and the bare
+   product's time through ``torch.matmul`` (bf16) and ``torch._int_mm``
+   (int8) beside them as yardsticks the port never calls;
 4. run ``Codec.round_trip_quantized`` at full width (44.1 kHz, N=1024, 64
    Bark bands, 32 mono clips of 10 s) in the three configurations of
    bench.py: (a) bf16 int8, (b) bf16 default, (c) f32 default. Each kernel
@@ -23,7 +25,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    0.05 dB of the same codec with its kernels swapped for their plain
    versions;
 5. an f32 ``highest`` MDCT round trip through the kernels must reach
-   130 dB SNR;
+   130 dB SNR (the ``high`` one is printed);
 6. time the kernels against their plain versions with CUDA events, and the
    three configurations in audio-seconds per second with the device time of
    each of their stages;
@@ -34,8 +36,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    output while another seed does not;
 8. the radix kernels against their plain versions at N=2048, [32, 215,
    2048] -> [32, 216, 2048], at ``highest`` (float32) and ``default``
-   (bfloat16), and the mono kernels there at ``highest``, ``default`` and
-   int8 (bit for bit);
+   (bfloat16), and the mono kernels there at ``highest``, ``high``,
+   ``default`` and int8 (bit for bit);
 9. ``Codec.round_trip`` and ``round_trip_fast`` at full width in three
    configurations: (r) float32 ``highest``, N=1024, mono design (the
    reference's configuration); (r2) float32 ``highest``, N=2048, radix
@@ -47,15 +49,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    must reach 125 dB and come within 1 dB of their plain versions'; the
    mono and radix designs are timed side by side in ``round_trip_fast`` at
    N=2048, at ``highest`` and bf16 ``default``, and the mono design at
-   int8 (its tensor-core kernels run K in two passes there);
+   ``high`` and int8 (its one-pass kernels run K in two passes there);
 11. each VJP (``ops/cuda_mdct.py`` ``*_vjp``: the other direction's kernel
    on the block-reversed cotangent) against ``torch.autograd.grad``
    through its plain forward version on the same seeded cotangent, at the
    main path's shapes: mono [32, 430, 1024] at f32 ``highest``, f32
-   ``default``, bf16 ``default`` and int8 (straight-through: against the
-   ``default`` forward on the dequantized matrix), radix [32, 215, 2048]
-   at f32 ``highest`` and bf16 ``default``; each timed against its plain
-   version and a conv1d / conv_transpose1d call of the same function;
+   ``high``, f32 ``default``, bf16 ``default`` and int8 (straight-through:
+   against the ``default`` forward on the dequantized matrix), radix [32,
+   215, 2048] at f32 ``highest`` and bf16 ``default``; each timed against
+   its plain version and a conv1d / conv_transpose1d call of the same
+   function;
 12. training at full width (32 mono clips of 10 s, 64 Bark bands), Adam
    1e-3: ``SpectralAE(1024, 512, 64, 1/32)`` in (r) f32 ``highest`` and (b)
    bf16 ``default``, the per-band-gain trainer in (r2) f32 ``highest``
@@ -68,10 +71,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the waveform in every configuration of phase 11 ((r) and (r2) among
    them), which fires both VJPs, against the all-plain gradient.
 
-Each kernel line carries its bound (the larger of its operations over the
-card's peak for the tier and its bytes over 3.35 TB/s) and the time of one
-PyTorch call computing the same function where there is one. The line
-before the last is a JSON object with one entry per kernel and tier; the
+Each kernel line names the device functions its tier runs and carries its
+bound (the larger of its operations over the card's peak for the tier and
+its bytes over 3.35 TB/s; at ``highest``/``high`` the operations are the
+split tiers' six bf16 passes, with the float32 FFMA figure beside it) and
+the time of one PyTorch call computing the same function where there is
+one. The line before the last is a JSON object with one entry per kernel
+and tier; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
 result. It never imports jax.
@@ -110,9 +116,10 @@ REPLACES = {
     "radix_fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:729",
     "radix_matmul_scatter_vjp": "audiocodec_tpu/ops/pallas_mdct.py:760",
 }
-# Dense peaks of an H100 SXM at 700 W (NVIDIA data sheet), TFLOP/s or TOP/s,
-# and its memory rate, TB/s
-PEAK = {"int8": 1979.0, "default": 989.0, "highest": 67.0}
+# Dense peaks of an H100 SXM at 700 W (NVIDIA data sheet), TFLOP/s or TOP/s:
+# int8 and bf16 on the tensor cores, float32 FFMA beside them; and its
+# memory rate, TB/s
+PEAK = {"int8": 1979.0, "default": 989.0, "float32": 67.0}
 MEMORY_TB_S = 3.35
 # Operations an element of the noise kernel: Philox4x32-10 (10 rounds of
 # 2 32x32->64-bit products, 2 xors and 2 key additions) and Box-Muller
@@ -149,13 +156,16 @@ DESIGN_CONFIGS = {
     "int8-mono": dict(filters_n=RADIX_N, compute_dtype="bfloat16",
                       fast_bf16=True, dct_precision="int8",
                       kernel_design="mono"),
+    "high-mono": dict(NOISE_CONFIGS["r2"], kernel_design="mono",
+                      dct_precision="high"),
 }
 
 # The VJPs' tiers (phase 11) and the MDCTs of the gradient paths (phases
 # 12-13), by label: (r), (c), (b), (a) and (r2) are the configurations of
-# phases 4 and 9, (b2) the radix bf16 tier
+# phases 4 and 9, (h) the mono f32 ``high`` tier, (b2) the radix bf16 tier
 VJP_CASES = {
     "r": NOISE_CONFIGS["r"],
+    "h": dict(NOISE_CONFIGS["r"], dct_precision="high"),
     "c": dict(filters_n=FILTERS_N, compute_dtype="float32",
               dct_precision="default"),
     "b": NOISE_CONFIGS["b"],
@@ -298,30 +308,36 @@ def ptxas_summary(log):
     return lines + notes
 
 
-# The tensor-core kernels' warpgroup products and TMA loads in SASS
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+# The tensor-core kernels' warpgroup products (bf16 into float32 among
+# them) and TMA loads in SASS, and the kernels that must hold them
+SASS_OPS = ("HGMMA", "HGMMA.F32.BF16", "IGMMA", "UTMALDG")
+TENSOR_CORE_KERNELS = ("tc_kernel", "split_gemm_kernel")
 
 
 def sass_summary(lib_path):
-    """Per tc_kernel instance of the built library, the count of its
-    warpgroup MMA (HGMMA bf16, IGMMA int8) and TMA load (UTMALDG)
-    instructions in the SASS (cuobjdump), and one such line of each."""
+    """Per tensor-core kernel instance of the built library (tc_kernel,
+    split_gemm_kernel), the count of its warpgroup MMA (HGMMA bf16, those
+    into float32, IGMMA int8) and TMA load (UTMALDG) instructions in the
+    SASS (cuobjdump), one such line of each, and the (mangled) names of
+    every kernel in the library."""
     import shutil
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    counts, lines, name = {}, {}, None
+    counts, lines, names, name = {}, {}, [], None
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :", 1)[1].strip()
-        elif name and "tc_kernel" in name:
+            names.append(name)
+        elif name and any(k in name for k in TENSOR_CORE_KERNELS):
             for op in SASS_OPS:
-                if op in ln:
+                head, _, tail = op.partition(".")
+                if head in ln and (not tail or f".{tail}" in ln):
                     counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
                     counts[name][op] += 1
                     lines.setdefault(op, ln.strip())
-    return counts, lines
+    return counts, lines, names
 
 
 def tolerance(torch, ref, kernel, tier, dtype):
@@ -339,13 +355,39 @@ def tolerance(torch, ref, kernel, tier, dtype):
     return 1e-5 * peak
 
 
-def entry(name, tier, dtype, config, n, **numbers):
+# The other direction's kernel, which a VJP runs
+VJP_RUNS = {"fold_matmul": "matmul_scatter", "matmul_scatter": "fold_matmul",
+            "radix_fold_matmul": "radix_matmul_scatter",
+            "radix_matmul_scatter": "radix_fold_matmul"}
+
+
+def device_functions(name, tier):
+    """The device functions (csrc/) the wrapper ``name`` launches at
+    ``tier``, in order: the route of that tier."""
+    if name.endswith("_vjp"):
+        return device_functions(VJP_RUNS[name.removesuffix("_vjp")], tier)
+    if name == "add_masked_noise":
+        return "noise_kernel"
+    if name.startswith("radix"):
+        gemm = "mma_gemm_kernel" if tier == "default" else "ffma_gemm_kernel"
+        if name == "radix_fold_matmul":
+            return f"fold_rotate_kernel + {gemm} + butterfly_out_kernel"
+        return f"butterfly_in_kernel + {gemm} + scatter_kernel"
+    if tier in ("highest", "high"):
+        route = f"split_kernel + split_gemm_kernel<{split_passes(tier)}>"
+        return route if name == "fold_matmul" else f"{route} + scatter_kernel"
+    return "tc_kernel"
+
+
+def entry(name, tier, dtype, config, n, route_tier=None, **numbers):
     """One kernel's line of the kernels JSON (``tier`` None for the noise
-    kernel, which has one); ``launches`` is filled in by the run of the
+    kernel, which has one; ``route_tier`` the tier whose device functions
+    it runs, if not ``tier``); ``launches`` is filled in by the run of the
     path ``config`` names."""
     label = dtype if tier is None else f"{tier},{dtype}"
     return dict(name=f"{name}[{label}]", config=config, n=n,
                 route="cuda",
+                device_functions=device_functions(name, route_tier or tier),
                 source=NOISE_SOURCE if name == "add_masked_noise" else SOURCE,
                 replaces=REPLACES[name], launches=None, **numbers)
 
@@ -356,22 +398,46 @@ def nbytes(*tensors):
                if hasattr(t, "element_size"))
 
 
-def read_args(mdct, args, tier):
-    """The arguments a kernel of ``mdct`` (or its VJP) reads: at the mono
-    design's tensor-core tiers the matrix's operand form and not the
-    matrix, which its plain version reads."""
-    if mdct.kernel_design == "mono" and tier in ("default", "int8"):
+def read_args(mdct, args):
+    """The arguments a kernel of ``mdct`` (or its VJP) reads: in the mono
+    design the matrix's operand form and not the matrix, which its plain
+    version reads."""
+    if mdct.kernel_design == "mono":
         return args[:4] + args[5:]
     return args
 
 
+def split_passes(tier):
+    """The bf16 passes a split tier's kernels run: one per pair (i, j) of
+    its operands' planes with i + j < planes (ops/cuda_mdct.py
+    SPLIT_PLANES)."""
+    from audiocodec_tpu_torch.ops import cuda_mdct
+
+    planes = cuda_mdct.SPLIT_PLANES[tier]
+    return planes * (planes + 1) // 2
+
+
 def bound(flops, n_bytes, tier):
-    """(bound_ms, bound_by): the larger of the operations over the tier's
-    peak and the bytes over the memory rate."""
-    ops_ms = flops / (PEAK["highest" if tier == "high" else tier] * 1e9)
+    """(bound_ms, bound_by, ffma_bound_ms): the larger of the operations
+    over the tier's peak and the bytes over the memory rate. ``flops`` are
+    the products'; at ``highest`` and ``high`` the operations are the split
+    tiers' bf16 passes (:func:`split_passes` times ``flops``) at the bf16
+    rate, the least work that gives those tiers' error on the card, for
+    every kernel of the tier (radix and VJPs too), and ``ffma_bound_ms`` is
+    the same bound with ``flops`` at the float32 FFMA rate (None at the
+    other tiers). Tier "float32" counts float32 operations (the noise
+    kernel)."""
     bytes_ms = n_bytes / (MEMORY_TB_S * 1e9)
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (
-        bytes_ms, "bytes")
+
+    def larger(ops_ms):
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (
+            bytes_ms, "bytes")
+
+    if tier in ("highest", "high"):
+        ffma_ms = larger(flops / (PEAK["float32"] * 1e9))[0]
+        return (*larger(split_passes(tier) * flops / (PEAK["default"] * 1e9)),
+                ffma_ms)
+    return (*larger(flops / (PEAK[tier] * 1e9)), None)
 
 
 def gemm_flops(spectrum_frames, n, radix):
@@ -430,6 +496,29 @@ def library_call(torch, mdct, direction, adjoint=False):
     return call
 
 
+def function_ms(torch, fn, calls=5):
+    """Device time per call of ``fn`` by device function (the MDCT
+    kernels' names, csrc/; others by the start of theirs), from a
+    torch.profiler trace of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((f for f in MDCT_DEVICE_FUNCTIONS if f in e.name),
+                    e.name[:40])
+        span = (e.time_range.end - e.time_range.start) / 1e3 / calls
+        out[name] = out.get(name, 0.0) + span
+    return out
+
+
 def compare_kernels(torch, mdct, label, entries):
     """Both kernels of ``mdct``'s design against their plain versions on
     the card, on the test signal cut into [BATCH, blocks, N] rows: error,
@@ -459,12 +548,13 @@ def compare_kernels(torch, mdct, label, entries):
         err = float((got.float() - want.float()).abs().max())
         tol = tolerance(torch, want, name, tier, inp.dtype)
         ms = cuda_ms(torch, lambda: kernel(inp, *args))
+        by_function = function_ms(torch, lambda: kernel(inp, *args))
         plain_ms = cuda_ms(torch, lambda: plain(inp, *args))
         spectrum_frames = got.shape[1] if direction == "forward" else (
             inp.shape[1])
         flops = gemm_flops(spectrum_frames, n, radix)
-        read = nbytes(inp, got, *read_args(mdct, args, tier))
-        bound_ms, bound_by = bound(flops, read, tier)
+        read = nbytes(inp, got, *read_args(mdct, args))
+        bound_ms, bound_by, ffma_bound_ms = bound(flops, read, tier)
         library = library_call(torch, mdct, direction)
         library_ms = library_err = None
         if library is not None:
@@ -472,24 +562,30 @@ def compare_kernels(torch, mdct, label, entries):
                                 .abs().max())
             library_ms = cuda_ms(torch, lambda: library(inp), iters=5)
         tflops = flops / (ms * 1e-3) / 1e12
-        peak = PEAK["highest" if tier == "high" else tier]
         dtype = str(inp.dtype).removeprefix("torch.")
+        ffma = ("" if ffma_bound_ms is None
+                else f", at the FFMA rate {ffma_bound_ms:.4f} ms")
         print(f"kernel {name} {tier} {dtype} {tuple(inp.shape)}: "
               f"max_abs_err {err:.3e} (tol {tol:.3e}), {ms:.4f} ms vs "
               f"plain {plain_ms:.4f} ms, library {library_ms} ms (max_abs_err "
-              f"{library_err}), bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{tflops:.1f} TF/s = {100 * tflops / peak:.1f}% of {peak:.0f}")
+              f"{library_err}), bound {bound_ms:.4f} ms ({bound_by}{ffma}) = "
+              f"{100 * bound_ms / ms:.1f}% of the time, {tflops:.1f} TF/s of "
+              f"products; device ms " + ", ".join(
+                  f"{f} {t:.4f}" for f, t in by_function.items()))
         check(err <= tol, f"{name} {tier} {dtype}: error {err} > {tol}")
         entries.append(entry(name, tier, dtype, label, n, max_abs_err=err,
                              tol=tol, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms, tflops=tflops))
+                             ffma_bound_ms=ffma_bound_ms,
+                             library_ms=library_ms, tflops=tflops,
+                             function_ms=by_function))
 
 
-def tensor_core_phase(torch, codecs):
-    """3, continued. The tensor-core kernels of configurations (a), (b),
-    (c) at 5 rows of 1, 127 and 129 frames (around their tiles of 64 or 128
-    frames; no full wave of the card) against their plain versions, each
+def tensor_core_phase(torch, mdcts):
+    """3, continued. The mono kernels of the MDCTs ``mdcts`` (those of
+    configurations (a), (b), (c), ``highest`` and ``high``) at 5 rows of 1,
+    127 and 129 frames (around their tiles of 64 or 128 frames; no full
+    wave of the card) against their plain versions, each tensor-core
     kernel's dynamic shared memory, and the bare [13792 x 1024] x [1024 x
     1024] product through torch.matmul (bf16) and torch._int_mm (int8):
     yardsticks of the product alone, which the port never calls."""
@@ -504,8 +600,12 @@ def tensor_core_phase(torch, codecs):
                 out["shared_bytes"][f"{name} {tier} N={n}"] = b
                 print(f"build: tc_kernel {name} {tier} N={n}: {b} bytes "
                       "of dynamic shared memory")
-    for k, codec in codecs.items():
-        mdct = codec.mdct
+    for tier, code in (("highest", 0), ("high", 3)):  # either direction, N
+        b = lib.acx_tc_shared_bytes(code, 1, FILTERS_N)
+        out["shared_bytes"][f"split_gemm_kernel {tier}"] = b
+        print(f"build: split_gemm_kernel<{split_passes(tier)}> {tier}: {b} "
+              "bytes of dynamic shared memory")
+    for k, mdct in mdcts.items():
         tier = mdct.kernel_precision
         for blocks in (1, 127, 129):
             gen = torch.Generator(device="cpu").manual_seed(blocks)
@@ -516,6 +616,14 @@ def tensor_core_phase(torch, codecs):
                 name = kernel.__name__
                 plain = getattr(cuda_mdct, f"{name}_reference")
                 args = mdct.kernel_args(direction)
+                if direction == "inverse" and tier in ("highest", "high"):
+                    # a spectrum of the path's scale, the forward's (as
+                    # tests/test_torch_cuda.py feeds it): these tiers'
+                    # synthesis tolerance is an absolute 1e-4, ~3 float32
+                    # ulps of the ~300 that uniform spectra give
+                    x = cuda_mdct.fold_matmul_reference(
+                        x, *mdct.kernel_args("forward"))[:, :blocks]
+                    x = x.contiguous()
                 got, want = kernel(x, *args), plain(x, *args)
                 torch.cuda.synchronize()
                 err = float((got.float() - want.float()).abs().max())
@@ -528,7 +636,7 @@ def tensor_core_phase(torch, codecs):
     print("ragged frame counts, max_abs_err: "
           + ", ".join(f"{c} {e:.3e}"
                       for c, e in out["ragged_max_abs_err"].items()))
-    dev = codecs["b"].mdct.wa_r.device
+    dev = mdcts["b"].wa_r.device
     m, n = BATCH * (SAMPLES // FILTERS_N + 1), FILTERS_N
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     a = torch.randn(m, n, generator=gen).to(dev, torch.bfloat16)
@@ -587,9 +695,9 @@ def noise_kernel_phase(torch, codecs, entries):
               f"max_abs_err {err:.3e} (tol {tol:.3e}), {ms:.4f} ms vs plain "
               f"{plain_ms:.4f} ms, {gbs:.0f} GB/s")
         check(err <= tol, f"add_masked_noise {dtype}: error {err} > {tol}")
-        bound_ms, bound_by = bound(
+        bound_ms, bound_by, _ = bound(
             NOISE_OPS_PER_ELEMENT * spec.numel(), nbytes(spec, thr, got),
-            "highest")
+            "float32")
         entries.append(entry("add_masked_noise", None, dtype,
                              f"noise ({label})", codec.mdct.filters_n,
                              max_abs_err=err, tol=tol, ms=ms,
@@ -706,7 +814,7 @@ def radix_kernel_phase(torch, dev, entries):
     from audiocodec_tpu_torch import MDCT
 
     for k in ("highest-radix", "default-radix", "highest-mono",
-              "default-mono", "int8-mono"):
+              "high-mono", "default-mono", "int8-mono"):
         label = "noise (r2)" if k == "highest-radix" else f"design {k}"
         compare_kernels(torch, MDCT(use_kernel=True, device=dev,
                                     **DESIGN_CONFIGS[k]), label, entries)
@@ -835,10 +943,9 @@ def vjp_phase(torch, dev, entries):
             glue_ms = cuda_ms(torch, lambda: cuda_mdct._vjp(
                 cot, lambda *_: full, (), analysis))
             spectrum_frames = cot.shape[1] if analysis else got.shape[1]
-            bound_ms, bound_by = bound(
+            bound_ms, bound_by, ffma_bound_ms = bound(
                 gemm_flops(spectrum_frames, n, radix),
-                nbytes(cot, got, *read_args(mdct, vjp_args,
-                                            mdct.vjp_precision)),
+                nbytes(cot, got, *read_args(mdct, vjp_args)),
                 mdct.vjp_precision)
             library = library_call(torch, mdct, direction, adjoint=True)
             library_ms = library_err = None
@@ -859,10 +966,12 @@ def vjp_phase(torch, dev, entries):
             config = (f"train ({k})" if not analysis and k in TRAIN_CONFIGS
                       else f"waveform grad ({k})")
             entries.append(entry(f"{name}_vjp", tier, dtype, config, n,
+                                 route_tier=mdct.vjp_precision,
                                  max_abs_err=err, tol=tol,
                                  plain_version_err=plain_err, ms=ms,
                                  plain_ms=plain_ms, glue_ms=glue_ms,
                                  bound_ms=bound_ms, bound_by=bound_by,
+                                 ffma_bound_ms=ffma_bound_ms,
                                  library_ms=library_ms))
             del cot, got, want, full
         del mdct, rows, spectrum
@@ -900,7 +1009,8 @@ def trainer(torch, codec, model, x):
 
 
 # The MDCT kernels' device functions (csrc/mdct_kernels.cu), for the trace
-MDCT_DEVICE_FUNCTIONS = ("tc_kernel", "mma_gemm_kernel", "ffma_gemm_kernel",
+MDCT_DEVICE_FUNCTIONS = ("tc_kernel", "split_kernel", "split_gemm_kernel",
+                         "mma_gemm_kernel", "ffma_gemm_kernel",
                          "scatter_kernel", "fold_rotate_kernel",
                          "butterfly_in_kernel", "butterfly_out_kernel")
 
@@ -1114,16 +1224,28 @@ def main() -> int:
           + ("" if log else " (cached)"))
     for line in ptxas_summary(log):
         print(f"build: {line}")
-    sass, sass_lines = sass_summary(lib_path)
+    sass, sass_lines, kernel_names = sass_summary(lib_path)
     for name, ops in sass.items():
         print(f"sass: {name}: " + ", ".join(f"{n} {op}" for op, n in
                                              ops.items()))
     for line in sass_lines.values():
         print(f"sass: e.g. {line}")
-    check(len(sass) == 8 and all(
+    tc = {k: ops for k, ops in sass.items() if "tc_kernel" in k}
+    split = {k: ops for k, ops in sass.items() if "split_gemm_kernel" in k}
+    check(len(tc) == 8 and all(
         (ops["HGMMA"] or ops["IGMMA"]) and ops["UTMALDG"]
-        for ops in sass.values()),
-        f"tc_kernel: not 8 instances with wgmma and TMA in SASS: {sass}")
+        for ops in tc.values()),
+        f"tc_kernel: not 8 instances with wgmma and TMA in SASS: {tc}")
+    check(split and all(
+        ops["HGMMA.F32.BF16"] and ops["UTMALDG"] for ops in split.values()),
+        "split_gemm_kernel: an instance without bf16 wgmma into float32 or "
+        f"TMA in SASS: {split}")
+    # the FFMA GEMM is the radix design's alone (its two halves): one
+    # instance for each input dtype, none for the mono design
+    ffma = [k for k in kernel_names if "ffma_gemm_kernel" in k]
+    print(f"sass: ffma_gemm_kernel instances {ffma}")
+    check(len(ffma) == 2, f"ffma_gemm_kernel: not the radix design's two "
+          f"instances: {ffma}")
 
     codecs = {k: Codec.create(SAMPLE_RATE, filters_n=FILTERS_N,
                               bark_bands_n=64, device=dev, **cfg)
@@ -1131,15 +1253,15 @@ def main() -> int:
     for k, codec in codecs.items():
         check(codec.mdct.use_kernel is True,
               f"config ({k}): use_kernel='auto' did not resolve to the kernels")
-    fidelity = MDCT(FILTERS_N, use_kernel=True, dct_precision="highest",
-                    device=dev)
+    fidelity = {tier: MDCT(FILTERS_N, use_kernel=True, dct_precision=tier,
+                           device=dev) for tier in ("highest", "high")}
 
     # 3. every kernel against its plain version, at the main path's shapes
     entries = []
-    cases = [(k, codecs[k].mdct) for k in "abc"] + [("highest", fidelity)]
-    for label, mdct in cases:
+    cases = {**{k: codecs[k].mdct for k in "abc"}, **fidelity}
+    for label, mdct in cases.items():
         compare_kernels(torch, mdct, label, entries)
-    tensor_core = tensor_core_phase(torch, codecs)
+    tensor_core = tensor_core_phase(torch, cases)
 
     # 4. the main path, through the entry point a user calls
     results = {}
@@ -1181,19 +1303,23 @@ def main() -> int:
         set_launches(entries, k, counts)
         del x, out, plain_out, codes, plain_codes
 
-    # 5. fidelity: an f32 highest MDCT round trip through the kernels
+    # 5. fidelity: f32 highest (and high) MDCT round trips through the
+    # kernels
     x = make_signal(torch, dev, torch.float32)
-    with torch.no_grad():
-        reset_all_launch_counts()
-        rt = fidelity.inverse_transform(fidelity.transform(x))
-        torch.cuda.synchronize()
-        counts = all_launch_counts()
-    check(counts == expected_counts(fold_matmul=1, matmul_scatter=1),
-          f"fidelity: launch counts {counts}")
-    fid = snr_db(x, rt)
-    print(f"fidelity: f32 highest MDCT round trip SNR {fid:.2f} dB")
-    check(fid >= FIDELITY_SNR_DB, f"fidelity SNR {fid} < {FIDELITY_SNR_DB}")
-    set_launches(entries, "highest", counts)
+    fid = {}
+    for tier, mdct in fidelity.items():
+        with torch.no_grad():
+            reset_all_launch_counts()
+            rt = mdct.inverse_transform(mdct.transform(x))
+            torch.cuda.synchronize()
+            counts = all_launch_counts()
+        check(counts == expected_counts(fold_matmul=1, matmul_scatter=1),
+              f"fidelity {tier}: launch counts {counts}")
+        fid[tier] = snr_db(x, rt)
+        print(f"fidelity: f32 {tier} MDCT round trip SNR {fid[tier]:.2f} dB")
+        set_launches(entries, tier, counts)
+    check(fid["highest"] >= FIDELITY_SNR_DB,
+          f"fidelity SNR {fid['highest']} < {FIDELITY_SNR_DB}")
 
     # 7-10. the noise-injection codec and its kernels
     noise = noise_phases(torch, dev, entries)

@@ -12,13 +12,16 @@ tree's kernels into that tree's ``build/`` and times, with CUDA events
 (50 launches after 5 warm-ups), each MDCT kernel of the port at the main
 path's shapes (chip_smoke.py's signal, 32 clips of 10 s at 44.1 kHz:
 [32, 430, 1024] and [32, 215, 2048]) in chip_smoke.py's configurations,
-and ``Codec.round_trip_quantized`` in the three configurations of
-bench.py: its wall time per call (CUDA events around 20 calls issued back
-to back) and, from a torch.profiler trace of 10 calls, the device's busy
-time per call (the union of its kernels' spans), which does not depend on
-how fast the host issues the call's ~50 kernels. A case one tree has no
-kernel for is left out. The last line is a JSON object with every turn's
-times and, per case, the mean of each tree and their ratio.
+the VJPs of the N=1024 mono ones, and three paths: ``Codec.
+round_trip_quantized`` in the three configurations of bench.py,
+``round_trip_fast`` in (r) (float32 ``highest``, N=1024) and a training
+step of chip_smoke.py's (r) trainer (``SpectralAE``): the wall time per
+call (CUDA events around 20 calls, 10 steps, issued back to back) and,
+from a torch.profiler trace of 10 calls, the device's busy time per call
+(the union of its kernels' spans), which does not depend on how fast the
+host issues the call's kernels. A case one tree has no kernel for is left
+out. The last line is a JSON object with every turn's times and, per
+case, the mean of each tree and their ratio.
 
 Exits non-zero without a CUDA device. Imports torch, chip_smoke.py (its
 configurations and timer) and the trees' ``audiocodec_tpu_torch`` only.
@@ -38,6 +41,7 @@ import chip_smoke as cs
 KERNEL_CASES = {
     **{f"{k} N=1024": cs.CONFIGS[k] for k in "abc"},
     "highest f32 N=1024": cs.NOISE_CONFIGS["r"],
+    "high f32 N=1024": cs.VJP_CASES["h"],
     **{f"{k} N=2048": cfg for k, cfg in cs.DESIGN_CONFIGS.items()},
 }
 
@@ -71,7 +75,7 @@ def worker(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import audiocodec_tpu_torch
     from audiocodec_tpu_torch import Codec
-    from audiocodec_tpu_torch.ops import _build
+    from audiocodec_tpu_torch.ops import _build, cuda_mdct
 
     if Path(audiocodec_tpu_torch.__file__).resolve().parents[1] != tree:
         raise RuntimeError(f"imported {audiocodec_tpu_torch.__file__}, not "
@@ -97,6 +101,17 @@ def worker(tree: Path) -> dict:
                 torch, lambda: fwd(rows, *fargs), iters=50, warmup=5)
             times[f"{inv.__name__} {label}"] = cs.cuda_ms(
                 torch, lambda: inv(spec, *iargs), iters=50, warmup=5)
+            if n == cs.FILTERS_N and mdct.kernel_design == "mono":
+                gen = torch.Generator(device="cpu").manual_seed(cs.SEED)
+                for direction, inp in (("forward", rows), ("inverse", spec)):
+                    vjp = getattr(cuda_mdct,
+                                  f"{mdct.kernel_name(direction)}_vjp")
+                    vargs = mdct.vjp_args(direction)
+                    cot = (torch.rand(cs.BATCH, inp.shape[1] + 1, n,
+                                      generator=gen) * 2 - 1).to(
+                        "cuda", inp.dtype)
+                    times[f"{vjp.__name__} {label}"] = cs.cuda_ms(
+                        torch, lambda: vjp(cot, *vargs), iters=50, warmup=5)
             del mdct, rows, spec
         for label, cfg in cs.CONFIGS.items():
             codec = Codec.create(cs.SAMPLE_RATE, filters_n=cs.FILTERS_N,
@@ -108,6 +123,18 @@ def worker(tree: Path) -> dict:
             times[f"round_trip_quantized ({label}) device busy"] = busy_ms(
                 torch, call)
             del codec, x
+        codec = Codec.create(cs.SAMPLE_RATE, bark_bands_n=64, device="cuda",
+                             **cs.NOISE_CONFIGS["r"])
+        x = cs.make_signal(torch, "cuda", codec.mdct.compute_dtype)
+        call = lambda: codec.round_trip_fast(x, cs.SEED)  # noqa: E731
+        times["round_trip_fast (r) wall"] = cs.cuda_ms(torch, call, iters=20)
+        times["round_trip_fast (r) device busy"] = busy_ms(torch, call)
+    _, _, step = cs.trainer(torch, codec, "spectral_ae", x)
+    gen = torch.Generator(device="cuda")
+    call = lambda: step(gen.manual_seed(cs.SEED))  # noqa: E731
+    times["train (r) spectral_ae step wall"] = cs.cuda_ms(torch, call,
+                                                          iters=10)
+    times["train (r) spectral_ae step device busy"] = busy_ms(torch, call)
     return times
 
 

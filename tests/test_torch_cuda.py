@@ -73,19 +73,18 @@ def test_kernels_match_plain_versions(n, blocks, dtype, fast, precision):
         out_ref, tier, x.dtype, "inv")
 
 
-TC_TIERS = [t for t in TIERS if t[2] in ("default", "int8")]
-
-
 @pytest.mark.parametrize("n,blocks", [(1024, 1), (1024, 127), (1024, 129),
                                       (2048, 1), (2048, 64), (2048, 129)])
-@pytest.mark.parametrize("dtype,fast,precision", TC_TIERS)
+@pytest.mark.parametrize("dtype,fast,precision", TIERS)
 def test_tensor_core_kernels_at_ragged_frame_counts(n, blocks, dtype, fast,
                                                     precision):
     """Frame counts around the tiles (64 frames at default, 128 at int8;
-    the synthesis's tiles overlap by one) and five rows, which fill no
-    wave of the card. At N=2048 the A tile holds half of K: every chunk
-    runs two K passes and rebuilds A between them, int8 takes each frame's
-    scale over both passes first, and int8g keeps its group order."""
+    the synthesis's tiles overlap by one; 128 rows of the flattened
+    [rows x frames] A at the split tiers, across rows) and five rows, which
+    fill no wave of the card. At N=2048 the one-pass tiers' A tile holds
+    half of K: every chunk runs two K passes and rebuilds A between them,
+    int8 takes each frame's scale over both passes first, and int8g keeps
+    its group order; the split tiers stream 32 K tiles."""
     m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
              dct_precision=precision, device="cuda")
     g = torch.Generator(device="cpu").manual_seed(blocks)
@@ -108,9 +107,11 @@ def test_tensor_core_kernels_at_ragged_frame_counts(n, blocks, dtype, fast,
         assert torch.equal(y, y_ref) and torch.equal(out, out_ref)
 
 
-@pytest.mark.parametrize("precision", ["default", "int8"])
+@pytest.mark.parametrize("precision", ["default", "int8", "highest", "high"])
 def test_operand_residents_on_the_card(precision):
-    m = MDCT(1024, compute_dtype="bfloat16", fast_bf16=True, use_kernel=True,
+    split = precision in cuda_mdct.SPLIT_PLANES  # float32 only
+    dtype = torch.float32 if split else torch.bfloat16
+    m = MDCT(1024, compute_dtype=dtype, fast_bf16=not split, use_kernel=True,
              dct_precision=precision, device="cuda")
     src = "kernel_q" if precision == "int8" else "dct_mat"
     for d, build in (("fwd", cuda_mdct.analysis_operand),
@@ -120,12 +121,12 @@ def test_operand_residents_on_the_card(precision):
         assert torch.equal(op, build(getattr(m, f"{src}_{d}"), precision))
         assert getattr(m, f"vjp_op_{d}").dtype == torch.bfloat16
     fwd = m.kernel_args("forward")
-    x = torch.zeros(2, 4, 1024, dtype=torch.bfloat16, device="cuda")
+    x = torch.zeros(2, 4, 1024, dtype=dtype, device="cuda")
     with pytest.raises(ValueError, match="operand form"):
         cuda_mdct.fold_matmul(x, *fwd[:-1], None)
     with pytest.raises(ValueError, match="operand form"):
         cuda_mdct.matmul_scatter(x, *m.kernel_args("inverse")[:-1],
-                                 fwd[-1].T)  # not contiguous
+                                 fwd[-1].mT)  # not contiguous
 
 
 def test_auto_resolves_to_the_kernels_on_the_card():
@@ -190,6 +191,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         cuda_mdct.fold_matmul(x.double(), *fwd)
     with pytest.raises(ValueError, match="matrix must be"):
         cuda_mdct.fold_matmul(x, *fwd[:4], fwd[4].half(), "highest", 1.0)
+    # the split tiers' kernels take float32 only
+    bf = tuple(w.bfloat16() for w in fwd[:4])
+    with pytest.raises(TypeError, match="float32 input"):
+        cuda_mdct.fold_matmul(x.bfloat16(), *bf, *fwd[4:])
 
 
 def test_misaligned_views_are_copied_by_the_mdct_and_refused_by_the_wrapper():
@@ -328,6 +333,7 @@ def test_round_trip_fast_copies_nothing_to_the_card():
 
 VJP_TIERS = [  # (design, compute dtype, fast_bf16, precision)
     ("mono", "float32", False, "highest"),
+    ("mono", "float32", False, "high"),
     ("mono", "float32", False, "default"),
     ("mono", "bfloat16", True, "default"),
     ("mono", "float32", False, "int8"),
@@ -370,6 +376,15 @@ def test_vjps_match_autograd_through_the_plain_versions(design, dtype, fast,
         err = float((got.float() - want.float()).abs().max())
         assert got.shape == x.shape
         assert err <= _vjp_tol(want, m.kernel_precision, x.dtype), err
+
+
+@pytest.mark.parametrize("n,blocks", [(1024, 1), (1024, 129), (2048, 64)])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_split_tier_vjps_at_ragged_frame_counts(precision, n, blocks):
+    """The split tiers' VJPs (the other direction's split kernel) around
+    the 128-row tiles and at N=2048."""
+    test_vjps_match_autograd_through_the_plain_versions(
+        "mono", "float32", False, precision, n, blocks)
 
 
 def _vjp_tol(want, tier, dtype):

@@ -121,9 +121,15 @@ def test_operand_residents(n):
         q8.vjp_mat_fwd, "default"))
     assert torch.equal(q8.vjp_op_inv, cuda_mdct.analysis_operand(
         q8.vjp_mat_inv, "default"))
+    # the split tiers: bf16 planes of the float32 matrices, natural order
     hi = MDCT(n, use_kernel=True, dct_precision="highest", device="cpu")
-    assert hi.kernel_op_fwd is None and hi.vjp_op_inv is None
-    assert hi.kernel_args("forward")[-1] is None
+    assert torch.equal(hi.kernel_op_fwd,
+                       cuda_mdct.split_planes(hi.dct_mat_fwd.T, 3))
+    assert torch.equal(hi.kernel_op_inv,
+                       cuda_mdct.split_planes(hi.dct_mat_inv.T, 3))
+    assert torch.equal(hi.vjp_op_inv, cuda_mdct.split_planes(
+        hi.vjp_mat_inv.T, 3))
+    assert hi.kernel_args("forward")[-1] is hi.kernel_op_fwd
     assert bf.kernel_args("inverse")[-1] is bf.kernel_op_inv
     assert bf.vjp_args("forward")[-1] is bf.vjp_op_fwd
 
@@ -180,17 +186,18 @@ def test_kernel_residents_rebuilt_after_conversion(precision):
     ("bfloat16", True, "default"), ("bfloat16", True, "int8"),
 ])
 def test_auto_design_is_mono_at_n2048(dtype, fast, precision):
-    """The mono kernels take N=2048 at every tier (the tensor-core tiers in
-    two K passes of their A tile), so "auto" stays mono and builds the
-    operand forms there."""
+    """The mono kernels take N=2048 at every tier (the one-pass tiers in
+    two K passes of their A tile, the split tiers streaming K), so "auto"
+    stays mono and builds the operand forms there."""
     m = MDCT(2048, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
              dct_precision=precision, device="cpu")
     assert m.kernel_design == "mono" and m.use_kernel is True
     op = m.kernel_args("forward")[-1]
-    if precision == "highest":
-        assert op is None
+    if precision == "highest":  # three bf16 planes
+        assert op.shape == (3, 2048, 2048) and op.dtype == torch.bfloat16
     else:
-        assert op.shape == (2048, 2048) and op.is_contiguous()
+        assert op.shape == (2048, 2048)
+    assert op.is_contiguous()
 
 
 @pytest.mark.parametrize("dtype,precision,fast", [
