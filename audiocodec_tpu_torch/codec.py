@@ -39,6 +39,7 @@ class Codec(nn.Module):
         dct_precision: str = "highest",
         bark_precision: str | None = None,
         kernel_design: str = "auto",
+        calibrated: bool = False,
         device="cuda",
     ) -> "Codec":
         """Build the codec on ``device``: the card unless the caller asks
@@ -47,6 +48,8 @@ class Codec(nn.Module):
         :param bark_precision: tier of the Bark contractions; defaults to
             ``dct_precision``, except that an ``int8`` MDCT pairs with
             ``default`` Bark contractions (int8 is an MDCT-only tier).
+        :param calibrated: the psychoacoustic model's calibrated mode
+            (``PsychoacousticModel``); False is reference parity.
         """
         if bark_precision is None:
             bark_precision = (
@@ -70,6 +73,7 @@ class Codec(nn.Module):
                 alpha=alpha,
                 compute_dtype=compute_dtype,
                 bark_precision=bark_precision,
+                calibrated=calibrated,
                 device=device,
             ),
         )

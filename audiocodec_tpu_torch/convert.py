@@ -14,9 +14,12 @@ order both hold. Each leaf takes the dtype of the buffer it fills.
 The kernels' operand forms and VJP residents have no JAX leaves: the port
 rebuilds them from the forward residents it has set
 (``MDCT.build_kernel_residents``), so that a converted codec's kernels and
-backward pair with its forward. Model parameters and
-trained gains, plain dicts of arrays in the JAX package, carry over by name
-(:func:`params_from_arrays`).
+backward pair with its forward. A calibrated psychoacoustic model carries
+its fine-grid quiet floor; a calibrated flag without the floor, or the
+floor without the flag, is refused. Model parameters and trained gains,
+plain dicts of arrays in the JAX package, carry over by name
+(:func:`params_from_arrays`), and an RVQ state by its keys
+(:func:`rvq_state_from_arrays`).
 """
 
 from __future__ import annotations
@@ -68,18 +71,30 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         ``pinv_mat`` at ``dct_precision="int8"`` and, with
         ``pfwd_rot``/``pinv_rot``, in the radix design, and ``W``,
         ``W_inv``, ``spreading_matrix``, ``quiet_threshold_intensity``,
-        ``bark_grid``.
+        ``bark_grid`` and, for a calibrated model,
+        ``quiet_threshold_freq_amp``.
     :param meta: the static fields: ``sample_rate``, ``filters_n``,
         ``bark_bands_n``, ``alpha``, ``window_type``, ``compute_dtype``
         (name), ``fast_bf16``, ``use_pallas`` and ``pallas_kernel``
-        (resolved), ``dct_precision``, ``bark_precision`` and
-        ``pallas_int8_scale``.
+        (resolved), ``dct_precision``, ``bark_precision``,
+        ``pallas_int8_scale`` and the psychoacoustic model's ``calibrated``
+        (False when absent).
     :param device: the card unless the caller asks for the CPU.
+    :raises ValueError: if ``calibrated`` and the presence of
+        ``psycho.quiet_threshold_freq_amp`` disagree.
 
     The kernels' operand forms and VJP residents are rebuilt from the
     leaves set here, through ``MDCT.build_kernel_residents`` (the helper the
     MDCT's constructor calls), not kept from the port's own coefficients.
     """
+    calibrated = bool(meta.get("calibrated", False))
+    floor = leaves.get("psycho.quiet_threshold_freq_amp")
+    if calibrated != (floor is not None):
+        raise ValueError(
+            f"meta says calibrated={calibrated} but the leaves "
+            f"{'lack' if calibrated else 'hold'} the calibrated quiet floor "
+            "psycho.quiet_threshold_freq_amp"
+        )
     codec = Codec.create(
         meta["sample_rate"],
         filters_n=meta["filters_n"],
@@ -92,6 +107,7 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         dct_precision=meta["dct_precision"],
         bark_precision=meta["bark_precision"],
         kernel_design=meta["pallas_kernel"],
+        calibrated=calibrated,
         device=device,
     )
     mdct, psycho = codec.mdct, codec.psycho
@@ -111,7 +127,8 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         if getattr(mdct, f"radix_rot_{d}") is not None:
             arrays[(mdct, f"radix_rot_{d}")] = leaves[f"mdct.p{d}_rot"]
             arrays[(mdct, f"radix_mat_{d}")] = leaves[f"mdct.p{d}_mat"]
-    for name in _PSYCHO_LEAVES:
+    floor_leaf = ("quiet_threshold_freq_amp",) if calibrated else ()
+    for name in _PSYCHO_LEAVES + floor_leaf:
         arrays[(psycho, name)] = leaves[f"psycho.{name}"]
     for (module, name), arr in arrays.items():
         dtype = getattr(module, name).dtype
@@ -133,3 +150,15 @@ def params_from_arrays(arrays: dict, device="cuda") -> dict:
     """
     return {name: _tensor(arr, device).requires_grad_()
             for name, arr in arrays.items()}
+
+
+def rvq_state_from_arrays(arrays: dict, device="cuda") -> dict:
+    """A JAX RVQ state (``codebooks`` [S, K, D], ``ema_count`` [S, K],
+    ``ema_sum`` [S, K, D] as numpy arrays) -> the port's
+    (``models.rvq``): the same keys, tensors that do not require grad
+    (the codebooks learn by the EMA update, not by gradients).
+
+    :param device: the card unless the caller asks for the CPU.
+    """
+    return {name: _tensor(arrays[name], device)
+            for name in ("codebooks", "ema_count", "ema_sum")}

@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mdct_kernels.cu", "noise_kernel.cu")
+SOURCES = ("mdct_kernels.cu", "noise_kernel.cu", "probe_kernels.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audiocodec_tpu_torch"
 NVCC_FLAGS = (
@@ -101,6 +101,8 @@ def library() -> ctypes.CDLL:
         "acx_philox_uniforms": [ptr] * 2 + [
             ctypes.c_longlong, ctypes.c_uint, ptr,
         ],
+        "acx_probe_gemm": [ptr] * 3 + [i32, i32, f32, ptr],
+        "acx_probe_shared_bytes": [i32],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

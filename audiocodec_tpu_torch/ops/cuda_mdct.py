@@ -115,7 +115,7 @@ def synthesis_operand(mat: torch.Tensor, precision: str):
                     pair_permutation(mat.shape[1]) if pairs else None)
 
 
-def _tier_matmul(u, mat, precision, mat_scale, grouped):
+def tier_matmul(u, mat, precision, mat_scale, grouped):
     """u [..., K] @ mat [K, M] at the kernel's tier; float32 out."""
     if precision != "int8":
         return _dct.matmul(u, mat, precision)
@@ -137,7 +137,7 @@ def fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision="highest",
     """Plain version of :func:`fold_matmul`: the fold in x's dtype, then the
     tier's matmul; out in x's dtype. ``operand`` is not read."""
     folded = _folding.fold(x, wa_r, wb, wc, ffr)
-    y = _tier_matmul(folded, mat, precision, mat_scale, grouped=False)
+    y = tier_matmul(folded, mat, precision, mat_scale, grouped=False)
     return y.to(x.dtype)
 
 
@@ -146,7 +146,7 @@ def matmul_scatter_reference(y, p, q, r, s_r, mat, precision="highest",
     """Plain version of :func:`matmul_scatter`: z = y @ mat at the tier
     (kept in float32 at int8, else rounded to y's dtype), then the overlap
     scatter in z's dtype; out in y's dtype. ``operand`` is not read."""
-    z = _tier_matmul(y, mat, precision, mat_scale, grouped=True)
+    z = tier_matmul(y, mat, precision, mat_scale, grouped=True)
     zt = torch.float32 if precision == "int8" else y.dtype
     z = z.to(zt)
     out = _folding.unfold(z, p.to(zt), q.to(zt), r.to(zt), s_r.to(zt))

@@ -69,7 +69,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    stay finite; ms per step, training audio-s/s and peak memory;
 13. the gradient of ``inverse_transform(transform(x))`` with respect to
    the waveform in every configuration of phase 11 ((r) and (r2) among
-   them), which fires both VJPs, against the all-plain gradient.
+   them), which fires both VJPs, against the all-plain gradient;
+14. the int8 probe (``python -m audiocodec_tpu_torch.probes.int8_probe``,
+   x [14336, 1024] float32 @ the DCT-IV matrix) through its entry point,
+   which must launch each of its three kernels (bf16, int8, int8g); each
+   kernel against its plain version at 14336 rows and at 1, 127 and 1000
+   (int8 and int8g bit for bit, bf16 within 1e-5 of the peak), its SNR
+   within 0.05 dB of its plain version's, with ``torch.matmul`` (bf16)
+   and ``torch._int_mm`` (int8) at the same shape as library calls;
+15. the discrete RVQ codec at full width in (r): ``SpectralAE(1024, 512,
+   64, 1/32)`` + ``RVQ(4, 1024, 64)``. Serving (``encode_discrete``,
+   ``pack_codes``, ``unpack_codes``, ``decode_discrete``) launches the
+   analysis and the synthesis once, the codes survive the pack bit for
+   bit, at least 99.9% of them equal the all-plain encode's, and the
+   decode is within the synthesis tolerance of the all-plain decode of the
+   same codes; three training steps (``warmup_steps=1``) each launch the
+   analysis, the synthesis and its VJP once, and the first step's loss
+   and gradients meet ``TRAIN_TOL`` against the all-plain step; ms,
+   audio-s/s and peak memory.
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -85,6 +102,7 @@ result. It never imports jax.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -105,7 +123,14 @@ RADIX_FIDELITY_MARGIN_DB = 1.0
 SEED = 1234
 SOURCE = "audiocodec_tpu_torch/csrc/mdct_kernels.cu"
 NOISE_SOURCE = "audiocodec_tpu_torch/csrc/noise_kernel.cu"
+PROBE_SOURCE = "audiocodec_tpu_torch/csrc/probe_kernels.cu"
+# the probe's variants -> their kernel instances, in the order of the
+# variant codes (csrc/probe_kernels.cu ``Variant``)
+PROBE_VARIANTS = {"bf16": "BF16", "int8": "INT8", "int8_grouped": "INT8G"}
+PROBE_RAGGED_ROWS = (1, 127, 1000)
 REPLACES = {
+    **{f"probe_{v}": "benchmarks/pallas_int8_probe.py:108"
+       for v in PROBE_VARIANTS},
     "fold_matmul": "audiocodec_tpu/ops/pallas_mdct.py:607",
     "matmul_scatter": "audiocodec_tpu/ops/pallas_mdct.py:620",
     "radix_fold_matmul": "audiocodec_tpu/ops/pallas_mdct.py:696",
@@ -182,6 +207,12 @@ TRAIN_CONFIGS = {"r": "spectral_ae", "b": "spectral_ae", "r2": "gains",
 # tiers agree to a few float32 ulps of the spectrum, bfloat16 ones to a few
 # bf16 ulps, which the quantizer's rounding and the nonlinearities carry on
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-2, 5e-2)}
+# The discrete codec of phase 15, on the codec of configuration (r)
+RVQ_AE = dict(filters_n=FILTERS_N, hidden_n=512, latent_n=64,
+              latent_step=1 / 32)
+RVQ_CFG = dict(stages=4, codebook_size=1024, dim=64)
+RVQ_CODES_EQUAL = 0.999
+RVQ_TRAIN_STEPS = 3
 
 
 class PhaseError(RuntimeError):
@@ -215,16 +246,18 @@ def snr_db(x, out, n=FILTERS_N):
 
 
 def all_launch_counts():
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
+    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise, cuda_probe
 
-    return {**cuda_mdct.launch_counts(), **cuda_noise.launch_counts()}
+    return {**cuda_mdct.launch_counts(), **cuda_noise.launch_counts(),
+            **cuda_probe.launch_counts()}
 
 
 def reset_all_launch_counts():
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
+    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise, cuda_probe
 
     cuda_mdct.reset_launch_counts()
     cuda_noise.reset_launch_counts()
+    cuda_probe.reset_launch_counts()
 
 
 def expected_counts(**ones):
@@ -368,6 +401,8 @@ def device_functions(name, tier):
         return device_functions(VJP_RUNS[name.removesuffix("_vjp")], tier)
     if name == "add_masked_noise":
         return "noise_kernel"
+    if name.startswith("probe_"):
+        return f"probe_kernel<{PROBE_VARIANTS[name.removeprefix('probe_')]}>"
     if name.startswith("radix"):
         gemm = "mma_gemm_kernel" if tier == "default" else "ffma_gemm_kernel"
         if name == "radix_fold_matmul":
@@ -385,11 +420,13 @@ def entry(name, tier, dtype, config, n, route_tier=None, **numbers):
     it runs, if not ``tier``); ``launches`` is filled in by the run of the
     path ``config`` names."""
     label = dtype if tier is None else f"{tier},{dtype}"
+    source = {"add_masked_noise": NOISE_SOURCE}.get(
+        name, PROBE_SOURCE if name.startswith("probe_") else SOURCE)
     return dict(name=f"{name}[{label}]", config=config, n=n,
                 route="cuda",
                 device_functions=device_functions(name, route_tier or tier),
-                source=NOISE_SOURCE if name == "add_masked_noise" else SOURCE,
-                replaces=REPLACES[name], launches=None, **numbers)
+                source=source, replaces=REPLACES[name], launches=None,
+                **numbers)
 
 
 def nbytes(*tensors):
@@ -1176,6 +1213,258 @@ def waveform_grad_phase(torch, dev, entries):
     return results
 
 
+def probe_phase(torch, dev, entries):
+    """14. The int8 probe through its entry point (its launches), then each
+    of its kernels against its plain version at the probe's shape and at
+    ragged row counts, its SNR against its plain version's, and the
+    library call of the same product."""
+    from audiocodec_tpu_torch.ops import _build, cuda_probe
+    from audiocodec_tpu_torch.ops import dct as _dct
+    from audiocodec_tpu_torch.probes import int8_probe
+
+    m, x_np, y_ref = probe_inputs = int8_probe.inputs()
+    reset_all_launch_counts()
+    res = int8_probe.run(dev, probe_inputs=probe_inputs)
+    torch.cuda.synchronize()
+    counts = all_launch_counts()
+    names = [k.__name__ for k in cuda_probe.KERNELS]
+    check(all(counts[k] for k in names)
+          and not any(v for k, v in counts.items() if k not in names),
+          f"probe: launch counts {counts}")
+    print(f"probe: {json.dumps(res)}; launches {counts}")
+
+    x = torch.from_numpy(x_np).to(dev)
+    rows, n = x.shape
+    mats = {"bf16": m["bf16"].to(dev), "int8": m["int8"].to(dev)}
+    ops = {k: cuda_probe.operand(v) for k, v in mats.items()}
+    xb, (q, _) = x.to(torch.bfloat16), _dct.int8_rowquant(x)
+    library = {"bf16": lambda: torch.matmul(xb, mats["bf16"]),
+               "int8": lambda: torch._int_mm(q, mats["int8"])}
+    results = {}
+    for code, (variant, label) in enumerate(PROBE_VARIANTS.items()):
+        name = f"probe_{variant}"
+        shared = _build.library().acx_probe_shared_bytes(code)
+        print(f"build: probe_kernel<{label}>: {shared} bytes of dynamic "
+              "shared memory")
+        key, tier = ("bf16", "default") if variant == "bf16" else (
+            "int8", "int8")
+        args = (mats[key],) if key == "bf16" else (mats[key], m["rescale"])
+        kernel = getattr(cuda_probe, name)
+        plain = getattr(cuda_probe, f"{name}_reference")
+        errs = {}
+        for r in (*PROBE_RAGGED_ROWS, rows):  # the full shape last
+            got, want = kernel(x[:r], *args, ops[key]), plain(x[:r], *args)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (r, n),
+                  f"{name}: shape {tuple(got.shape)} at {r} rows")
+            err = float((got - want).abs().max())
+            tol = 0.0 if key == "int8" else tolerance(
+                torch, want, name, "default", torch.float32)
+            check(err <= tol, f"{name} at {r} rows: error {err} > {tol}")
+            errs[r] = err
+        snr = res[f"cuda_{variant}_snr_db"]
+        plain_snr = int8_probe.snr_db(want.cpu().numpy(), y_ref)
+        check(abs(snr - plain_snr) <= SNR_MARGIN_DB,
+              f"{name}: SNR {snr} vs plain {plain_snr}")
+        plain_ms = cuda_ms(torch, lambda: plain(x, *args), iters=5)
+        library_ms = cuda_ms(torch, library[key])
+        bound_ms, bound_by, _ = bound(2.0 * rows * n * n,
+                                      nbytes(x, ops[key], got), tier)
+        ms = res[f"cuda_{variant}_ms"]
+        results[variant] = dict(snr_db=snr, plain_snr_db=plain_snr,
+                                max_abs_err=errs, shared_bytes=shared)
+        print(f"kernel {name} [{rows} x {n}] x [{n} x {n}]: max_abs_err "
+              f"{errs} (tol {tol:.3e}), SNR {snr:.4f} dB (plain "
+              f"{plain_snr:.4f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) = {100 * bound_ms / ms:.1f}% of the time, "
+              f"{res[f'cuda_{variant}_tf_s']:.1f} TF/s")
+        entries.append(entry(name, tier, "float32", "probe", n,
+                             max_abs_err=errs[rows], tol=tol, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms,
+                             snr_db=snr, plain_snr_db=plain_snr,
+                             ragged_max_abs_err=errs))
+        del got, want
+    set_launches(entries, "probe", counts)
+    return dict(run=res, kernels=results)
+
+
+def rvq_phase(torch, dev):
+    """15. The discrete RVQ codec at full width in (r): serving and three
+    training steps, each through the kernels and against the all-plain
+    run."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.models import rvq, spectral_ae
+
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    ae, cfg = spectral_ae.SpectralAE(**RVQ_AE), rvq.RVQ(**RVQ_CFG)
+    init = torch.Generator(device="cpu").manual_seed(SEED)
+    params = spectral_ae.init_params(init, ae, torch.float32, device=dev)
+    state = rvq.init_state(init, cfg, torch.float32, device=dev)
+    x = make_signal(torch, dev, torch.float32)
+    audio_s = BATCH * SAMPLES / SAMPLE_RATE
+
+    def encode():
+        return rvq.encode_discrete(codec, ae, cfg, params, state, x)
+
+    def decode(codes):
+        return rvq.decode_discrete(codec, ae, cfg, params, state, codes)
+
+    reset_all_launch_counts()
+    codes = encode()
+    data = rvq.pack_codes(cfg, codes)
+    back = rvq.unpack_codes(cfg, data, tuple(codes.shape))
+    y = decode(back)
+    torch.cuda.synchronize()
+    counts = all_launch_counts()
+    check(counts == expected_counts(fold_matmul=1, matmul_scatter=1),
+          f"rvq serving: launch counts {counts}")
+    check(codes.shape == (BATCH, SAMPLES // FILTERS_N + 1, 1, cfg.stages)
+          and codes.dtype == torch.int32,
+          f"rvq: codes {tuple(codes.shape)} {codes.dtype}")
+    check(np.array_equal(back, codes.cpu().numpy())
+          and len(data) * 8 == codes.numel() * cfg.bits_per_index,
+          "rvq: the codes did not survive pack_codes/unpack_codes")
+    check(y.shape == (BATCH, SAMPLES + 2 * FILTERS_N, 1)
+          and bool(torch.isfinite(y).all()),
+          f"rvq: decode {tuple(y.shape)}, finite "
+          f"{bool(torch.isfinite(y).all())}")
+    with plain_kernels():
+        plain_codes, plain_y = encode(), decode(back)
+    same = float((codes == plain_codes).float().mean())
+    peak = float(plain_y.abs().max())
+    err = float((y - plain_y).abs().max())
+    # the synthesis's absolute 1e-4 (tolerance()), at the decode's scale
+    tol = 1e-4 * max(1.0, peak)
+    check(same >= RVQ_CODES_EQUAL, f"rvq: {same} of the codes equal the "
+          "all-plain encode's")
+    check(err <= tol, f"rvq: decode {err} > {tol} from the all-plain decode")
+    encode_ms = cuda_ms(torch, encode, iters=10)
+    decode_ms = cuda_ms(torch, lambda: decode(codes), iters=10)
+    traces = {"encode": trace_steps(torch, encode),
+              "decode": trace_steps(torch, lambda: decode(codes))}
+    t0 = time.perf_counter()
+    rvq.unpack_codes(cfg, rvq.pack_codes(cfg, codes), tuple(codes.shape))
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    serving = dict(codes_equal=same, decode_max_abs_err=err, decode_tol=tol,
+                   payload_bytes=len(data), encode_ms=encode_ms,
+                   decode_ms=decode_ms, pack_unpack_wall_ms=pack_ms,
+                   encode_audio_s_per_s=audio_s / (encode_ms * 1e-3),
+                   decode_audio_s_per_s=audio_s / (decode_ms * 1e-3),
+                   traces=traces)
+    print(f"rvq serving {NOISE_CONFIGS['r']} {RVQ_AE} {RVQ_CFG}: launches "
+          f"{counts}; codes equal to plain {100 * same:.4f}%, {len(data)} "
+          f"bytes packed and unpacked bit for bit ({pack_ms:.1f} ms on the "
+          f"host); decode max_abs_err {err:.3e} (tol {tol:.3e}); encode "
+          f"{encode_ms:.3f} ms = {serving['encode_audio_s_per_s']:.1f} "
+          f"audio-s/s, decode {decode_ms:.3f} ms = "
+          f"{serving['decode_audio_s_per_s']:.1f} audio-s/s; traced "
+          + ", ".join(f"{k} {t['device_ms_per_step']}, idle "
+                      f"{t['idle_share']:.3f}" for k, t in traces.items()))
+    del y, plain_y, plain_codes, back
+
+    loss_rtol, grad_share = TRAIN_TOL["float32"]
+
+    def within(label, got, want):
+        """max |got - want| against grad_share of want's peak."""
+        err = (float((got - want).abs().max()),
+               grad_share * float(want.abs().max()))
+        check(err[0] <= err[1], f"rvq train: {label} {err}")
+        return err
+
+    def held(label, gate, st):
+        """Loss and gradients at one gate from the same params and RVQ
+        state through the kernels and all plain; the latents of both."""
+        def value_and_grads():
+            loss, z = rvq.perceptual_loss(codec, ae, cfg, params, st, x,
+                                          quantizer_gate=gate)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return float(loss.detach()), grads, z.detach()
+
+        loss, grads, z = value_and_grads()
+        with plain_kernels():
+            plain_loss, plain_grads, plain_z = value_and_grads()
+        loss_err = abs(loss - plain_loss) / abs(plain_loss)
+        check(loss_err <= loss_rtol, f"rvq train ({label}): loss {loss} vs "
+              f"all-plain {plain_loss}")
+        grad_errs = {name: within(f"({label}) gradient of {name}", g, pg)
+                     for name, g, pg in zip(params, grads, plain_grads)}
+        print(f"rvq train ({label}, gate {gate}): loss {loss:.7g} vs "
+              f"all-plain {plain_loss:.7g} (rel {loss_err:.2e}); gradient "
+              "err/tol " + ", ".join(f"{nm} {e:.2e}/{t:.2e}"
+                                     for nm, (e, t) in grad_errs.items()))
+        return dict(loss=loss, plain_loss=plain_loss, loss_rel_err=loss_err,
+                    grad_err_tol=grad_errs), z, plain_z
+
+    # the first step's loss: the quantizer is off
+    warmup, z, plain_z = held("warmup", 0.0, state)
+    loss, plain_loss = warmup["loss"], warmup["plain_loss"]
+    # its EMA step on the card, from each side's latents, with no reseed
+    # (a draw is the only thing the two sides could not share); codewords
+    # that a frame whose codes differ touches are left out of the compare
+    ema_cfg = dataclasses.replace(cfg, reseed_threshold=0.0)
+    ema, plain_ema = (rvq.ema_update(ema_cfg, state, v) for v in (z, plain_z))
+    ema_codes, plain_ema_codes = (
+        rvq.quantize(ema_cfg, state, v)[1].reshape(-1, cfg.stages)
+        for v in (z, plain_z))
+    moved = (ema_codes != plain_ema_codes).any(dim=-1)
+    ema_same = 1.0 - float(moved.float().mean())
+    check(ema_same >= RVQ_CODES_EQUAL, f"rvq train: {ema_same} of the EMA "
+          "step's frames have the all-plain codes")
+    keep = torch.ones(cfg.stages, cfg.codebook_size, dtype=torch.bool,
+                      device=dev)
+    for side in (ema_codes, plain_ema_codes):
+        for s in range(cfg.stages):
+            keep[s, side[moved, s].long()] = False
+    ema_errs = {k: within(f"EMA {k}", ema[k][keep], plain_ema[k][keep])
+                for k in ema}
+    print(f"rvq train EMA step (reseed_threshold 0): frames with the "
+          f"all-plain codes {100 * ema_same:.4f}%, codewords compared "
+          f"{int(keep.sum())}/{keep.numel()}; err/tol "
+          + ", ".join(f"{k} {e:.2e}/{t:.2e}" for k, (e, t) in
+                      ema_errs.items()))
+    # the engaged quantizer (STE, commitment) on the EMA-fitted codebooks
+    engaged, _, _ = held("engaged", 1.0, ema)
+    del z, plain_z, ema, plain_ema
+
+    step, make_opt = rvq.make_train_step(codec, ae, cfg, warmup_steps=1)
+    opt = make_opt(list(params.values()))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    losses = []
+    once = expected_counts(fold_matmul=1, matmul_scatter=1,
+                           matmul_scatter_vjp=1)
+    for i in range(RVQ_TRAIN_STEPS):
+        reset_all_launch_counts()
+        losses.append(float(step(params, state, opt, x, gen, i)))
+        counts = all_launch_counts()
+        check(counts == once, f"rvq train step {i}: launch counts {counts}")
+    check(all(math.isfinite(v) for v in losses), f"rvq train: {losses}")
+    check(all(bool(torch.isfinite(t).all()) for t in state.values()),
+          "rvq train: non-finite RVQ state")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: step(params, state, opt, x, gen,
+                                     RVQ_TRAIN_STEPS), iters=10)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    trace = trace_steps(torch, lambda: step(params, state, opt, x, gen,
+                                            RVQ_TRAIN_STEPS))
+    training = dict(warmup=warmup, engaged=engaged,
+                    ema=dict(frames_equal=ema_same, err_tol=ema_errs),
+                    losses=losses, ms=ms,
+                    audio_s_per_s=audio_s / (ms * 1e-3),
+                    max_memory_allocated=peak_bytes, trace=trace)
+    print(f"rvq train: launches a step {counts}; first loss {loss:.7g} vs "
+          f"all-plain {plain_loss:.7g}; {RVQ_TRAIN_STEPS} losses {losses}; "
+          f"{ms:.3f} ms/step = "
+          f"{training['audio_s_per_s']:.1f} training audio-s/s; peak memory "
+          f"{peak_bytes / 2**30:.2f} GiB; traced device ms a step "
+          f"{trace['device_ms_per_step']}, idle {trace['idle_share']:.3f}")
+    return dict(serving=serving, training=training)
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -1331,14 +1620,22 @@ def main() -> int:
     training = training_phase(torch, dev, entries)
     t13 = time.monotonic()
     waveform_grads = waveform_grad_phase(torch, dev, entries)
+
+    # 14-15. the int8 probe and the discrete RVQ codec
+    t14 = time.monotonic()
+    probe = probe_phase(torch, dev, entries)
+    t15 = time.monotonic()
+    rvq = rvq_phase(torch, dev)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
-          f"{t13 - t12:.1f} s, 13 {time.monotonic() - t13:.1f} s")
+          f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
+          f"15 {time.monotonic() - t15:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
                       "tensor_core": tensor_core, **noise,
                       "training": training,
-                      "waveform_grads": waveform_grads}))
+                      "waveform_grads": waveform_grads, "probe": probe,
+                      "rvq": rvq}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

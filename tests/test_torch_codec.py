@@ -172,7 +172,7 @@ def _leaves_and_meta(jc):
         fast_bf16=m.fast_bf16, use_pallas=m.use_pallas,
         pallas_kernel=m.pallas_kernel,
         dct_precision=m.dct_precision, bark_precision=p.bark_precision,
-        pallas_int8_scale=m.pallas_int8_scale,
+        pallas_int8_scale=m.pallas_int8_scale, calibrated=p.calibrated,
     )
     return leaves, meta
 

@@ -415,3 +415,92 @@ def test_training_step_launches_each_kernel_once(design):
     names = [c.mdct.kernel_name(d) for d in ("forward", "inverse")]
     assert cuda_mdct.launch_counts() == _once(*names, f"{names[1]}_vjp")
     assert bool(torch.isfinite(loss))
+
+
+def test_rvq_serves_and_trains_through_the_kernels():
+    """The discrete codec on the card: encode_discrete launches the
+    analysis once, decode_discrete the synthesis once, the codes survive
+    the pack, and each training step (the warmup's and the quantizer's)
+    launches the analysis, the synthesis and the synthesis VJP once."""
+    from audiocodec_tpu_torch.models import rvq
+    from audiocodec_tpu_torch.models import spectral_ae as sae
+
+    c = Codec.create(44100, filters_n=1024, device="cuda")
+    cfg, rcfg = sae.SpectralAE(1024, 64, 16), rvq.RVQ(2, 64, 16)
+    params = sae.init_params(torch.Generator().manual_seed(0), cfg)
+    state = rvq.init_state(torch.Generator().manual_seed(1), rcfg)
+    x = torch.rand(2, 8 * 1024, 1, device="cuda") - 0.5
+    cuda_mdct.reset_launch_counts()
+    codes = rvq.encode_discrete(c, cfg, rcfg, params, state, x)
+    assert cuda_mdct.launch_counts() == _once("fold_matmul")
+    back = rvq.unpack_codes(rcfg, rvq.pack_codes(rcfg, codes),
+                            tuple(codes.shape))
+    assert np.array_equal(back, codes.cpu().numpy())
+    cuda_mdct.reset_launch_counts()
+    y = rvq.decode_discrete(c, cfg, rcfg, params, state, back)
+    assert cuda_mdct.launch_counts() == _once("matmul_scatter")
+    assert y.shape == (2, 10 * 1024, 1) and bool(torch.isfinite(y).all())
+    step, make_opt = rvq.make_train_step(c, cfg, rcfg, warmup_steps=1)
+    opt = make_opt(list(params.values()))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for i in range(2):
+        cuda_mdct.reset_launch_counts()
+        loss = step(params, state, opt, x, gen, i)
+        torch.cuda.synchronize()
+        assert cuda_mdct.launch_counts() == _once(
+            "fold_matmul", "matmul_scatter", "matmul_scatter_vjp")
+        assert bool(torch.isfinite(loss))
+
+
+@pytest.fixture(scope="module")
+def probe_matrices():
+    from audiocodec_tpu_torch.ops import cuda_probe
+
+    m = cuda_probe.probe_matrices()
+    mats = {"bf16": m["bf16"].cuda(), "int8": m["int8"].cuda()}
+    return dict(m, **mats, ops={k: cuda_probe.operand(v)
+                                for k, v in mats.items()})
+
+
+@pytest.mark.parametrize("rows", [14336, 1, 127, 1000])
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8_grouped"])
+def test_probe_kernels_match_plain_versions(variant, rows, probe_matrices):
+    """The int8 probe's kernels at its shape and at ragged row counts
+    (around the 64- and 128-row tiles): int8 and int8g bit for bit, bf16
+    within the ``default`` tier's 1e-5 of the peak (float32 sums in another
+    order)."""
+    from audiocodec_tpu_torch.ops import cuda_probe
+    from audiocodec_tpu_torch.probes import int8_probe
+
+    m = probe_matrices
+    mat = m["bf16" if variant == "bf16" else "int8"]
+    op = m["ops"]["bf16" if variant == "bf16" else "int8"]
+    args = () if variant == "bf16" else (m["rescale"],)
+    x = torch.from_numpy(int8_probe.make_input(rows)).cuda()
+    kernel = getattr(cuda_probe, f"probe_{variant}")
+    plain = getattr(cuda_probe, f"probe_{variant}_reference")
+    cuda_probe.reset_launch_counts()
+    got = kernel(x, mat, *args, op)
+    torch.cuda.synchronize()
+    assert cuda_probe.launch_counts()[f"probe_{variant}"] == 1
+    want = plain(x, mat, *args)
+    assert got.shape == want.shape == (rows, 1024)
+    if variant == "bf16":
+        peak = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * peak
+    else:
+        assert torch.equal(got, want)
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(probe_matrices):
+    from audiocodec_tpu_torch.ops import cuda_probe
+
+    m = probe_matrices
+    x = torch.zeros(4, 1024, device="cuda")
+    with pytest.raises(ValueError, match="operand"):
+        cuda_probe.probe_bf16(x, m["bf16"])  # no operand form
+    with pytest.raises(ValueError, match="operand"):
+        cuda_probe.probe_int8(x, m["int8"], m["rescale"], m["ops"]["bf16"])
+    with pytest.raises(ValueError, match="float32"):
+        cuda_probe.probe_bf16(x[:, :512].contiguous(), m["bf16"],
+                              m["ops"]["bf16"])

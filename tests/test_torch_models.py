@@ -26,8 +26,10 @@ from audiocodec_tpu.parallel import make_mesh
 from audiocodec_tpu.parallel import train as jax_train
 from audiocodec_tpu_torch import MDCT, Codec, PsychoacousticModel, convert
 from audiocodec_tpu_torch.models import post_filter as pf
+from audiocodec_tpu_torch.models import rvq
 from audiocodec_tpu_torch.models import spectral_ae as sae
 from audiocodec_tpu_torch.parallel import train
+from audiocodec_tpu_torch.probes import int8_probe
 from tests.test_torch_codec import _leaves_and_meta
 
 torch.set_num_threads(1)
@@ -87,13 +89,16 @@ def test_entry_points_default_to_the_card():
     land on the CPU."""
     for fn in (MDCT, Codec.create, PsychoacousticModel,
                convert.codec_from_arrays, convert.params_from_arrays,
-               sae.init_params, pf.init_params):
+               convert.rvq_state_from_arrays, sae.init_params, pf.init_params,
+               rvq.init_state, int8_probe.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             MDCT(256)
         with pytest.raises((AssertionError, RuntimeError)):
             Codec.create(SR, filters_n=256, bark_bands_n=16)
+        with pytest.raises((AssertionError, RuntimeError)):
+            rvq.init_state(torch.Generator(), rvq.RVQ(2, 16, 8))
 
 
 class TestSpectralAE:

@@ -1,0 +1,165 @@
+"""The port's int8 probe held against the JAX package's on the CPU.
+
+``benchmarks/pallas_int8_probe.py --interpret`` runs the Pallas probe's three
+bodies in interpret mode at its full shape; the port's probe on ``--device
+cpu`` runs its kernels' plain versions on the same x. The SNRs must agree
+within 0.02 dB (the JAX probe prints them rounded to 0.01), the int8 codes
+and scales bit for bit, and the matrices must be the probe's own."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiocodec_tpu.ops import dct as jax_dct
+from audiocodec_tpu_torch.ops import cuda_probe
+from audiocodec_tpu_torch.ops import dct as _dct
+from audiocodec_tpu_torch.probes import int8_probe
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+SCRIPT = ROOT / "benchmarks" / "pallas_int8_probe.py"
+SNR_DB = 0.02
+PAIRS = {"cuda_bf16": "pallas_bf16", "cuda_int8": "pallas_int8",
+         "cuda_int8_grouped": "pallas_int8_grouped",
+         "torch_int8": "xla_int8"}
+
+
+@pytest.fixture(scope="module")
+def jax_probe():
+    """The JAX probe's printed result, and whether its process had the
+    persistent compilation cache on. The script names a fixed cache
+    directory, not one inside the checkout that runs it; the run turns the
+    cache off, as the CPU lane runs JAX (tests/conftest.py)."""
+    code = (
+        "import json, runpy, sys, jax; "
+        f"sys.argv = [{str(SCRIPT)!r}, '--interpret']; "
+        f"runpy.run_path({str(SCRIPT)!r}, run_name='__main__'); "
+        "print(json.dumps({'compilation_cache': "
+        "jax.config.jax_enable_compilation_cache}))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=600, check=True,
+        env={**os.environ, "JAX_ENABLE_COMPILATION_CACHE": "false"},
+    ).stdout.strip().splitlines()
+    return json.loads(out[-2]), json.loads(out[-1])
+
+
+@pytest.fixture(scope="module")
+def port_probe():
+    return int8_probe.run("cpu")
+
+
+@pytest.mark.parametrize("variant", sorted(PAIRS))
+def test_snr_matches_the_jax_probe(variant, port_probe, jax_probe):
+    jax_probe, _ = jax_probe
+    got, want = port_probe[f"{variant}_snr_db"], jax_probe[
+        f"{PAIRS[variant]}_snr_db"]
+    assert abs(got - want) <= SNR_DB, (variant, got, want)
+    assert (port_probe["rows"], port_probe["n"]) == (jax_probe["rows"],
+                                                       jax_probe["n"])
+
+
+def test_jax_probe_runs_without_a_compilation_cache(jax_probe):
+    assert jax_probe[1] == {"compilation_cache": False}
+
+
+def test_cpu_run_prints_snrs_only(port_probe):
+    assert set(port_probe) == {"rows", "n", "tb"} | {
+        f"{v}_snr_db" for v in PAIRS}
+    assert port_probe["tb"] == {"bf16": 64, "int8": 128, "int8_grouped": 128}
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_codes_and_scales_bit_equal_to_int8_rowquant(grouped):
+    """The port's quantization (each row, or each row's 128-column
+    groups) of the probe's x against the JAX package's recipe."""
+    x = int8_probe.make_input()
+    if grouped:
+        x = x.reshape(x.shape[0], -1, 128)
+    qj, sj = jax_dct.int8_rowquant(jnp.asarray(x))
+    qt, st = _dct.int8_rowquant(torch.from_numpy(x))
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+def test_matrices_are_the_probes():
+    """pallas_int8_probe.py:52-66, written out."""
+    n = 1024
+    k = np.arange(n)
+    mat = np.sqrt(2.0 / n) * np.cos(
+        np.pi / n * (k[:, None] + 0.5) * (k[None, :] + 0.5))
+    s_m = float(np.max(np.abs(mat)))
+    mat_bf16 = jnp.asarray(mat.astype(np.float32), dtype=jnp.bfloat16)
+    mat_i8 = np.clip(np.round(mat / s_m * 127.0), -127, 127).astype(np.int8)
+    m = cuda_probe.probe_matrices(n)
+    np.testing.assert_array_equal(m["mat"], mat)
+    np.testing.assert_array_equal(m["f32"].numpy(), mat.astype(np.float32))
+    np.testing.assert_array_equal(
+        m["bf16"].view(torch.int16).numpy(),
+        np.asarray(mat_bf16).view(np.int16))
+    np.testing.assert_array_equal(m["int8"].numpy(), mat_i8)
+    assert m["rescale"] == s_m / (127.0 * 127.0)
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    """On a CPU tensor a wrapper is its plain version and counts no launch;
+    ragged row counts need nothing of the kernels' tiles."""
+    m = cuda_probe.probe_matrices()
+    cuda_probe.reset_launch_counts()
+    for rows in (1, 127, 1000):
+        x = torch.from_numpy(int8_probe.make_input(rows))
+        assert torch.equal(cuda_probe.probe_bf16(x, m["bf16"]),
+                           cuda_probe.probe_bf16_reference(x, m["bf16"]))
+        for fn in ("probe_int8", "probe_int8_grouped"):
+            got = getattr(cuda_probe, fn)(x, m["int8"], m["rescale"])
+            want = getattr(cuda_probe, f"{fn}_reference")(
+                x, m["int8"], m["rescale"])
+            assert got.shape == (rows, 1024) and torch.equal(got, want)
+    assert cuda_probe.launch_counts() == {
+        "probe_bf16": 0, "probe_int8": 0, "probe_int8_grouped": 0}
+
+
+def test_int8_reference_is_the_probes_arithmetic():
+    """The plain int8 versions against the Pallas bodies' arithmetic written
+    in numpy (float32 scale, true division, round half to even, integer
+    sums, float32 epilogue in the bodies' order), on a few rows."""
+    m = cuda_probe.probe_matrices()
+    x = int8_probe.make_input(16)
+    q8 = m["int8"].numpy().astype(np.int64)
+    f32 = np.float32
+    rescale = f32(m["rescale"])
+
+    def quant(u):
+        s = np.abs(u).max(axis=1, keepdims=True) + f32(1e-12)
+        q = np.clip(np.round(u * (f32(127.0) / s)), -127, 127)
+        return q.astype(np.int64), s
+
+    q, s = quant(x)
+    want = (q @ q8).astype(f32) * (s * rescale)
+    got = cuda_probe.probe_int8_reference(torch.from_numpy(x), m["int8"],
+                                          m["rescale"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    acc = np.zeros((16, 1024), f32)
+    for j in range(8):
+        q, s = quant(x[:, j * 128:(j + 1) * 128])
+        acc = acc + (q @ q8[j * 128:(j + 1) * 128]).astype(f32) * s
+    got = cuda_probe.probe_int8_grouped_reference(
+        torch.from_numpy(x), m["int8"], m["rescale"])
+    np.testing.assert_array_equal(got.numpy(), acc * rescale)
+
+
+def test_card_without_a_card_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="card"):
+        int8_probe.run()
