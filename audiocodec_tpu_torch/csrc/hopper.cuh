@@ -1,6 +1,9 @@
-// Hopper (sm_90a) building blocks of the tensor-core MDCT kernels, in
-// inline PTX: mbarriers, the TMA tile load, named barriers, the wgmma
-// shared-memory descriptor and the asynchronous warpgroup products.
+// Hopper (sm_90a) building blocks of the tensor-core kernels, in inline
+// PTX: mbarriers (their arrivals and waits across a cluster too), the TMA
+// tile load, named and cluster barriers, stores to another CTA's shared
+// memory, the wgmma shared-memory descriptor and the asynchronous
+// warpgroup products; and on the host, the tensor maps of
+// the operands and the shared-memory opt-in.
 //
 // Operand layout, shared by the TMA loads and the hand-written A tiles:
 // K-major tiles whose rows are 128 bytes (64 bf16 or 128 int8 values of K),
@@ -11,7 +14,13 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <mutex>
+#include <vector>
 
 namespace hopper {
 
@@ -65,6 +74,66 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Arrive on the barrier at the shared-memory offset `bar` of CTA `cta` of
+// the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 r;\nmapa.shared::cluster.u32 r, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [r];\n}\n" ::
+          "r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// mbar_wait with cluster-scope acquire: the phase completed on arrivals
+// of another CTA of the cluster, whose prior stores to this CTA's shared
+// memory become visible here.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The address, in the cluster's shared window, of the shared-memory offset
+// `addr` of CTA `cta`.
+__device__ __forceinline__ uint32_t map_cta(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(cta));
+  return r;
+}
+
+// A float store to the cluster address `addr` (map_cta).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
+          : "memory");
 }
 
 __device__ __forceinline__ void prefetch_tmap(const void* tmap) {
@@ -205,6 +274,98 @@ __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db,
 __device__ __forceinline__ void wgmma(int (&d)[32], uint64_t da, uint64_t db,
                                       int scale_d) {
   wgmma_s8_n64(d, da, db, scale_d);
+}
+
+// ---- Host side: tensor maps and the shared-memory opt-in ------------------
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no link
+// against libcuda).
+typedef decltype(&cuTensorMapEncodeTiled) EncodeTiled;
+
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a K-major matrix at p: `outer` rows of `inner` bf16
+// (or int8, bf16 false) values, read in boxes of 128 bytes of K by
+// `box_rows` rows with the 128-byte swizzle. Returns a CUDA error code.
+inline int encode_map(CUtensorMap* map, const void* p, bool bf16_elems,
+               uint64_t inner, uint64_t outer, uint32_t box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const int esz = bf16_elems ? 2 : 1;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esz), box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map,
+             bf16_elems ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             2, const_cast<void*>(p), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// encode_map of a matrix's operand form. The operands are residents built
+// once, so each map is encoded once: it holds only the address and the
+// geometry, which the key holds too.
+inline int operand_map(CUtensorMap* map, const void* op, bool bf16_elems,
+                uint64_t inner, uint64_t outer, uint32_t box_rows) {
+  struct Entry {
+    const void* op;
+    bool bf16_elems;
+    uint64_t inner, outer;
+    uint32_t box_rows;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.op == op && e.bf16_elems == bf16_elems && e.inner == inner &&
+        e.outer == outer && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  const int rc = encode_map(map, op, bf16_elems, inner, outer, box_rows);
+  if (rc) return rc;
+  if (cache.size() == 64) cache.erase(cache.begin());
+  cache.push_back(Entry{op, bf16_elems, inner, outer, box_rows, *map});
+  return 0;
+}
+
+// Let `kernel` take as much dynamic shared memory as a block of the
+// current device may, once per device (bit d of `done`).
+template <typename K>
+inline int allow_shared(K kernel, std::atomic<uint64_t>& done) {
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return 0;
+  cudaFuncAttributes attr;
+  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most - (int)attr.sharedSizeBytes);
+  if (e != cudaSuccess) return (int)e;
+  done |= bit;
+  return 0;
 }
 
 }  // namespace hopper

@@ -14,15 +14,16 @@
 // (f_n, f_{N-1-n}): a per-pair rotation, two [N/2, N/2] products and a
 // one-lane-shift butterfly, half the MACs of the mono design's [N, N]
 // product. Here it is three passes per direction, each simple: analysis =
-// fold_rotate_kernel -> the GEMM templates below on two halves (Geometry)
-// -> butterfly_out_kernel; synthesis = butterfly_in_kernel -> the GEMMs ->
-// scatter_kernel<.., RADIX>, which applies the transposed rotation as it
-// reads. The spectrum is in standard order: the TPU kernels' even/odd-split
-// order and its interleave passes are gone. The intermediates go through
-// device memory (float between GEMM and butterfly or rotation): at the
-// radix path's shapes (rows=32, T=215, N=2048) that is ~0.3 GB a direction,
-// ~0.1 ms of the card's bandwidth against ~29 GFLOP of products, so the
-// GEMMs bound these kernels as they do the mono ones.
+// fold_rotate_kernel (which writes the rotated frames as the bf16 planes
+// of the split GEMM's A) -> split_gemm_kernel on two halves (below) ->
+// butterfly_out_kernel; synthesis = butterfly_in_kernel (planes likewise)
+// -> the same GEMM -> scatter_kernel<.., RADIX>, which applies the
+// transposed rotation as it reads. The spectrum is in standard order: the
+// TPU kernels' even/odd-split order and its interleave passes are gone.
+// The intermediates go through device memory (bf16 planes into the GEMM,
+// float out of it): at the radix path's shapes (rows=32, T=215, N=2048)
+// that is ~0.25 GB a direction at `highest`, ~0.08 ms of the card's
+// bandwidth against 0.176 ms of its six bf16 passes.
 //
 // Layout: rows = batch x channels, [rows, T, N] in, [rows, T+1, N] out, the
 // natural sample order. The TPU kernels needed a swizzled lane layout
@@ -51,8 +52,8 @@
 // (below): both operands as bf16 planes of their float32 values, streamed
 // by TMA, and the products of the planes on wgmma; the synthesis there
 // keeps a z scratch and scatter_kernel. The radix design keeps its three
-// passes, the FFMA products at `highest`/`high` and the WMMA ones at
-// `default`.
+// passes, its products on split_gemm_kernel at every tier (one pass on one
+// plane at `default`).
 //
 // Numerics, which the plain torch versions in ops/cuda_mdct.py share:
 //   * the fold rounds each product and each sum to the input dtype, with
@@ -66,32 +67,22 @@
 //     group's int32 sum added as float(acc_g) * s_g in group order, then
 //     multiplied by mat_scale;
 //   * `highest`/`high` (float32 only): the split products below, within
-//     the tier's error of the plain versions' float32 products (the mono
-//     design), or float32 FFMA (the radix design).
+//     the tier's error of the plain versions' float32 products.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
-#include <mutex>
 #include <type_traits>
-#include <vector>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 64;   // frames per output tile
-constexpr int BN = 64;   // columns per output tile
-constexpr int BK = 32;   // depth of one K step
 constexpr int THREADS = 256;
 constexpr int GROUP = 128;  // int8g column group
 
@@ -177,214 +168,29 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Where a radix GEMM's operands lie: the two halves of A's columns times
-// two [K, K] matrices (K = N/2) stacked in `mat`, into the two halves of the
-// output's columns. Output column cg belongs to half cg / K, which reads A's
-// columns from half * K and the matrix at mat + half * K * K.
-struct Geometry {
-  int K, half, c0;  // depth; this column tile's half; its column in the half
-  __device__ __forceinline__ Geometry(int N, int cg)
-      : K(N / 2), half(cg / (N / 2)), c0(cg - half * (N / 2)) {}
-};
-
-// The radix design's FFMA tiers (`highest`, `high`): one [BM frames x BN
-// columns] tile of the rows of x @ mat for one row (the halves of
-// Geometry), float out.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) ffma_gemm_kernel(
-    const T* __restrict__ x, const float* __restrict__ mat,
-    float* __restrict__ out, int t_in, int N) {
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BM;
-  const int cg = blockIdx.y * BN;  // output column
-  const Geometry g(N, cg);
-  const int a0 = g.half * g.K;  // first column of A
-  const float* matb = mat + (size_t)a0 * g.K;
-  const int row = blockIdx.z;
-  const T* xr = x + (size_t)row * t_in * N;
-  float* outr = out + (size_t)row * t_in * N;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < g.K; k0 += BK) {
-    for (int e = 0; e < BM * BK / THREADS; ++e) {
-      const int idx = tid + e * THREADS;
-      const int m = idx / BK, kk = idx % BK;
-      const int n = n0 + m;
-      As[kk][m] = n < t_in ? to_f(xr[(size_t)n * N + a0 + k0 + kk]) : 0.f;
-    }
-    for (int e = 0; e < BK * BN / THREADS; ++e) {
-      const int idx = tid + e * THREADS;
-      const int kk = idx / BN, c = idx % BN;
-      Bs[kk][c] = matb[(size_t)(k0 + kk) * g.K + g.c0 + c];
-    }
-    __syncthreads();
-    // Blocked summation: each K step sums into a fresh partial that is
-    // then added to the total. A single running sum over K=1024 costs
-    // ~10 dB of round-trip SNR in float32 (simulated: 120 dB sequential
-    // against 133 dB blocked by 32), and the tier's round trip must
-    // reach 130 dB.
-    float part[4][4] = {};
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
+// a = s[0] + s[1] + s[2] in bf16 (exact for normal a): each residual is
+// exact in float32, and __fsub_rn keeps nvcc from contracting anything.
+__device__ __forceinline__ void split3(float a, bf16 (&s)[3]) {
+  float r = a;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
-    if (n >= t_in) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      outr[(size_t)n * N + cg + tx * 4 + j] = acc[i][j];
+  for (int p = 0; p < 3; ++p) {
+    s[p] = __float2bfloat16_rn(r);
+    r = __fsub_rn(r, __bfloat162float(s[p]));
   }
 }
 
-// Sixteen consecutive elements of T, loaded as 16-byte vectors.
-template <typename T>
-struct Raw16 {
-  uint4 v[sizeof(T)];
-  __device__ __forceinline__ void load(const T* p) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int i = 0; i < (int)sizeof(T); ++i) v[i] = __ldg(q + i);
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < (int)sizeof(T); ++i) v[i] = make_uint4(0, 0, 0, 0);
-  }
-  __device__ __forceinline__ float operator[](int i) const {
-    return to_f(reinterpret_cast<const T*>(v)[i]);
-  }
-};
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
 
-// The radix design's `default` products (WMMA bf16 -> f32): one [MM frames
-// x MN columns] tile of the spectrum rows A @ mat for one row, the halves of
-// Geometry; 8 warps as 2 (frames) x 4 (columns), each warp 64 x 32 = 4 x 2
-// WMMA tiles. The mono design runs tc_kernel and split_gemm_kernel below.
-//
-// Staging: each thread stages 16 consecutive K values of one frame (A) and
-// of one column (B) per 32-deep K step, into a double-buffered shared
-// tile: the next step's global loads start before this step's MMAs,
-// and converted/stored after them, so their latency hides behind the
-// tensor cores. Shared tiles are [chunk of 16 K][frame or column][16]:
-// A row-major and B column-major, every WMMA pointer 32-byte aligned. Two
-// blocks share an SM (128 registers a thread).
-constexpr int MM = 128, MN = 128, MK = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2) mma_gemm_kernel(
-    const T* __restrict__ x, const float* __restrict__ mat,
-    float* __restrict__ out, int t_in, int N) {
-  __shared__ __align__(128) bf16 As[2][MK / 16][MM][16];
-  __shared__ __align__(128) bf16 Bs[2][MK / 16][MN][16];
-  __shared__ __align__(128) float scr[THREADS / 32][256];  // per-warp tile
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n0 = blockIdx.x * MM, row = blockIdx.z;
-  const int cg = blockIdx.y * MN;  // output column (see Geometry)
-  const Geometry g(N, cg);
-  const int a0 = g.half * g.K;
-  const T* xr = x + (size_t)row * t_in * N;
-  float* outr = out + (size_t)row * t_in * N;
-
-  // this thread's staging slot: frame / column sm, K chunk skc
-  const int sm = tid >> 1, skc = tid & 1;
-  const int sn = n0 + sm;
-  Raw16<T> ra;   // A raw
-  float bv[16];  // B raw (one column, 16 K)
-  const float* matf = mat + (size_t)a0 * g.K;
-
-  // global loads of K step k0
-  auto load = [&](int k0) {
-    const int kg = k0 + skc * 16;
-    if (sn < t_in) ra.load(xr + (size_t)sn * N + a0 + kg);
-    else ra.zero();
+// The first NP planes of split3(v) at dst, dst + plane, ...
+template <int NP>
+__device__ __forceinline__ void put_planes(bf16* dst, size_t plane, float v) {
+  bf16 s[3];
+  split3(v, s);
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      bv[i] = matf[(size_t)(kg + i) * g.K + g.c0 + sm];
-  };
-
-  // convert the loaded step into shared stage s
-  auto store = [&](int s) {
-    uint32_t pa[8], pb[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      pa[i] = pack_bf16(ra[2 * i], ra[2 * i + 1]);
-      pb[i] = pack_bf16(bv[2 * i], bv[2 * i + 1]);
-    }
-    uint4* a = reinterpret_cast<uint4*>(&As[s][skc][sm][0]);
-    uint4* b = reinterpret_cast<uint4*>(&Bs[s][skc][sm][0]);
-    a[0] = make_uint4(pa[0], pa[1], pa[2], pa[3]);
-    a[1] = make_uint4(pa[4], pa[5], pa[6], pa[7]);
-    b[0] = make_uint4(pb[0], pb[1], pb[2], pb[3]);
-    b[1] = make_uint4(pb[4], pb[5], pb[6], pb[7]);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int fm = 0; fm < 4; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < 2; ++fn) wmma::fill_fragment(acc[fm][fn], 0.f);
-
-  load(0);
-  store(0);
-  __syncthreads();
-  const int steps = g.K / MK;
-  for (int st = 0; st < steps; ++st) {
-    const int cur = st & 1, k0 = st * MK;
-    const bool more = st + 1 < steps;
-    if (more) load(k0 + MK);
-#pragma unroll
-    for (int kc = 0; kc < MK / 16; ++kc) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int fn = 0; fn < 2; ++fn)
-        wmma::load_matrix_sync(b[fn], &Bs[cur][kc][wn * 32 + fn * 16][0], 16);
-#pragma unroll
-      for (int fm = 0; fm < 4; ++fm) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, &As[cur][kc][wm * 64 + fm * 16][0], 16);
-#pragma unroll
-        for (int fn = 0; fn < 2; ++fn)
-          wmma::mma_sync(acc[fm][fn], a, b[fn], acc[fm][fn]);
-      }
-    }
-    if (more) store(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int fm = 0; fm < 4; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < 2; ++fn) {
-      wmma::store_matrix_sync(&scr[warp][0], acc[fm][fn], 16,
-                              wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = lane + 32 * i;
-        const int n = n0 + wm * 64 + fm * 16 + (e >> 4);
-        const int col = cg + wn * 32 + fn * 16 + (e & 15);
-        if (n < t_in) outr[(size_t)n * N + col] = scr[warp][e];
-      }
-      __syncwarp();
-    }
+  for (int p = 0; p < NP; ++p) dst[p * plane] = s[p];
 }
 
 // The overlap scatter of the synthesis (ops/folding.py::unfold), from the
@@ -441,30 +247,42 @@ __global__ void __launch_bounds__(THREADS) scatter_kernel(
 }
 
 // Radix analysis, first pass: the fold and the per-pair rotation, from x
-// [rows, T, N] to rt [rows, T+1, N] = [r | t~]. With a_k = folded[k] and
-// b_k = folded[N-1-k] (k < M = N/2) and rot = [rot1; rot2], [2, N]:
+// [rows, T, N] to the split GEMM's A planes of rt = [r | t~] ([NP, m_pad,
+// N] bf16, row m = row x (T+1) + frame; rows from rows x (T+1) to m_pad are
+// zeros). With a_k = folded[k] and b_k = folded[N-1-k] (k < M = N/2) and
+// rot = [rot1; rot2], [2, N]:
 //   r_k  = a_k * rot1[k]   + b_k * rot2[k]
 //   t~_k = b_k * rot1[M+k] + a_k * rot2[M+k]
-// each product and sum rounded to T (ops/radix.py::rotate).
-template <typename T>
+// each product and sum rounded to T (ops/radix.py::rotate), then split into
+// NP planes (split3; a bf16 value is its own plane 0). One block a row of A.
+template <typename T, int NP>
 __global__ void __launch_bounds__(THREADS) fold_rotate_kernel(
     const T* __restrict__ x, const T* __restrict__ wa_r,
     const T* __restrict__ wb, const T* __restrict__ wc,
-    const T* __restrict__ ffr, const T* __restrict__ rot, T* __restrict__ rt,
-    int t_in, int N) {
-  const int n = blockIdx.x;
-  const int row = blockIdx.y;
+    const T* __restrict__ ffr, const T* __restrict__ rot,
+    bf16* __restrict__ planes, int rows, int t_in, int N, int m_pad) {
+  const int m = blockIdx.x;
+  const int frames = t_in + 1;
+  const bool valid = m < rows * frames;
+  const int row = valid ? m / frames : 0;
+  const int n = m - row * frames;
   const int M = N >> 1;
   const T* xr = x + (size_t)row * t_in * N;
-  T* o = rt + ((size_t)row * (t_in + 1) + n) * N;
+  bf16* o = planes + (size_t)m * N;
+  const size_t plane = (size_t)m_pad * N;
   for (int k = threadIdx.x; k < M; k += THREADS) {
-    const float a = fold_value<T>(xr, wa_r, wb, wc, ffr, n, k, t_in, N);
-    const float b = fold_value<T>(xr, wa_r, wb, wc, ffr, n, N - 1 - k, t_in, N);
-    o[k] = from_f<T>(rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(a, to_f(rot[k]))),
-                                      rnd<T>(__fmul_rn(b, to_f(rot[N + k]))))));
-    o[M + k] = from_f<T>(
-        rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(b, to_f(rot[M + k]))),
-                         rnd<T>(__fmul_rn(a, to_f(rot[N + M + k]))))));
+    float r = 0.f, t = 0.f;
+    if (valid) {
+      const float a = fold_value<T>(xr, wa_r, wb, wc, ffr, n, k, t_in, N);
+      const float b =
+          fold_value<T>(xr, wa_r, wb, wc, ffr, n, N - 1 - k, t_in, N);
+      r = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(a, to_f(rot[k]))),
+                           rnd<T>(__fmul_rn(b, to_f(rot[N + k])))));
+      t = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(b, to_f(rot[M + k]))),
+                           rnd<T>(__fmul_rn(a, to_f(rot[N + M + k])))));
+    }
+    put_planes<NP>(o + k, plane, r);
+    put_planes<NP>(o + M + k, plane, t);
   }
 }
 
@@ -487,21 +305,31 @@ __global__ void __launch_bounds__(THREADS) butterfly_out_kernel(
 }
 
 // Radix synthesis, first pass: the transposed butterfly from the spectrum y
-// [rows, T, N] (standard order) to [us | vs] [rows, T, N] in T:
+// [rows, T, N] (standard order) to the split GEMM's A planes of [us | vs]
+// ([NP, m_pad, N] bf16, row m = row x T + frame, zero rows to m_pad):
 //   us[j] = y[2j] + y[2j-1],  vs[j] = y[2j+2] - y[2j+1]
-// with zero beyond the edges, each sum rounded to T.
-template <typename T>
+// with zero beyond the edges, each sum rounded to T, then split into NP
+// planes. One block a row of A.
+template <typename T, int NP>
 __global__ void __launch_bounds__(THREADS) butterfly_in_kernel(
-    const T* __restrict__ y, T* __restrict__ usvs, int N) {
-  const size_t frame = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const T* __restrict__ y, bf16* __restrict__ planes, int frames, int N,
+    int m_pad) {
+  const int m = blockIdx.x;
+  const bool valid = m < frames;  // frames: rows x T
   const int M = N >> 1;
-  const T* yi = y + frame * N;
-  T* o = usvs + frame * N;
+  const T* yi = y + (size_t)(valid ? m : 0) * N;
+  bf16* o = planes + (size_t)m * N;
+  const size_t plane = (size_t)m_pad * N;
   for (int j = threadIdx.x; j < M; j += THREADS) {
-    o[j] = j > 0 ? from_f<T>(__fadd_rn(to_f(yi[2 * j]), to_f(yi[2 * j - 1])))
-                 : yi[0];
-    o[M + j] = from_f<T>(__fsub_rn(j + 1 < M ? to_f(yi[2 * j + 2]) : 0.f,
-                                   to_f(yi[2 * j + 1])));
+    float us = 0.f, vs = 0.f;
+    if (valid) {
+      us = j > 0 ? rnd<T>(__fadd_rn(to_f(yi[2 * j]), to_f(yi[2 * j - 1])))
+                 : to_f(yi[0]);
+      vs = rnd<T>(__fsub_rn(j + 1 < M ? to_f(yi[2 * j + 2]) : 0.f,
+                            to_f(yi[2 * j + 1])));
+    }
+    put_planes<NP>(o + j, plane, us);
+    put_planes<NP>(o + M + j, plane, vs);
   }
 }
 
@@ -1183,7 +1011,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
   }
 }
 
-// ---- The mono design's split tiers (`highest`, `high`) on Hopper ----------
+// ---- The split tiers (`highest`, `high`) on Hopper, and the radix products
 //
 // A float32 operand is the sum of bf16 planes: a0 = bf16(a), a1 = bf16(a -
 // a0), a2 = bf16(a - a0 - a1) (split3; each subtraction is exact in
@@ -1197,9 +1025,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
 //     they drop ~2^-16), but miss the tier's tolerance here, so six run.
 // The small terms come first: the tensor cores' float32 accumulation is not
 // round-to-nearest, and its error follows the accumulator's magnitude,
-// which is least before the large term joins.
+// which is least before the large term joins. The radix design's `default`
+// runs the same GEMM on one plane an operand (bf16 RNE, the tier's
+// rounding): one pass, a0b0.
 //
-// A direction is two launches (three in the synthesis):
+// A mono direction is two launches (three in the synthesis):
 //   * split_kernel: A, the fold of x (analysis) or the rows of y
 //     (synthesis), split into NP planes and written to device memory as
 //     [NP, M_pad, N] bf16: M = rows x frames flattened, padded with zero
@@ -1224,9 +1054,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
 //   * the synthesis: the product goes to the z scratch [rows, T, N] and
 //     scatter_kernel applies the overlap scatter.
 //
+// The radix products are the same GEMM on other addresses (gridDim.z = 2
+// halves): A's row holds two K halves of K = N/2, half h reads A columns
+// [h K, (h+1) K) and factor h of the operand [2, NP, K, K], and writes
+// output columns [h K, (h+1) K) of a row N wide. Their A planes come from
+// fold_rotate_kernel / butterfly_in_kernel (above), which split the rotated
+// or butterflied values as they write them: no split_kernel pass.
+//
 // Shared memory: NP x (SPLIT_BM + SPLIT_BN) x 128 bytes a stage (96 KB
-// with six passes, 64 KB with three), two or three stages; one block an
-// SM.
+// with six passes, 64 KB with three, 32 KB with one), two to six stages;
+// one block an SM.
 
 constexpr int SPLIT_BM = 128;  // A rows (frames) of a block: 2 warpgroups
 constexpr int SPLIT_BN = 128;  // output columns of a block
@@ -1234,8 +1071,9 @@ constexpr int SPLIT_KT = 64;   // K of a stage: one 128-byte row of bf16
 
 template <int PASSES>
 struct Split {
-  static_assert(PASSES == 6 || PASSES == 3, "six or three passes");
-  static constexpr int NP = PASSES == 6 ? 3 : 2;  // planes an operand
+  static_assert(PASSES == 6 || PASSES == 3 || PASSES == 1,
+                "six, three or one pass");
+  static constexpr int NP = PASSES == 6 ? 3 : PASSES == 3 ? 2 : 1;
   static constexpr int A_BYTES = SPLIT_BM * 128;  // one plane of a stage
   static constexpr int B_BYTES = SPLIT_BN * 128;
   static constexpr int STAGE_BYTES = NP * (A_BYTES + B_BYTES);
@@ -1253,22 +1091,6 @@ struct Split {
 __host__ __device__ constexpr int pass_plane(int i, bool b) {
   return b ? (i == 0 ? 1 : i == 1 ? 2 : i == 3 ? 1 : 0)
            : (i == 0 ? 1 : i == 2 ? 2 : i == 4 ? 1 : 0);
-}
-
-// a = s[0] + s[1] + s[2] in bf16 (exact for normal a): each residual is
-// exact in float32, and __fsub_rn keeps nvcc from contracting anything.
-__device__ __forceinline__ void split3(float a, bf16 (&s)[3]) {
-  float r = a;
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    s[p] = __float2bfloat16_rn(r);
-    r = __fsub_rn(r, __bfloat162float(s[p]));
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // The A planes: row m of [rows x frames] (frames = T+1 with FOLD, else T)
@@ -1302,14 +1124,17 @@ __global__ void __launch_bounds__(THREADS) split_kernel(
   }
 }
 
-// out [M, N] (float32, row-major) = the PASSES-pass product of the A planes
-// behind `amap` ([NP x m_pad, N] bf16) and the B planes behind `bmap` ([NP
-// x N, N] bf16, K contiguous); boxes of 64 K by 128 rows.
+// The PASSES-pass product of the A planes behind `amap` ([NP x m_pad, H x
+// K] bf16) and the B planes behind `bmap` ([H x NP x K, K] bf16, K
+// contiguous) in H = gridDim.z halves: out [M, H x K] (float32, row-major)
+// columns [h K, (h+1) K) = A columns [h K, (h+1) K) @ factor h. The mono
+// design is H = 1 (K = N), the radix one H = 2 (K = N/2). Boxes of 64 K by
+// 128 rows.
 template <int PASSES>
 __global__ void __launch_bounds__(TC_THREADS, 1) split_gemm_kernel(
     const __grid_constant__ CUtensorMap amap,
     const __grid_constant__ CUtensorMap bmap, float* __restrict__ out, int M,
-    int m_pad, int N) {
+    int m_pad, int K) {
   using S = Split<PASSES>;
   constexpr int NP = S::NP, STAGES = S::STAGES;
   extern __shared__ uint8_t raw_smem[];
@@ -1327,7 +1152,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) split_gemm_kernel(
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * SPLIT_BN, m0 = blockIdx.y * SPLIT_BM;
-  const int kts = N / SPLIT_KT;  // K tiles (K = N)
+  const int half = blockIdx.z;
+  const int kts = K / SPLIT_KT;  // K tiles
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(full(s), 1);
@@ -1347,10 +1173,10 @@ __global__ void __launch_bounds__(TC_THREADS, 1) split_gemm_kernel(
         hopper::mbar_expect_tx(full(s), S::STAGE_BYTES);
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
-          hopper::tma_load_2d(a_tile(s, p), &amap, full(s), kt * SPLIT_KT,
-                              p * m_pad + m0);
+          hopper::tma_load_2d(a_tile(s, p), &amap, full(s),
+                              half * K + kt * SPLIT_KT, p * m_pad + m0);
           hopper::tma_load_2d(b_tile(s, p), &bmap, full(s), kt * SPLIT_KT,
-                              p * N + n0);
+                              (half * NP + p) * K + n0);
         }
       }
     }
@@ -1392,102 +1218,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1) split_gemm_kernel(
   for (int i = 0; i < 2; ++i) {
     const int m = m0 + 64 * wg + r0 + 8 * i;
     if (m >= M) continue;
-    float* o = out + (size_t)m * N + n0;
+    float* o = out + (size_t)m * gridDim.z * K + half * K + n0;
 #pragma unroll
     for (int j = 0; j < 16; ++j)
       *reinterpret_cast<float2*>(o + 8 * j + c0) =
           make_float2(total[4 * j + 2 * i], total[4 * j + 2 * i + 1]);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no link
-// against libcuda).
-typedef decltype(&cuTensorMapEncodeTiled) EncodeTiled;
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of a K-major matrix at p: `outer` rows of `inner` bf16
-// (or int8, bf16 false) values, read in boxes of 128 bytes of K by
-// `box_rows` rows with the 128-byte swizzle. Returns a CUDA error code.
-int encode_map(CUtensorMap* map, const void* p, bool bf16_elems,
-               uint64_t inner, uint64_t outer, uint32_t box_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const int esz = bf16_elems ? 2 : 1;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * esz};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / esz), box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(map,
-             bf16_elems ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-             2, const_cast<void*>(p), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// encode_map of a matrix's operand form. The operands are residents built
-// once, so each map is encoded once: it holds only the address and the
-// geometry, which the key holds too.
-int operand_map(CUtensorMap* map, const void* op, bool bf16_elems,
-                uint64_t inner, uint64_t outer, uint32_t box_rows) {
-  struct Entry {
-    const void* op;
-    bool bf16_elems;
-    uint64_t inner, outer;
-    uint32_t box_rows;
-    CUtensorMap map;
-  };
-  static std::mutex mu;
-  static std::vector<Entry> cache;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& e : cache)
-    if (e.op == op && e.bf16_elems == bf16_elems && e.inner == inner &&
-        e.outer == outer && e.box_rows == box_rows) {
-      *map = e.map;
-      return 0;
-    }
-  const int rc = encode_map(map, op, bf16_elems, inner, outer, box_rows);
-  if (rc) return rc;
-  if (cache.size() == 64) cache.erase(cache.begin());
-  cache.push_back(Entry{op, bf16_elems, inner, outer, box_rows, *map});
-  return 0;
-}
-
-// Let `kernel` take as much dynamic shared memory as a block of the
-// current device may, once per device (bit d of `done`).
-template <typename K>
-int allow_shared(K kernel, std::atomic<uint64_t>& done) {
-  int dev = 0, most = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load() & bit) return 0;
-  cudaFuncAttributes attr;
-  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             most - (int)attr.sharedSizeBytes);
-  if (e != cudaSuccess) return (int)e;
-  done |= bit;
-  return 0;
 }
 
 // Launch tc_kernel on the operand matrix `op` ([N, N], K contiguous).
@@ -1497,11 +1233,11 @@ int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
               int N, float mat_scale, cudaStream_t st) {
   using Cfg = Tc<TIER, FOLD>;
   CUtensorMap map;
-  int rc = operand_map(&map, op, TIER == BF16, N, N, Cfg::BN);
+  int rc = hopper::operand_map(&map, op, TIER == BF16, N, N, Cfg::BN);
   if (rc) return rc;
   auto kernel = tc_kernel<T, TIER, FOLD>;
   static std::atomic<uint64_t> shared_set{0};
-  rc = allow_shared(kernel, shared_set);
+  rc = hopper::allow_shared(kernel, shared_set);
   if (rc) return rc;
   const size_t smem = Cfg::smem_bytes(N);
   const dim3 grid((t_in + 1 + Cfg::TILE - 1) / Cfg::TILE, rows);
@@ -1509,6 +1245,31 @@ int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
       map, static_cast<const T*>(x), static_cast<const T*>(w0),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<const T*>(w3), static_cast<T*>(out), t_in, N, mat_scale);
+  return 0;
+}
+
+// M rows of A rounded up to whole split_gemm_kernel row tiles.
+int split_rows(int M) { return (M + SPLIT_BM - 1) / SPLIT_BM * SPLIT_BM; }
+
+// split_gemm_kernel on the A planes `planes` ([NP, m_pad, halves x K] bf16)
+// and the operand `op` ([halves, NP, K, K] bf16) into out [M, halves x K].
+template <int PASSES>
+int split_gemm(void* planes, const void* op, float* out, int M, int m_pad,
+               int K, int halves, cudaStream_t st) {
+  using S = Split<PASSES>;
+  CUtensorMap amap, bmap;
+  int rc = hopper::encode_map(&amap, planes, true, (uint64_t)halves * K,
+                      (uint64_t)S::NP * m_pad, SPLIT_BM);
+  if (!rc)
+    rc = hopper::operand_map(&bmap, op, true, K, (uint64_t)halves * S::NP * K,
+                     SPLIT_BN);
+  if (rc) return rc;
+  auto kernel = split_gemm_kernel<PASSES>;
+  static std::atomic<uint64_t> shared_set{0};
+  rc = hopper::allow_shared(kernel, shared_set);
+  if (rc) return rc;
+  kernel<<<dim3(K / SPLIT_BN, m_pad / SPLIT_BM, halves), TC_THREADS,
+           S::smem_bytes(), st>>>(amap, bmap, out, M, m_pad, K);
   return 0;
 }
 
@@ -1522,23 +1283,11 @@ int launch_split(const float* x, const float* w0, const float* w1,
                  const float* w2, const float* w3, const void* op,
                  void* planes, float* out, int rows, int t_in, int N,
                  cudaStream_t st) {
-  using S = Split<PASSES>;
   const int M = rows * (FOLD ? t_in + 1 : t_in);
-  const int m_pad = (M + SPLIT_BM - 1) / SPLIT_BM * SPLIT_BM;
-  split_kernel<FOLD, S::NP><<<m_pad, THREADS, 0, st>>>(
+  const int m_pad = split_rows(M);
+  split_kernel<FOLD, Split<PASSES>::NP><<<m_pad, THREADS, 0, st>>>(
       x, w0, w1, w2, w3, static_cast<bf16*>(planes), rows, t_in, N, m_pad);
-  CUtensorMap amap, bmap;
-  int rc = encode_map(&amap, planes, true, N, (uint64_t)S::NP * m_pad,
-                      SPLIT_BM);
-  if (!rc) rc = operand_map(&bmap, op, true, N, (uint64_t)S::NP * N, SPLIT_BN);
-  if (rc) return rc;
-  auto kernel = split_gemm_kernel<PASSES>;
-  static std::atomic<uint64_t> shared_set{0};
-  rc = allow_shared(kernel, shared_set);
-  if (rc) return rc;
-  kernel<<<dim3(N / SPLIT_BN, m_pad / SPLIT_BM), TC_THREADS, S::smem_bytes(),
-           st>>>(amap, bmap, out, M, m_pad, N);
-  return 0;
+  return split_gemm<PASSES>(planes, op, out, M, m_pad, N, 1, st);
 }
 
 // `high`'s passes. Three (the JAX kernel's recipe) meet the card tests'
@@ -1610,60 +1359,60 @@ int launch_matmul_scatter(const void* y, const void* p, const void* q,
   return (int)cudaErrorInvalidValue;  // bf16 input at a split tier
 }
 
-// The two [M, M] products of the radix design: a [rows, frames, N] holds
-// the two K halves, mats [2, M, M] the two matrices, prod [rows, frames, N]
-// (float) gets the two products side by side.
-template <typename T>
-void launch_radix_products(const T* a, const float* mats, float* prod,
-                           int rows, int frames, int N, int tier,
-                           cudaStream_t st) {
-  if (tier != BF16) {  // `highest`, `high`
-    ffma_gemm_kernel<T>
-        <<<dim3((frames + BM - 1) / BM, N / BN, rows), THREADS, 0, st>>>(
-            a, mats, prod, frames, N);
-  } else {
-    mma_gemm_kernel<T>
-        <<<dim3((frames + MM - 1) / MM, N / MN, rows), THREADS, 0, st>>>(
-            a, mats, prod, frames, N);
+// A radix direction at a tier of PASSES passes (1 at `default`): the pass
+// that writes A's planes (fold_rotate_kernel with FOLD, else
+// butterfly_in_kernel), the two [N/2, N/2] products on split_gemm_kernel
+// (op [2, NP, N/2, N/2]) into the float scratch `prod`, then the pass that
+// reads them (butterfly_out_kernel, or scatter_kernel<.., RADIX>).
+template <typename T, int PASSES, bool FOLD>
+int radix(const void* x, const void* const (&w)[4], const void* rot,
+          const void* op, void* planes, void* prod, void* out, int rows,
+          int t_in, int N, cudaStream_t st) {
+  constexpr int NP = Split<PASSES>::NP;
+  const T* in = static_cast<const T*>(x);
+  const T* w0 = static_cast<const T*>(w[0]);
+  const T* w1 = static_cast<const T*>(w[1]);
+  const T* w2 = static_cast<const T*>(w[2]);
+  const T* w3 = static_cast<const T*>(w[3]);
+  const T* rt = static_cast<const T*>(rot);
+  bf16* a = static_cast<bf16*>(planes);
+  float* pr = static_cast<float*>(prod);
+  T* o = static_cast<T*>(out);
+  const int M = rows * (FOLD ? t_in + 1 : t_in), m_pad = split_rows(M);
+  if constexpr (FOLD)
+    fold_rotate_kernel<T, NP><<<m_pad, THREADS, 0, st>>>(
+        in, w0, w1, w2, w3, rt, a, rows, t_in, N, m_pad);
+  else
+    butterfly_in_kernel<T, NP><<<m_pad, THREADS, 0, st>>>(in, a, M, N, m_pad);
+  const int rc = split_gemm<PASSES>(planes, op, pr, M, m_pad, N / 2, 2, st);
+  if (rc) return rc;
+  if constexpr (FOLD)
+    butterfly_out_kernel<T><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(pr, o,
+                                                                      N);
+  else
+    scatter_kernel<float, T, true><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
+        pr, w0, w1, w2, w3, rt, o, t_in, N);
+  return 0;
+}
+
+// radix at `tier`: `default` on one plane, the split tiers (float32 input
+// only) on their passes.
+template <typename T, bool FOLD>
+int launch_radix(const void* x, const void* const (&w)[4], const void* rot,
+                 const void* op, void* planes, void* prod, void* out,
+                 int rows, int t_in, int N, int tier, cudaStream_t st) {
+  if (tier == BF16)
+    return radix<T, 1, FOLD>(x, w, rot, op, planes, prod, out, rows, t_in, N,
+                             st);
+  if constexpr (std::is_same<T, float>::value) {
+    if (tier == HIGHEST)
+      return radix<T, 6, FOLD>(x, w, rot, op, planes, prod, out, rows, t_in,
+                               N, st);
+    if (tier == HIGH)
+      return radix<T, HIGH_PASSES, FOLD>(x, w, rot, op, planes, prod, out,
+                                         rows, t_in, N, st);
   }
-}
-
-template <typename T>
-void launch_radix_fold_matmul(const void* x, const void* wa_r, const void* wb,
-                              const void* wc, const void* ffr,
-                              const void* rot, const void* mats, void* rt,
-                              void* uv, void* out, int rows, int t_in, int N,
-                              int tier, cudaStream_t st) {
-  const dim3 fgrid(t_in + 1, rows);
-  fold_rotate_kernel<T><<<fgrid, THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wa_r),
-      static_cast<const T*>(wb), static_cast<const T*>(wc),
-      static_cast<const T*>(ffr), static_cast<const T*>(rot),
-      static_cast<T*>(rt), t_in, N);
-  launch_radix_products<T>(static_cast<const T*>(rt),
-                           static_cast<const float*>(mats),
-                           static_cast<float*>(uv), rows, t_in + 1, N, tier,
-                           st);
-  butterfly_out_kernel<T><<<fgrid, THREADS, 0, st>>>(
-      static_cast<const float*>(uv), static_cast<T*>(out), N);
-}
-
-template <typename T>
-void launch_radix_matmul_scatter(const void* y, const void* p, const void* q,
-                                 const void* r, const void* s_r,
-                                 const void* rot, const void* mats,
-                                 void* usvs, void* rsts, void* out, int rows,
-                                 int t_in, int N, int tier, cudaStream_t st) {
-  butterfly_in_kernel<T><<<dim3(t_in, rows), THREADS, 0, st>>>(
-      static_cast<const T*>(y), static_cast<T*>(usvs), N);
-  launch_radix_products<T>(static_cast<const T*>(usvs),
-                           static_cast<const float*>(mats),
-                           static_cast<float*>(rsts), rows, t_in, N, tier, st);
-  scatter_kernel<float, T, true><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
-      static_cast<const float*>(rsts), static_cast<const T*>(p),
-      static_cast<const T*>(q), static_cast<const T*>(r),
-      static_cast<const T*>(s_r), static_cast<const T*>(rot),
-      static_cast<T*>(out), t_in, N);
+  return (int)cudaErrorInvalidValue;  // int8, or bf16 input at a split tier
 }
 
 bool shape_ok(int rows, int t_in, int N, int dtype, int tier) {
@@ -1731,44 +1480,46 @@ int acx_tc_shared_bytes(int tier, int fold, int N) {
   return -1;
 }
 
-// Radix analysis: x [rows, T, N] -> out [rows, T+1, N] in standard order,
-// through the scratches rt [rows, T+1, N] (x's dtype) and uv [rows, T+1, N]
-// (float); rot [2, N] in x's dtype, mats [2, N/2, N/2] float. No int8 tier.
+// Radix analysis: x [rows, T, N] -> out [rows, T+1, N] in standard order.
+// rot [2, N] in x's dtype; op: the two factors' operand form [2, NP, N/2,
+// N/2] bf16 (NP = 3 at `highest`/`high`, 1 at `default`); the scratches
+// planes [NP, m_pad, N] bf16 (m_pad = rows x (T+1) rounded up to 128) and
+// uv [rows, T+1, N] float. No int8 tier; the split tiers take float32 only.
 int acx_radix_fold_matmul(const void* x, const void* wa_r, const void* wb,
                           const void* wc, const void* ffr, const void* rot,
-                          const void* mats, void* rt, void* uv, void* out,
+                          const void* op, void* planes, void* uv, void* out,
                           int rows, int t_in, int N, int dtype, int tier,
                           void* stream) {
-  if (!shape_ok(rows, t_in, N, dtype, tier) || tier == INT8)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(rows, t_in, N, dtype, tier)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    launch_radix_fold_matmul<float>(x, wa_r, wb, wc, ffr, rot, mats, rt, uv,
-                                    out, rows, t_in, N, tier, st);
-  else
-    launch_radix_fold_matmul<bf16>(x, wa_r, wb, wc, ffr, rot, mats, rt, uv,
-                                   out, rows, t_in, N, tier, st);
-  return (int)cudaGetLastError();
+  const void* const w[4] = {wa_r, wb, wc, ffr};
+  const int rc =
+      dtype == F32
+          ? launch_radix<float, true>(x, w, rot, op, planes, uv, out,
+                                           rows, t_in, N, tier, st)
+          : launch_radix<bf16, true>(x, w, rot, op, planes, uv, out,
+                                          rows, t_in, N, tier, st);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
-// Radix synthesis: y [rows, T, N] (standard order) -> out [rows, T+1, N],
-// through the scratches usvs [rows, T, N] (y's dtype) and rsts [rows, T, N]
-// (float); rot [2, N] in y's dtype, mats [2, N/2, N/2] float. No int8 tier.
+// Radix synthesis: y [rows, T, N] (standard order) -> out [rows, T+1, N].
+// rot and op as for acx_radix_fold_matmul; the scratches planes (m_pad
+// from rows x T) and rsts [rows, T, N] float.
 int acx_radix_matmul_scatter(const void* y, const void* p, const void* q,
                              const void* r, const void* s_r, const void* rot,
-                             const void* mats, void* usvs, void* rsts,
+                             const void* op, void* planes, void* rsts,
                              void* out, int rows, int t_in, int N, int dtype,
                              int tier, void* stream) {
-  if (!shape_ok(rows, t_in, N, dtype, tier) || tier == INT8)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(rows, t_in, N, dtype, tier)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    launch_radix_matmul_scatter<float>(y, p, q, r, s_r, rot, mats, usvs, rsts,
-                                       out, rows, t_in, N, tier, st);
-  else
-    launch_radix_matmul_scatter<bf16>(y, p, q, r, s_r, rot, mats, usvs, rsts,
-                                      out, rows, t_in, N, tier, st);
-  return (int)cudaGetLastError();
+  const void* const w[4] = {p, q, r, s_r};
+  const int rc =
+      dtype == F32
+          ? launch_radix<float, false>(y, w, rot, op, planes, rsts, out,
+                                             rows, t_in, N, tier, st)
+          : launch_radix<bf16, false>(y, w, rot, op, planes, rsts, out,
+                                            rows, t_in, N, tier, st);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 }  // extern "C"

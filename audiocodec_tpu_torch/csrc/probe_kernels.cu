@@ -9,7 +9,7 @@
 //   out [rows, 1024] float32 = x [rows, 1024] float32 @ M [1024, 1024]
 //
 // with M in bfloat16 or as int8 codes, read in its operand form op [N, K]
-// (K contiguous, ops/cuda_probe.py operand).
+// (K contiguous, ops/cuda_probe.py operand) through a TMA map.
 //
 // Numerics, which the plain torch versions in ops/cuda_probe.py share:
 //   * BF16: x rounded to bf16 (RNE), bf16 products, float32 sums (a fresh
@@ -29,18 +29,38 @@
 // What bounds it on an H100: at the probe's shape (14336 rows) the product
 // is 30.1 GFLOP against 119.5 MB (bf16; 118.5 MB int8) of x, M and out
 // once each, 0.030 ms of bf16 products at 989 TF/s against 0.036 ms of
-// bytes at 3.35 TB/s: the bytes bound both tiers.
+// bytes at 3.35 TB/s: the bytes bound both tiers, and at bf16 the products
+// come close, so the two have to overlap.
 //
-// What the design does about it, simply: one block of 8 warps per tile of
-// rows (64 at BF16, 128 at INT8/INT8G: 128 KB either way) reads its rows of
-// x once, takes the row (group) maxima with warp shuffles and writes the
-// bf16 values or int8 codes into a shared A tile that every column of the
-// output reuses; the operand streams through a two-stage cp.async ring of
-// [128 n x 128 bytes] tiles; the products are mma.sync (m16n8k16 bf16,
-// m16n8k32 s8) from 32-bit shared loads (rows padded by 16 bytes, so the
-// 32 lanes hit 32 banks). The whole operand passes through every block
-// (from L2), and no product overlaps the A build: the first design is
-// right, not fast.
+// What the design does about it:
+//   * A, a CTA's rows of x (up to 128) as bf16 values or int8 codes with
+//     their scales, is built once in shared memory (128 KB, 128-byte-swizzled
+//     K-major tiles, hopper.cuh) by the two consumer warpgroups, one warp
+//     a row, the scales as warp reductions; every column of the output
+//     reuses it. The operand streams through a TMA ring from one producer
+//     thread, and each warpgroup runs wgmma (m64n128, k16 bf16 -> f32 or
+//     k32 s8 -> s32) for its 64 rows on every stage.
+//   * The operand's traffic: every operand byte a CTA streams serves its
+//     rows of x (up to 128), which holds the operand's L2 reads to one
+//     pass per row tile and a CTA's own stream to what an SM can take in.
+//     128 bf16 rows of all of K would need 256 KB, so at bf16 two CTAs of
+//     a cluster split K: each holds its rows' half of K (128 KB) and
+//     streams that half of the operand; of each item, warpgroup r of CTA
+//     r sums its 64 rows, adding the partial sums of the other CTA's
+//     warpgroup r, which writes them into CTA r's shared memory.
+//   * Filling the SMs: the work is items of (a row tile, 128 output
+//     columns), split in contiguous ranges over as many CTAs (int8) or
+//     clusters (bf16) as the card holds at once; a CTA builds A where its
+//     range enters a row tile. At int8 the A build (all of x's 4 KB a row,
+//     quantized) costs more than a quarter of the time, so the row tiles
+//     are cut to give each CTA whole tiles (109 rows at 14336 rows: one
+//     tile a CTA on 132 SMs), every row of x built once; the rows of A
+//     past a tile's are zeros, spent products the bytes bound leaves room
+//     for. At bf16 the operand's stream costs most (two bytes an element),
+//     so the tiles keep all 128 rows and a cluster's range takes 13-14
+//     items, crossing into a second tile.
+//   * The output is stored from the accumulators' registers (write-back
+//     through L2), under the next item's products.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
@@ -52,58 +72,48 @@
 #include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int PK = 1024;     // K and N of the probe
-constexpr int THREADS = 256; // 8 warps
-constexpr int BN = 128;      // output columns of a tile
-constexpr int GROUPS = 8;    // 128-column groups of INT8G along K
-constexpr int PAD = 16;      // bytes after each shared row
-constexpr int B_ROW = 128 + PAD;  // a B stage row: 128 bytes of K
-constexpr int STAGES = 2;
+constexpr int PK = 1024;      // K and N of the probe
+constexpr int THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int BM = 128;       // rows of a CTA: 64 a warpgroup
+constexpr int IC = 128;       // output columns of an item
+constexpr int GROUPS = 8;     // 128-column groups of INT8G along K
+constexpr int A_BYTES = 128 * 1024;  // the shared A tile of every variant
+constexpr int STAGE_BYTES = IC * 128;  // a ring stage: 128 bytes of K
 
 enum Variant { BF16 = 0, INT8 = 1, INT8G = 2 };
 
 template <int V> struct Cfg {  // INT8 and INT8G
-  static constexpr int ESIZE = 1;    // bytes an operand element
-  static constexpr int BM = 128;     // rows of a block
-  static constexpr int WM = 4;       // warps along the rows
+  static constexpr int ESIZE = 1;   // bytes an operand element
+  static constexpr int KSPLIT = 1;  // CTAs of a cluster, splitting K
+  static constexpr int STAGES = 5;
 };
 template <> struct Cfg<BF16> {
   static constexpr int ESIZE = 2;
-  static constexpr int BM = 64;
-  static constexpr int WM = 2;
+  static constexpr int KSPLIT = 2;
+  static constexpr int STAGES = 4;
 };
 
-template <int V> struct Layout {
+template <int V> struct Layout : Cfg<V> {
   using C = Cfg<V>;
-  static constexpr int A_ROW = PK * C::ESIZE + PAD;
-  static constexpr int BK = 128 / C::ESIZE;      // K of a B stage
-  static constexpr int KCH = PK / BK;            // B stages a column tile
-  static constexpr int STEPS = (PK / BN) * KCH;
-  static constexpr int WN = 8 / C::WM;           // warps along the columns
-  static constexpr int MT = C::BM / C::WM / 16;  // m16 tiles of a warp
-  static constexpr int NT = BN / WN / 8;         // n8 tiles of a warp
-  static constexpr size_t A_BYTES = (size_t)C::BM * A_ROW;
-  static constexpr size_t B_BYTES = (size_t)STAGES * BN * B_ROW;
-  static constexpr size_t SMEM = A_BYTES + B_BYTES + C::BM * GROUPS * 4;
+  static constexpr int KC = PK / C::KSPLIT;         // K of a CTA
+  static constexpr int KT_ELEMS = 128 / C::ESIZE;   // K of a 128-byte tile
+  static constexpr int KTS = KC / KT_ELEMS;         // K tiles (GROUPS int8)
+  static constexpr int CHUNKS = PK / IC;            // items a row tile
+  static constexpr int SCALE_FLOATS = V == BF16 ? 0 : BM * GROUPS;
+  // the partial sums a warpgroup receives from the other CTA: 64 x IC
+  static constexpr int LANDING_FLOATS = C::KSPLIT > 1 ? 64 * IC : 0;
+  static constexpr int BAR_BYTES = 128;  // full, empty, landed, freed
+  static_assert(BM * KC * C::ESIZE == A_BYTES && KTS == GROUPS, "A tile");
+  static_assert((2 * C::STAGES + 2) * 8 <= BAR_BYTES, "barrier space");
+  // +1024: aligned by hand
+  static constexpr size_t SMEM =
+      1024 + A_BYTES + (size_t)C::STAGES * STAGE_BYTES + BAR_BYTES +
+      4 * (size_t)(SCALE_FLOATS + LANDING_FLOATS);
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -132,218 +142,307 @@ __device__ __forceinline__ float abs_max4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One block: rows m0 .. m0+BM-1 of x (those past `rows` read as zeros and
-// are not written) times the whole operand.
+// Build A from columns k0 .. k0+KC-1 of rows row0 .. row0+BM-1 of x (rows
+// from row0 + tile_rows or from `rows` on as zeros): a warp a row, two
+// rows a round with all their loads in flight; lane l holds float4 32j + l
+// of the row's KC columns
+// (at int8, KC = 1024 and step j is 128-column group j). K tile kt of A is
+// [BM rows x 128 bytes] at A + kt x BM x 128, its 16-byte chunk c of row r
+// at chunk c ^ (r % 8).
 template <int V>
-__global__ void __launch_bounds__(THREADS, 1) probe_kernel(
-    const float* __restrict__ x, const uint8_t* __restrict__ op,
-    float* __restrict__ out, int rows, float rescale) {
-  using C = Cfg<V>;
-  using L = Layout<V>;
-  using Acc = typename std::conditional<V == BF16, float, int>::type;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* As = smem;
-  uint8_t* Bs = smem + L::A_BYTES;
-  float* scales = reinterpret_cast<float*>(Bs + L::B_BYTES);  // [BM][GROUPS]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * C::BM;
-
-  // B stage `step`: operand rows n0 .. n0+127, K bytes kc*128 .. +127;
-  // 8 vectors of 16 bytes a row, 4 a thread
-  auto load_b = [&](int step) {
-    const int n0 = step / L::KCH * BN, kc = step % L::KCH;
-    uint8_t* dst = Bs + (step % STAGES) * BN * B_ROW;
-    for (int v = tid; v < BN * 8; v += THREADS) {
-      const int r = v >> 3, c = v & 7;
-      cp_async16(dst + r * B_ROW + c * 16,
-                 op + (size_t)(n0 + r) * PK * C::ESIZE + kc * 128 + c * 16);
+__device__ __forceinline__ void build_a(uint8_t* A, float* scales,
+                                        const float* __restrict__ x,
+                                        int row0, int rows, int tile_rows,
+                                        int k0, int warp, int lane) {
+  constexpr int J = Layout<V>::KC / 128, FR = 2;  // float4s a lane
+  for (int m0 = warp; m0 < BM; m0 += 8 * FR) {
+    float4 v[FR][J];
+#pragma unroll
+    for (int f = 0; f < FR; ++f) {
+      const int row = row0 + m0 + 8 * f;
+      const bool in = m0 + 8 * f < tile_rows && row < rows;
+      const float4* xr =
+          reinterpret_cast<const float4*>(x + (size_t)row * PK + k0);
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        v[f][j] = in ? __ldg(xr + j * 32 + lane)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    cp_async_commit();
-  };
-  load_b(0);
-
-  // A: a warp per row; lane l holds float4 j*32 + l (columns 4(32j + l) ..
-  // +3), j < 8, so step j of the loop is exactly 128-column group j
-  for (int r = warp; r < C::BM; r += THREADS / 32) {
-    const int row = m0 + r;
-    float4 v[GROUPS];
-    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * PK);
 #pragma unroll
-    for (int j = 0; j < GROUPS; ++j)
-      v[j] = row < rows ? xr[j * 32 + lane] : make_float4(0.f, 0.f, 0.f, 0.f);
-    uint8_t* arow = As + r * L::A_ROW;
-    if constexpr (V == BF16) {
+    for (int f = 0; f < FR; ++f) {
+      const int r = m0 + 8 * f;
+      uint8_t* arow = A + r * 128;
+      if constexpr (V == BF16) {
 #pragma unroll
-      for (int j = 0; j < GROUPS; ++j)
-        *reinterpret_cast<uint2*>(arow + (j * 32 + lane) * 8) = make_uint2(
-            pack_bf16(v[j].x, v[j].y), pack_bf16(v[j].z, v[j].w));
-    } else if constexpr (V == INT8) {
-      float m = 0.f;
-#pragma unroll
-      for (int j = 0; j < GROUPS; ++j) m = fmaxf(m, abs_max4(v[j]));
-      const float s = __fadd_rn(warp_max(m), 1e-12f);
-      const float inv = __fdiv_rn(127.f, s);
-#pragma unroll
-      for (int j = 0; j < GROUPS; ++j)
-        *reinterpret_cast<uint32_t*>(arow + (j * 32 + lane) * 4) =
-            quant4(v[j], inv);
-      if (lane == 0) scales[r * GROUPS] = s;
-    } else {
-#pragma unroll
-      for (int j = 0; j < GROUPS; ++j) {
-        const float s = __fadd_rn(warp_max(abs_max4(v[j])), 1e-12f);
-        *reinterpret_cast<uint32_t*>(arow + (j * 32 + lane) * 4) =
-            quant4(v[j], __fdiv_rn(127.f, s));
-        if (lane == 0) scales[r * GROUPS + j] = s;
-      }
-    }
-  }
-
-  const int wm = warp % C::WM, wn = warp / C::WM;
-  const int g = lane >> 2, t = lane & 3;
-  Acc acc[L::MT][L::NT][4];
-  float tot[L::MT][L::NT][4];  // BF16's total; INT8G's group sum
-#pragma unroll
-  for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0, tot[i][j][e] = 0.f;
-
-  for (int step = 0; step < L::STEPS; ++step) {
-    if (step + 1 < L::STEPS) {
-      load_b(step + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // the stage (and, at step 0, the A tile) is in place
-    const int kc = step % L::KCH;
-    const uint8_t* bst = Bs + (step % STAGES) * BN * B_ROW;
-    // 32 bytes of K a product: k16 of bf16, k32 of s8
-#pragma unroll
-    for (int kb = 0; kb < 128; kb += 32) {
-      uint32_t a[L::MT][4], b[L::NT][2];
-#pragma unroll
-      for (int i = 0; i < L::MT; ++i) {
-        const uint8_t* r0 =
-            As + (wm * (C::BM / C::WM) + i * 16 + g) * L::A_ROW + kc * 128 +
-            kb + 4 * t;
-        const uint8_t* r1 = r0 + 8 * L::A_ROW;
-        a[i][0] = lds32(r0);
-        a[i][1] = lds32(r1);
-        a[i][2] = lds32(r0 + 16);
-        a[i][3] = lds32(r1 + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j) {
-        const uint8_t* p =
-            bst + (wn * (BN / L::WN) + j * 8 + g) * B_ROW + kb + 4 * t;
-        b[j][0] = lds32(p);
-        b[j][1] = lds32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-        for (int j = 0; j < L::NT; ++j) mma(acc[i][j], a[i], b[j]);
-    }
-    // a stage's epilogue: BF16 flushes into its total, INT8G closes its
-    // group (a stage of 128 K is one group)
-    if constexpr (V != INT8) {
-#pragma unroll
-      for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rl = wm * (C::BM / C::WM) + i * 16 + g + 8 * h;
-          const float sg = V == INT8G ? scales[rl * GROUPS + kc] : 0.f;
-#pragma unroll
-          for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-            for (int e = 2 * h; e < 2 * h + 2; ++e) {
-              float term;
-              if constexpr (V == BF16) {
-                term = acc[i][j][e];
-              } else {
-                term = __fmul_rn(__int2float_rn(acc[i][j][e]), sg);
-              }
-              tot[i][j][e] = __fadd_rn(tot[i][j][e], term);
-              acc[i][j][e] = 0;
-            }
+        for (int j = 0; j < J; ++j) {
+          const int q = 32 * j + lane;  // float4 q: K tile q / 16
+          const int c = (q & 15) >> 1;  // its 16-byte chunk, half q % 2
+          *reinterpret_cast<uint2*>(arow + (q >> 4) * BM * 128 +
+                                    ((c ^ (r & 7)) << 4) + (q & 1) * 8) =
+              make_uint2(pack_bf16(v[f][j].x, v[f][j].y),
+                         pack_bf16(v[f][j].z, v[f][j].w));
         }
-    }
-    if (kc == L::KCH - 1) {  // the column tile is complete
-      const int n0 = step / L::KCH * BN;
+      } else {
+        float inv[J];
+        if constexpr (V == INT8) {
+          float m = 0.f;
 #pragma unroll
-      for (int i = 0; i < L::MT; ++i)
+          for (int j = 0; j < J; ++j) m = fmaxf(m, abs_max4(v[f][j]));
+          const float s = __fadd_rn(warp_max(m), 1e-12f);
+          const float i = __fdiv_rn(127.f, s);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rl = wm * (C::BM / C::WM) + i * 16 + g + 8 * h;
-          const float sr = V == INT8 ? __fmul_rn(scales[rl * GROUPS], rescale)
-                                     : 0.f;
+          for (int j = 0; j < J; ++j) inv[j] = i;
+          if (lane == 0) scales[r * GROUPS] = s;
+        } else {
 #pragma unroll
-          for (int j = 0; j < L::NT; ++j) {
-            float o[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int k = 2 * h + e;
-              if constexpr (V == BF16) {
-                o[e] = tot[i][j][k];
-              } else if constexpr (V == INT8) {
-                o[e] = __fmul_rn(__int2float_rn(acc[i][j][k]), sr);
-              } else {
-                o[e] = __fmul_rn(tot[i][j][k], rescale);
-              }
-              acc[i][j][k] = 0;
-              tot[i][j][k] = 0.f;
-            }
-            if (m0 + rl < rows)
-              *reinterpret_cast<float2*>(
-                  out + (size_t)(m0 + rl) * PK + n0 + wn * (BN / L::WN) +
-                  j * 8 + 2 * t) = make_float2(o[0], o[1]);
+          for (int j = 0; j < J; ++j) {
+            const float s = __fadd_rn(warp_max(abs_max4(v[f][j])), 1e-12f);
+            inv[j] = __fdiv_rn(127.f, s);
+            if (lane == 0) scales[r * GROUPS + j] = s;
           }
         }
+#pragma unroll
+        for (int j = 0; j < J; ++j)  // K tile j, chunk lane / 4
+          *reinterpret_cast<uint32_t*>(arow + j * BM * 128 +
+                                       (((lane >> 2) ^ (r & 7)) << 4) +
+                                       (lane & 3) * 4) = quant4(v[f][j],
+                                                                inv[j]);
+      }
     }
-    __syncthreads();  // the stage is refilled two steps on
   }
+}
+
+// One CTA (int8) or one of the two CTAs of a cluster (bf16, rank r taking
+// K columns [r KC, (r+1) KC)). CTA or cluster g of G takes items [g I / G,
+// (g+1) I / G) of the I of (row tile of `tile_rows` <= BM rows, IC-column
+// chunk); rows past `rows` read as zeros and are not written.
+template <int V>
+__global__ void __launch_bounds__(THREADS, 1) probe_kernel(
+    const __grid_constant__ CUtensorMap tmap, const float* __restrict__ x,
+    float* __restrict__ out, int rows, int tile_rows, float rescale) {
+  using L = Layout<V>;
+  constexpr int STAGES = L::STAGES, KSPLIT = L::KSPLIT;
+  using Acc = typename std::conditional<V == BF16, float, int>::type;
+
+  extern __shared__ uint8_t raw_smem[];
+  const uint32_t raw = hopper::smem_addr(raw_smem);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = raw_smem + pad;
+  const uint32_t sA = raw + pad;
+  const uint32_t ring = sA + A_BYTES;
+  const uint32_t bars = ring + STAGES * STAGE_BYTES;
+  float* scales = reinterpret_cast<float*>(smem + (bars - sA) + L::BAR_BYTES);
+  float* landing = scales + L::SCALE_FLOATS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t landed = bars + 16 * STAGES, freed = landed + 8;
+
+  const int tid = threadIdx.x;
+  const uint32_t rank = KSPLIT > 1 ? hopper::cluster_rank() : 0;
+  const int g = blockIdx.x / KSPLIT, groups = gridDim.x / KSPLIT;
+  const int items_all = (rows + tile_rows - 1) / tile_rows * L::CHUNKS;
+  const int begin = (int)((long long)g * items_all / groups);
+  const int items = (int)((long long)(g + 1) * items_all / groups) - begin;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    hopper::mbar_init(landed, 128);  // the other CTA's sending warpgroup
+    hopper::mbar_init(freed, 128);   // the other CTA's receiving one
+    hopper::fence_barrier_init();
+  }
+  hopper::cluster_sync();  // every barrier of the cluster is initialised
+
+  if (tid == 256) {  // the producer: this CTA's K columns of each item
+    hopper::prefetch_tmap(&tmap);
+    int it = 0;
+    for (int i = 0; i < items; ++i) {
+      const int chunk = (begin + i) % L::CHUNKS;
+      for (int kt = 0; kt < L::KTS; ++kt, ++it) {
+        const int s = it % STAGES, use = it / STAGES;
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);
+        hopper::mbar_expect_tx(full(s), STAGE_BYTES);
+        hopper::tma_load_2d(ring + s * STAGE_BYTES, &tmap, full(s),
+                            rank * L::KC + kt * L::KT_ELEMS, chunk * IC);
+      }
+    }
+  } else if (tid < 256) {  // the consumers
+    const int wg = tid >> 7, t = tid & 127;
+    const uint32_t a_base = sA + 64 * wg * 128;  // this warpgroup's rows
+    const int r0 = 16 * (t >> 5) + ((t & 31) >> 2);  // + 8h: rows
+    const int c0 = 2 * (t & 3);                      // + 8j + c: columns
+    // bf16: warpgroup `rank` keeps its rows, adding the other CTA's
+    // partial sums; the other warpgroup sends its own to that CTA, thread
+    // t's element e at landing[128 e + t]
+    const bool sends = KSPLIT > 1 && wg != (int)rank;
+    const uint32_t peer_landing =
+        KSPLIT > 1 ? hopper::map_cta(hopper::smem_addr(landing), rank ^ 1)
+                   : 0;
+
+    // K tile kt of stage s into acc (scale_d = 0 on its first step if
+    // fresh)
+    auto mma_step = [&](Acc(&acc)[64], int s, int kt, bool fresh) {
+      const uint32_t a = a_base + kt * BM * 128;
+      const uint32_t b = ring + s * STAGE_BYTES;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma(acc, hopper::sw128_desc(a + 32 * kk),
+                      hopper::sw128_desc(b + 32 * kk),
+                      fresh && kk == 0 ? 0 : 1);
+      hopper::wgmma_commit();
+      hopper::fence_regs(acc);
+    };
+    auto release = [&](int it) {
+      if (t == 0) hopper::mbar_arrive(empty(it % STAGES));
+    };
+
+    int it = 0;
+    for (int i = 0; i < items; ++i) {
+      const int row0 = (begin + i) / L::CHUNKS * tile_rows;
+      const int chunk = (begin + i) % L::CHUNKS;
+      // a new tile: both warpgroups' products are done with A
+      if (i == 0 || chunk == 0) {
+        hopper::named_sync(1, 256);
+        build_a<V>(smem, scales, x, row0, rows, tile_rows, rank * L::KC,
+                   tid >> 5, tid & 31);
+        hopper::fence_proxy_async();
+        hopper::named_sync(1, 256);
+      }
+      float z[64];
+      Acc acc[64];
+      if constexpr (V == INT8) {  // one integer sum over all of K
+        for (int kt = 0; kt < L::KTS; ++kt, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(full(s), (it / STAGES) & 1);
+          mma_step(acc, s, kt, kt == 0);
+          hopper::wgmma_wait<1>();  // the previous K tile's products are done
+          hopper::fence_regs(acc);
+          if (kt > 0) release(it - 1);
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        release(it - 1);
+        const float s0 =
+            __fmul_rn(scales[(64 * wg + r0) * GROUPS], rescale);
+        const float s1 =
+            __fmul_rn(scales[(64 * wg + r0 + 8) * GROUPS], rescale);
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          z[e] = __fmul_rn(__int2float_rn(acc[e]), e & 2 ? s1 : s0);
+      } else {  // a fresh sum a K tile (BF16) or group (INT8G), in order
+        for (int kt = 0; kt < L::KTS; ++kt, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(full(s), (it / STAGES) & 1);
+          mma_step(acc, s, kt, true);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
+          release(it);
+          float g0 = 0.f, g1 = 0.f;
+          if constexpr (V == INT8G) {
+            g0 = scales[(64 * wg + r0) * GROUPS + kt];
+            g1 = scales[(64 * wg + r0 + 8) * GROUPS + kt];
+          }
+#pragma unroll
+          for (int e = 0; e < 64; ++e) {
+            float term;
+            if constexpr (V == BF16)
+              term = acc[e];
+            else
+              term = __fmul_rn(__int2float_rn(acc[e]), e & 2 ? g1 : g0);
+            z[e] = kt == 0 ? term : __fadd_rn(z[e], term);
+          }
+        }
+        if constexpr (V == INT8G) {
+#pragma unroll
+          for (int e = 0; e < 64; ++e) z[e] = __fmul_rn(z[e], rescale);
+        }
+      }
+      if constexpr (KSPLIT > 1) {
+        if (sends) {
+          if (i > 0) hopper::mbar_wait_cluster(freed, (i - 1) & 1);
+#pragma unroll
+          for (int e = 0; e < 64; ++e)
+            hopper::st_cluster(peer_landing + 4 * (128 * e + t), z[e]);
+          hopper::mbar_arrive_cluster(landed, rank ^ 1);
+          continue;
+        }
+        hopper::mbar_wait_cluster(landed, i & 1);
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          z[e] = __fadd_rn(z[e], landing[128 * e + t]);
+        hopper::mbar_arrive_cluster(freed, rank ^ 1);
+      }
+      // thread t holds rows r0 + 8h and columns 8j + c0 + c of its
+      // warpgroup's 64 x 128 tile in z[4j + 2h + c]
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * wg + r0 + 8 * h, row = row0 + r;
+        if (r >= tile_rows || row >= rows) continue;
+        float* o = out + (size_t)row * PK + chunk * IC;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(o + 8 * j + c0) =
+              make_float2(z[4 * j + 2 * h], z[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  // no CTA leaves while its peer may still write to its shared memory or
+  // arrive on its barriers
+  hopper::cluster_sync();
 }
 
 template <int V>
 int launch(const float* x, const void* op, float* out, int rows,
            float rescale, cudaStream_t st) {
+  using L = Layout<V>;
+  CUtensorMap map;
+  int rc = hopper::operand_map(&map, op, V == BF16, PK, PK, IC);
+  if (rc) return rc;
   auto kernel = probe_kernel<V>;
-  static std::atomic<uint64_t> shared_set{0};  // bit d: device d is set
+  static std::atomic<uint64_t> shared_set{0};
+  rc = hopper::allow_shared(kernel, shared_set);
+  if (rc) return rc;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = L::KSPLIT;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // the clusters the card holds at once, asked once per device
+  static std::atomic<int> most_of[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (!(shared_set.load() & bit)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Layout<V>::SMEM);
+  int most = dev < 64 ? most_of[dev].load() : 0;
+  if (most <= 0) {
+    cfg.gridDim = dim3(L::KSPLIT);
+    e = cudaOccupancyMaxActiveClusters(&most, kernel, &cfg);
     if (e != cudaSuccess) return (int)e;
-    shared_set |= bit;
+    if (most <= 0) return (int)cudaErrorInvalidConfiguration;
+    if (dev < 64) most_of[dev] = most;
   }
-  const unsigned grid = (unsigned)((rows + Cfg<V>::BM - 1) / Cfg<V>::BM);
-  kernel<<<grid, THREADS, Layout<V>::SMEM, st>>>(
-      x, static_cast<const uint8_t*>(op), out, rows, rescale);
-  return 0;
+  // row tiles: int8, whole ones for each group (CTA), `per` of them,
+  // rows / (groups x per) rows each; bf16, 128 rows
+  int groups = rows < most ? rows : most;
+  int tile_rows = BM;
+  if (V != BF16) {
+    const int per = ((rows + BM - 1) / BM + groups - 1) / groups;
+    tile_rows = (rows + groups * per - 1) / (groups * per);
+  }
+  const int items = (rows + tile_rows - 1) / tile_rows * L::CHUNKS;
+  groups = groups < items ? groups : items;
+  cfg.gridDim = dim3(L::KSPLIT * groups);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, map, x, out, rows, tile_rows,
+                                 rescale);
 }
 
 }  // namespace
@@ -369,7 +468,7 @@ int acx_probe_gemm(const void* x, const void* op, void* out, int rows,
   return rc ? rc : (int)cudaGetLastError();
 }
 
-// The dynamic shared memory of a variant's block, in bytes.
+// The dynamic shared memory of a variant's CTA, in bytes.
 int acx_probe_shared_bytes(int variant) {
   switch (variant) {
     case BF16: return (int)Layout<BF16>::SMEM;

@@ -185,13 +185,14 @@ class MDCT(nn.Module):
 
     def build_kernel_residents(self) -> None:
         """(Re)build what the kernels derive from the forward residents.
-        The operand forms of the mono matrices (``kernel_op_{fwd,inv}``:
+        The operand forms of the matrices (``kernel_op_{fwd,inv}``: mono,
         ``cuda_mdct.analysis_operand`` / ``synthesis_operand`` of the matrix
-        or its int8 codes, bf16 planes at ``highest``/``high``). The VJP
-        residents of the directions on a kernel (``cuda_mdct``'s
-        remappings, exact): the weights ``vjp_weights_*`` [4, N/2] and the
-        rotation ``vjp_rot_*`` in the kernel dtype, the matrix ``vjp_mat_*``
-        in float32, dequantized at int8, and its operand form
+        or its int8 codes, bf16 planes at ``highest``/``high``; radix,
+        ``cuda_mdct.radix_operand`` of the two factors). The VJP residents
+        of the directions on a kernel (``cuda_mdct``'s remappings, exact):
+        the weights ``vjp_weights_*`` [4, N/2] and the rotation
+        ``vjp_rot_*`` in the kernel dtype, the matrix (or factors)
+        ``vjp_mat_*`` in float32, dequantized at int8, and its operand form
         ``vjp_op_*``. Call it after replacing a forward resident."""
         radix = self.kernel_design == "radix"
         tier = self.kernel_precision
@@ -200,7 +201,10 @@ class MDCT(nn.Module):
                              ("inv", self.kernel_inv,
                               _kernels.synthesis_operand)):
             op = None
-            if on and not radix:
+            if on and radix:
+                op = _kernels.radix_operand(getattr(self, f"radix_mat_{d}"),
+                                            tier)
+            elif on:
                 mat = getattr(self, f"kernel_q_{d}" if tier == "int8"
                               else f"dct_mat_{d}")
                 op = build(mat, tier)
@@ -218,6 +222,7 @@ class MDCT(nn.Module):
                                 else _kernels.radix_unfold_vjp_residents)(
                         getattr(self, f"radix_rot_{d}"),
                         getattr(self, f"radix_mat_{d}"))
+                    op = _kernels.radix_operand(mat, self.vjp_precision)
                 else:
                     mat = getattr(self, f"dct_mat_{d}")
                     if self.dct_precision == "int8":
@@ -264,9 +269,9 @@ class MDCT(nn.Module):
 
     def kernel_args(self, direction: str) -> tuple:
         """The arguments after the signal of :meth:`kernel`: fold weights in
-        the kernel dtype, then the matrix, tier, int8 rescale and the
-        matrix's operand form (mono) or the rotation, the two factors and
-        the tier (radix)."""
+        the kernel dtype, then the matrix, tier, int8 rescale (mono) or the
+        rotation, the two factors and the tier (radix), and last the
+        operand form the kernel reads."""
         fwd = direction == "forward"
         names = _FOLD_WEIGHTS if fwd else _UNFOLD_WEIGHTS
         weights = tuple(getattr(self, n).to(self.kernel_dtype) for n in names)
@@ -276,6 +281,7 @@ class MDCT(nn.Module):
                 self.radix_rot_fwd if fwd else self.radix_rot_inv,
                 self.radix_mat_fwd if fwd else self.radix_mat_inv,
                 self.kernel_precision,
+                self.kernel_op_fwd if fwd else self.kernel_op_inv,
             )
         int8 = self.kernel_precision == "int8"
         if int8:
@@ -303,9 +309,9 @@ class MDCT(nn.Module):
         d = "fwd" if direction == "forward" else "inv"
         mono = self.kernel_design == "mono"
         rot = () if mono else (getattr(self, f"vjp_rot_{d}"),)
-        op = (getattr(self, f"vjp_op_{d}"),) if mono else ()
         return (*getattr(self, f"vjp_weights_{d}").unbind(),
-                *rot, getattr(self, f"vjp_mat_{d}"), self.vjp_precision, *op)
+                *rot, getattr(self, f"vjp_mat_{d}"), self.vjp_precision,
+                getattr(self, f"vjp_op_{d}"))
 
     def _run_kernel(self, direction: str, rows: torch.Tensor):
         """rows [B*C, T, N] through the direction's autograd Function."""

@@ -23,8 +23,12 @@ kernel's RNE rounding of the float32 matrix) at ``default``, as the int8
 codes at ``int8``, the synthesis's output columns there in pair order
 (:func:`pair_permutation`); and at the split tiers ``highest``/``high`` as
 three bf16 planes [3, N_out, K] (:func:`split_planes`), whose products the
-kernels sum in six passes. The wrappers take it as their last argument;
-the plain versions take and ignore it.
+kernels sum in six passes. The radix kernels run their two [N/2, N/2]
+products on the same split GEMM, and read the factors as
+:func:`radix_operand` [2, P, N/2, N/2] (P = ``RADIX_PLANES[precision]``:
+three planes at the split tiers, one, the bf16 rounding, at ``default``).
+The wrappers take the operand form as their last argument; the plain
+versions take and ignore it.
 
 Each kernel has a ``torch.autograd.Function`` (:data:`FUNCTIONS`) whose
 backward is its VJP wrapper (``*_vjp``, replacing ``pallas_mdct.py``
@@ -50,6 +54,9 @@ PAIR_BLOCK = 64  # synthesis operand columns that close over their outputs
 # three planes. `high` runs six too (csrc/mdct_kernels.cu HIGH_PASSES:
 # three passes on two planes miss 1e-5 of the peak on the synthesis)
 SPLIT_PLANES = {"highest": 3, "high": 3}
+# bf16 planes of each radix factor (and of its A): the split tiers', and one
+# pass on one plane at `default`
+RADIX_PLANES = {**SPLIT_PLANES, "default": 1}
 SPLIT_ROWS = 128  # A rows of a split_gemm_kernel block (csrc SPLIT_BM)
 _TIERS = {"highest": 0, "default": 1, "int8": 2, "high": 3}
 _RADIX_TIERS = {t: v for t, v in _TIERS.items() if t != "int8"}
@@ -115,6 +122,15 @@ def synthesis_operand(mat: torch.Tensor, precision: str):
                     pair_permutation(mat.shape[1]) if pairs else None)
 
 
+def radix_operand(mats: torch.Tensor, precision: str) -> torch.Tensor:
+    """The radix kernels' form of the two factors ``mats`` [2, M, M]
+    (float32): each factor transposed to [M_out, K] (K contiguous) as
+    :func:`split_planes`, [2, P, M, M] bf16 with P =
+    ``RADIX_PLANES[precision]``."""
+    planes = RADIX_PLANES[precision]
+    return torch.stack([split_planes(m.T, planes) for m in mats]).contiguous()
+
+
 def tier_matmul(u, mat, precision, mat_scale, grouped):
     """u [..., K] @ mat [K, M] at the kernel's tier; float32 out."""
     if precision != "int8":
@@ -154,10 +170,10 @@ def matmul_scatter_reference(y, p, q, r, s_r, mat, precision="highest",
 
 
 def radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
-                                precision="highest"):
+                                precision="highest", operand=None):
     """Plain version of :func:`radix_fold_matmul`: the fold and the
     rotation in x's dtype, the two products at the tier and the butterfly
-    in float32; out in x's dtype."""
+    in float32; out in x's dtype. ``operand`` is not read."""
     _check_tier(precision, _RADIX_TIERS)
     h = x.shape[-1] // 2
     rt = _radix.rotate(_folding.fold(x, wa_r, wb, wc, ffr), rot)
@@ -167,11 +183,11 @@ def radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
 
 
 def radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
-                                   precision="highest"):
+                                   precision="highest", operand=None):
     """Plain version of :func:`radix_matmul_scatter`: the transposed
     butterfly in y's dtype, the two products at the tier and the transposed
     rotation in float32, rounded to y's dtype, then the overlap scatter in
-    y's dtype."""
+    y's dtype. ``operand`` is not read."""
     _check_tier(precision, _RADIX_TIERS)
     us, vs = _radix.butterfly_t(y)
     rs = _dct.matmul(us, mats[0], precision)
@@ -246,18 +262,23 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_operand(x, operand, precision):
+def _check_operand(x, operand, precision, radix=False):
     """The matrix's operand form, as the mono kernels take it
-    (:func:`analysis_operand`, :func:`synthesis_operand`); the split tiers
-    take float32 input only (bfloat16 operands admit one pass)."""
+    (:func:`analysis_operand`, :func:`synthesis_operand`) or the radix ones
+    (:func:`radix_operand`); the split tiers take float32 input only
+    (bfloat16 operands admit one pass)."""
     n = x.shape[-1]
     if precision in SPLIT_PLANES and x.dtype != torch.float32:
         raise TypeError(f"the {precision!r} tier's kernels take float32 "
                         f"input, got {x.dtype} (bfloat16 runs 'default')")
     want = torch.int8 if precision == "int8" else torch.bfloat16
-    shape = (n, n)
-    if precision in SPLIT_PLANES:
-        shape = (SPLIT_PLANES[precision], n, n)
+    if radix:
+        shape = (2, RADIX_PLANES[precision], n // 2, n // 2)
+        builder = "radix_operand"
+    else:
+        shape, builder = (n, n), "analysis_operand / synthesis_operand"
+        if precision in SPLIT_PLANES:
+            shape = (SPLIT_PLANES[precision], n, n)
     if (operand is None or operand.shape != shape or operand.dtype != want
             or operand.device != x.device or not operand.is_contiguous()
             or operand.data_ptr() % 16):
@@ -265,20 +286,19 @@ def _check_operand(x, operand, precision):
                                             operand.dtype)
         raise ValueError(f"the {precision!r} tier takes the matrix's "
                          f"operand form, a contiguous {list(shape)} {want} "
-                         f"on {x.device} (cuda_mdct.analysis_operand / "
-                         f"synthesis_operand), got {got}")
+                         f"on {x.device} (cuda_mdct.{builder}), got {got}")
     _check_grad(x, (operand,))
 
 
-def _split_scratch(x, a_rows, precision):
-    """The split tiers' A planes [P, a_rows rounded up to SPLIT_ROWS, N]
-    (bf16, written by the kernels' split pass); None at the one-pass
-    tiers."""
-    if precision not in SPLIT_PLANES:
+def _split_scratch(x, a_rows, planes):
+    """The split GEMM's A planes [planes, a_rows rounded up to SPLIT_ROWS,
+    N] (bf16, written by the kernels' pass before the GEMM); None without
+    planes (the mono one-pass tiers)."""
+    if not planes:
         return None
     m_pad = -(-a_rows // SPLIT_ROWS) * SPLIT_ROWS
-    return torch.empty(SPLIT_PLANES[precision], m_pad, x.shape[-1],
-                       dtype=torch.bfloat16, device=x.device)
+    return torch.empty(planes, m_pad, x.shape[-1], dtype=torch.bfloat16,
+                       device=x.device)
 
 
 def _ptr(t):
@@ -294,7 +314,7 @@ def _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision, mat_scale,
 
     rows, t, n = x.shape
     out = torch.empty(rows, t + 1, n, dtype=x.dtype, device=x.device)
-    planes = _split_scratch(x, rows * (t + 1), precision)
+    planes = _split_scratch(x, rows * (t + 1), SPLIT_PLANES.get(precision))
     rc = _build.library().acx_fold_matmul(
         x.data_ptr(), *(w.data_ptr() for w in weights), operand.data_ptr(),
         _ptr(planes), out.data_ptr(), rows, t, n, _DTYPES[x.dtype],
@@ -332,7 +352,7 @@ def _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale,
     out = torch.empty(rows, t + 1, n, dtype=y.dtype, device=y.device)
     # the split tiers' product goes through z (float32); the one-pass tiers
     # scatter in the kernel's epilogue
-    planes = _split_scratch(y, rows * t, precision)
+    planes = _split_scratch(y, rows * t, SPLIT_PLANES.get(precision))
     z = None if planes is None else torch.empty(rows, t, n, dtype=y.dtype,
                                                 device=y.device)
     rc = _build.library().acx_matmul_scatter(
@@ -362,7 +382,7 @@ def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0,
     return out
 
 
-def _check_radix(x, weights, rot, mats, precision):
+def _check_radix(x, weights, rot, mats, precision, operand):
     n = x.shape[-1]
     _check(x, weights, mats, precision, mat_shape=(2, n // 2, n // 2),
            tiers=_RADIX_TIERS)
@@ -371,72 +391,70 @@ def _check_radix(x, weights, rot, mats, precision):
         raise ValueError(f"rotation must be a contiguous [2, {n}] {x.dtype} "
                          f"on {x.device}, got {tuple(rot.shape)} {rot.dtype}")
     _check_grad(x, (rot,))
+    _check_operand(x, operand, precision, radix=True)
 
 
-def _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision):
-    weights = (wa_r, wb, wc, ffr)
-    _check_radix(x, weights, rot, mats, precision)
+def _launch_radix(entry, x, weights, rot, mats, precision, operand, frames):
+    """One radix direction: ``entry`` of the library on x [rows, T, N], its
+    split GEMM's A planes over ``frames`` frames a row, the float products
+    [rows, frames, N] and the output [rows, T+1, N]."""
+    _check_radix(x, weights, rot, mats, precision, operand)
     from audiocodec_tpu_torch.ops import _build
 
     rows, t, n = x.shape
     out = torch.empty(rows, t + 1, n, dtype=x.dtype, device=x.device)
-    rt = torch.empty_like(out)
-    uv = torch.empty(rows, t + 1, n, dtype=torch.float32, device=x.device)
-    rc = _build.library().acx_radix_fold_matmul(
+    planes = _split_scratch(x, rows * frames, RADIX_PLANES[precision])
+    prod = torch.empty(rows, frames, n, dtype=torch.float32, device=x.device)
+    rc = getattr(_build.library(), entry)(
         x.data_ptr(), *(w.data_ptr() for w in weights), rot.data_ptr(),
-        mats.data_ptr(), rt.data_ptr(), uv.data_ptr(), out.data_ptr(), rows,
-        t, n, _DTYPES[x.dtype], _TIERS[precision], _stream(x),
+        operand.data_ptr(), planes.data_ptr(), prod.data_ptr(),
+        out.data_ptr(), rows, t, n, _DTYPES[x.dtype], _TIERS[precision],
+        _stream(x),
     )
     if rc:
-        raise RuntimeError(
-            f"radix_fold_matmul kernel launch failed: CUDA error {rc}"
-        )
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return out
 
 
-def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest"):
+def _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision,
+                              operand=None):
+    return _launch_radix("acx_radix_fold_matmul", x, (wa_r, wb, wc, ffr),
+                         rot, mats, precision, operand, x.shape[1] + 1)
+
+
+def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest",
+                      operand=None):
     """Radix analysis, [rows, T, N] -> [rows, T+1, N] in standard order:
     the fold, the rotation ``rot`` [2, N] (x's dtype), the two [M, M]
-    products ``mats`` [2, M, M] (float32) and the butterfly."""
+    products ``mats`` [2, M, M] (float32) and the butterfly. The kernel
+    reads ``operand``, :func:`radix_operand` of ``mats``."""
     if x.device.type == "cpu":
         return radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
                                            precision)
     out = _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats,
-                                    precision)
+                                    precision, operand)
     radix_fold_matmul.launches += 1
     return out
 
 
-def _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision):
-    weights = (p, q, r, s_r)
-    _check_radix(y, weights, rot, mats, precision)
-    from audiocodec_tpu_torch.ops import _build
-
-    rows, t, n = y.shape
-    out = torch.empty(rows, t + 1, n, dtype=y.dtype, device=y.device)
-    usvs = torch.empty_like(y)
-    rsts = torch.empty(rows, t, n, dtype=torch.float32, device=y.device)
-    rc = _build.library().acx_radix_matmul_scatter(
-        y.data_ptr(), *(w.data_ptr() for w in weights), rot.data_ptr(),
-        mats.data_ptr(), usvs.data_ptr(), rsts.data_ptr(), out.data_ptr(),
-        rows, t, n, _DTYPES[y.dtype], _TIERS[precision], _stream(y),
-    )
-    if rc:
-        raise RuntimeError(
-            f"radix_matmul_scatter kernel launch failed: CUDA error {rc}"
-        )
-    return out
+def _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision,
+                                 operand=None):
+    return _launch_radix("acx_radix_matmul_scatter", y, (p, q, r, s_r), rot,
+                         mats, precision, operand, y.shape[1])
 
 
-def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest"):
+def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest",
+                         operand=None):
     """Radix synthesis, [rows, T, N] in standard order -> [rows, T+1, N]:
     the transposed butterfly, the two [M, M] products ``mats`` [2, M, M]
     (float32), the transposed rotation ``rot`` [2, N] (y's dtype) and the
-    overlap scatter."""
+    overlap scatter. The kernel reads ``operand``, :func:`radix_operand` of
+    ``mats``."""
     if y.device.type == "cpu":
         return radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
                                               precision)
-    out = _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision)
+    out = _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision,
+                                       operand)
     radix_matmul_scatter.launches += 1
     return out
 
@@ -581,42 +599,45 @@ def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
 
 
 def radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
-                                    precision="highest"):
+                                    precision="highest", operand=None):
     """Plain version of :func:`radix_fold_matmul_vjp`."""
     return _vjp(g, radix_matmul_scatter_reference,
                 (p, q, r, s_r, rot, mats, precision), True)
 
 
-def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest"):
+def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest",
+                          operand=None):
     """The VJP of :func:`radix_fold_matmul` through the radix synthesis
     kernel, with the residents of :func:`fold_vjp_weights` and
-    :func:`radix_fold_vjp_residents`."""
+    :func:`radix_fold_vjp_residents` and those factors'
+    :func:`radix_operand`."""
     if g.device.type == "cpu":
         return radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
                                                precision)
     out = _vjp(g, _launch_radix_matmul_scatter,
-               (p, q, r, s_r, rot, mats, precision), True)
+               (p, q, r, s_r, rot, mats, precision, operand), True)
     radix_fold_matmul_vjp.launches += 1
     return out
 
 
 def radix_matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, rot, mats,
-                                       precision="highest"):
+                                       precision="highest", operand=None):
     """Plain version of :func:`radix_matmul_scatter_vjp`."""
     return _vjp(g, radix_fold_matmul_reference,
                 (wa_r, wb, wc, ffr, rot, mats, precision), False)
 
 
 def radix_matmul_scatter_vjp(g, wa_r, wb, wc, ffr, rot, mats,
-                             precision="highest"):
+                             precision="highest", operand=None):
     """The VJP of :func:`radix_matmul_scatter` through the radix analysis
     kernel, with the residents of :func:`unfold_vjp_weights` and
-    :func:`radix_unfold_vjp_residents`."""
+    :func:`radix_unfold_vjp_residents` and those factors'
+    :func:`radix_operand`."""
     if g.device.type == "cpu":
         return radix_matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, rot,
                                                   mats, precision)
     out = _vjp(g, _launch_radix_fold_matmul,
-               (wa_r, wb, wc, ffr, rot, mats, precision), False)
+               (wa_r, wb, wc, ffr, rot, mats, precision, operand), False)
     radix_matmul_scatter_vjp.launches += 1
     return out
 

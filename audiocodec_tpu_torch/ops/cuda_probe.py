@@ -11,7 +11,11 @@ has the kernel's exact numerics at the int8 tiers (the integer sums are a
 float64 matmul) and float32 sums of bf16 operands at ``bf16``.
 
 The kernels read the matrix in its operand form (:func:`operand`: [N, K], K
-contiguous); the plain versions take and ignore it.
+contiguous) through a TMA map; the plain versions take and ignore it. A CTA
+of a kernel holds ``TILE_ROWS`` rows of x (their share of K when ``KSPLIT``
+CTAs split it) as a 128 KB shared A tile and streams the operand through a
+ring of ``STAGES`` stages of ``TILE_COLUMNS`` operand rows
+(:func:`shared_bytes`).
 """
 
 from __future__ import annotations
@@ -23,9 +27,32 @@ from audiocodec_tpu_torch.ops import cuda_mdct as _cuda_mdct
 from audiocodec_tpu_torch.ops import dct as _dct
 
 N = 1024  # K and N of the probe (csrc/probe_kernels.cu PK)
-# rows a kernel block takes (csrc Cfg<..>::BM): a 128 KB shared A tile
-TILE_ROWS = {"bf16": 64, "int8": 128, "int8_grouped": 128}
+# The kernels' geometry (csrc/probe_kernels.cu BM, IC, Cfg<..>): rows of x
+# a CTA holds (a 128 KB shared A tile), output columns of a work item (a
+# ring stage holds that many operand rows of 128 bytes of K), the ring's
+# stages, and the CTAs of a cluster that split K (bf16: two, each holding
+# its rows' half of K and receiving the other's partial sums of half of
+# the rows)
+TILE_ROWS = {"bf16": 128, "int8": 128, "int8_grouped": 128}
+TILE_COLUMNS = {"bf16": 128, "int8": 128, "int8_grouped": 128}
+STAGES = {"bf16": 4, "int8": 5, "int8_grouped": 5}
+KSPLIT = {"bf16": 2, "int8": 1, "int8_grouped": 1}
 _VARIANTS = {"bf16": 0, "int8": 1, "int8_grouped": 2}
+_ESIZE = {"bf16": 2, "int8": 1, "int8_grouped": 1}
+
+
+def shared_bytes(variant: str) -> int:
+    """The dynamic shared memory of a CTA of ``variant``'s kernel, from the
+    geometry above (csrc Layout<..>::SMEM, which ``acx_probe_shared_bytes``
+    reports): 1024 bytes of alignment, the A tile, the ring, 128 bytes of
+    barriers, the int8 tiers' scales (a row's 8 groups) and, where K is
+    split, the partial sums a warpgroup receives (64 rows)."""
+    rows, cols = TILE_ROWS[variant], TILE_COLUMNS[variant]
+    a = rows * N // KSPLIT[variant] * _ESIZE[variant]
+    ring = STAGES[variant] * cols * 128
+    scales = 0 if variant == "bf16" else 4 * rows * 8
+    landing = 4 * 64 * cols if KSPLIT[variant] > 1 else 0
+    return 1024 + a + ring + 128 + scales + landing
 
 
 def probe_matrices(n: int = N) -> dict:
@@ -70,9 +97,10 @@ def probe_int8_grouped_reference(x, mat, rescale, operand=None):
     return _cuda_mdct.tier_matmul(x, mat, "int8", rescale, grouped=True)
 
 
-def _launch(variant, x, operand, rescale=0.0):
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for a tensor on {x.device}")
+def _check(variant, x, operand):
+    """What the kernels take: x float32 [rows>=1, 1024], the matrix's
+    operand form of the variant, both contiguous, 16-byte aligned and on
+    one device, neither requiring grad."""
     if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] < 1
             or x.shape[1] != N or x.numel() >= 2**31):
         raise ValueError(f"probe kernel input must be float32 [rows>=1, {N}], "
@@ -90,6 +118,12 @@ def _launch(variant, x, operand, rescale=0.0):
                              f"16-byte aligned and on {x.device}")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError("the probe kernels have no backward")
+
+
+def _launch(variant, x, operand, rescale=0.0):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for a tensor on {x.device}")
+    _check(variant, x, operand)
     from audiocodec_tpu_torch.ops import _build
 
     out = torch.empty(x.shape[0], N, dtype=torch.float32, device=x.device)

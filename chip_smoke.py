@@ -7,10 +7,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from audiocodec_tpu_torch/csrc/; each of the
-   eight ``tc_kernel`` instances must hold warpgroup MMA (HGMMA or IGMMA)
-   and TMA load (UTMALDG) instructions in its SASS (cuobjdump), and each
-   ``split_gemm_kernel`` instance (the split tiers) bf16 HGMMA into
-   float32 (``HGMMA.*.F32.BF16``) and UTMALDG;
+   eight ``tc_kernel`` instances and the three ``probe_kernel`` ones
+   (bf16, int8, int8g) must hold warpgroup MMA (HGMMA or IGMMA) and TMA
+   load (UTMALDG) instructions in its SASS (cuobjdump), each
+   ``split_gemm_kernel`` instance (the split tiers and the radix products)
+   bf16 HGMMA into float32 (``HGMMA.*.F32.BF16``) and UTMALDG, and no
+   FFMA or WMMA GEMM (``ffma_gemm_kernel``, ``mma_gemm_kernel``) is left
+   in the library;
 3. hold each kernel against its plain torch version on the card, at the
    main path's shapes and at every tier the path uses, plus ``highest``
    and ``high`` (the int8 tiers bit for bit); the mono kernels also at 5
@@ -75,8 +78,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    which must launch each of its three kernels (bf16, int8, int8g); each
    kernel against its plain version at 14336 rows and at 1, 127 and 1000
    (int8 and int8g bit for bit, bf16 within 1e-5 of the peak), its SNR
-   within 0.05 dB of its plain version's, with ``torch.matmul`` (bf16)
-   and ``torch._int_mm`` (int8) at the same shape as library calls;
+   within 0.05 dB of its plain version's, with ``torch.matmul`` (bf16,
+   on x already in bf16, and after ``x.to(bfloat16)``, the library path
+   from the same float32 x, with the bytes each moves) and
+   ``torch._int_mm`` (int8) at the same shape as library calls, and each
+   kernel's shared memory equal to ``cuda_probe.shared_bytes``;
 15. the discrete RVQ codec at full width in (r): ``SpectralAE(1024, 512,
    64, 1/32)`` + ``RVQ(4, 1024, 64)``. Serving (``encode_discrete``,
    ``pack_codes``, ``unpack_codes``, ``decode_discrete``) launches the
@@ -344,12 +350,14 @@ def ptxas_summary(log):
 # The tensor-core kernels' warpgroup products (bf16 into float32 among
 # them) and TMA loads in SASS, and the kernels that must hold them
 SASS_OPS = ("HGMMA", "HGMMA.F32.BF16", "IGMMA", "UTMALDG")
-TENSOR_CORE_KERNELS = ("tc_kernel", "split_gemm_kernel")
+TENSOR_CORE_KERNELS = ("tc_kernel", "split_gemm_kernel", "probe_kernel")
+# GEMMs that the split wgmma core replaced, which must not come back
+RETIRED_GEMMS = ("ffma_gemm_kernel", "mma_gemm_kernel")
 
 
 def sass_summary(lib_path):
     """Per tensor-core kernel instance of the built library (tc_kernel,
-    split_gemm_kernel), the count of its warpgroup MMA (HGMMA bf16, those
+    split_gemm_kernel, probe_kernel), the count of its warpgroup MMA (HGMMA bf16, those
     into float32, IGMMA int8) and TMA load (UTMALDG) instructions in the
     SASS (cuobjdump), one such line of each, and the (mangled) names of
     every kernel in the library."""
@@ -404,7 +412,8 @@ def device_functions(name, tier):
     if name.startswith("probe_"):
         return f"probe_kernel<{PROBE_VARIANTS[name.removeprefix('probe_')]}>"
     if name.startswith("radix"):
-        gemm = "mma_gemm_kernel" if tier == "default" else "ffma_gemm_kernel"
+        passes = 1 if tier == "default" else split_passes(tier)
+        gemm = f"split_gemm_kernel<{passes}>"
         if name == "radix_fold_matmul":
             return f"fold_rotate_kernel + {gemm} + butterfly_out_kernel"
         return f"butterfly_in_kernel + {gemm} + scatter_kernel"
@@ -436,12 +445,11 @@ def nbytes(*tensors):
 
 
 def read_args(mdct, args):
-    """The arguments a kernel of ``mdct`` (or its VJP) reads: in the mono
-    design the matrix's operand form and not the matrix, which its plain
-    version reads."""
-    if mdct.kernel_design == "mono":
-        return args[:4] + args[5:]
-    return args
+    """The arguments a kernel of ``mdct`` (or its VJP) reads: the matrix's
+    (mono) or the factors' (radix) operand form and not the float32 matrix
+    or factors, which its plain version reads."""
+    skip = 4 if mdct.kernel_design == "mono" else 5
+    return args[:skip] + args[skip + 1:]
 
 
 def split_passes(tier):
@@ -1047,7 +1055,6 @@ def trainer(torch, codec, model, x):
 
 # The MDCT kernels' device functions (csrc/mdct_kernels.cu), for the trace
 MDCT_DEVICE_FUNCTIONS = ("tc_kernel", "split_kernel", "split_gemm_kernel",
-                         "mma_gemm_kernel", "ffma_gemm_kernel",
                          "scatter_kernel", "fold_rotate_kernel",
                          "butterfly_in_kernel", "butterfly_out_kernel")
 
@@ -1240,12 +1247,31 @@ def probe_phase(torch, dev, entries):
     xb, (q, _) = x.to(torch.bfloat16), _dct.int8_rowquant(x)
     library = {"bf16": lambda: torch.matmul(xb, mats["bf16"]),
                "int8": lambda: torch._int_mm(q, mats["int8"])}
-    results = {}
+    # the library path from the kernel's own float32 x: a cast, then the
+    # product (bf16 out); and the bytes each library call moves, each
+    # input read once and each output written once
+    cast_matmul = lambda: torch.matmul(x.to(torch.bfloat16),  # noqa: E731
+                                       mats["bf16"])
+    cast_matmul_ms = cuda_ms(torch, cast_matmul)
+    out_bf16 = rows * n * 2
+    library_bytes = {
+        "torch.matmul bf16 x": nbytes(xb, mats["bf16"]) + out_bf16,
+        "x.to(bfloat16) + torch.matmul": nbytes(x, xb) + nbytes(
+            xb, mats["bf16"]) + out_bf16,
+        "torch._int_mm": nbytes(q, mats["int8"]) + rows * n * 4,
+    }
+    print(f"probe library calls: x.to(bfloat16) + torch.matmul "
+          f"{cast_matmul_ms:.4f} ms; bytes moved {library_bytes}")
+    results = {"library_bytes": library_bytes,
+               "cast_matmul_ms": cast_matmul_ms}
     for code, (variant, label) in enumerate(PROBE_VARIANTS.items()):
         name = f"probe_{variant}"
         shared = _build.library().acx_probe_shared_bytes(code)
         print(f"build: probe_kernel<{label}>: {shared} bytes of dynamic "
               "shared memory")
+        check(shared == cuda_probe.shared_bytes(variant),
+              f"probe_kernel<{label}>: {shared} bytes of shared memory, "
+              f"cuda_probe.shared_bytes says {cuda_probe.shared_bytes(variant)}")
         key, tier = ("bf16", "default") if variant == "bf16" else (
             "int8", "int8")
         args = (mats[key],) if key == "bf16" else (mats[key], m["rescale"])
@@ -1273,16 +1299,19 @@ def probe_phase(torch, dev, entries):
         ms = res[f"cuda_{variant}_ms"]
         results[variant] = dict(snr_db=snr, plain_snr_db=plain_snr,
                                 max_abs_err=errs, shared_bytes=shared)
+        from_f32_ms = cast_matmul_ms if key == "bf16" else None
         print(f"kernel {name} [{rows} x {n}] x [{n} x {n}]: max_abs_err "
               f"{errs} (tol {tol:.3e}), SNR {snr:.4f} dB (plain "
               f"{plain_snr:.4f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"library {library_ms:.4f} ms (from float32 x "
+              f"{from_f32_ms} ms), bound {bound_ms:.4f} ms "
               f"({bound_by}) = {100 * bound_ms / ms:.1f}% of the time, "
               f"{res[f'cuda_{variant}_tf_s']:.1f} TF/s")
         entries.append(entry(name, tier, "float32", "probe", n,
                              max_abs_err=errs[rows], tol=tol, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=library_ms,
+                             library_from_f32_ms=from_f32_ms,
                              snr_db=snr, plain_snr_db=plain_snr,
                              ragged_max_abs_err=errs))
         del got, want
@@ -1529,12 +1558,15 @@ def main() -> int:
         ops["HGMMA.F32.BF16"] and ops["UTMALDG"] for ops in split.values()),
         "split_gemm_kernel: an instance without bf16 wgmma into float32 or "
         f"TMA in SASS: {split}")
-    # the FFMA GEMM is the radix design's alone (its two halves): one
-    # instance for each input dtype, none for the mono design
-    ffma = [k for k in kernel_names if "ffma_gemm_kernel" in k]
-    print(f"sass: ffma_gemm_kernel instances {ffma}")
-    check(len(ffma) == 2, f"ffma_gemm_kernel: not the radix design's two "
-          f"instances: {ffma}")
+    probe = {k: ops for k, ops in sass.items() if "probe_kernel" in k}
+    check(len(probe) == len(PROBE_VARIANTS) and all(
+        (ops["HGMMA"] or ops["IGMMA"]) and ops["UTMALDG"]
+        for ops in probe.values()),
+        f"probe_kernel: not {len(PROBE_VARIANTS)} instances with wgmma and "
+        f"TMA in SASS: {probe}")
+    # every GEMM of the library runs on the tensor cores' wgmma
+    retired = [k for k in kernel_names if any(g in k for g in RETIRED_GEMMS)]
+    check(not retired, f"FFMA or WMMA GEMMs left in the library: {retired}")
 
     codecs = {k: Codec.create(SAMPLE_RATE, filters_n=FILTERS_N,
                               bark_bands_n=64, device=dev, **cfg)

@@ -12,10 +12,12 @@ tree's kernels into that tree's ``build/`` and times, with CUDA events
 (50 launches after 5 warm-ups), each MDCT kernel of the port at the main
 path's shapes (chip_smoke.py's signal, 32 clips of 10 s at 44.1 kHz:
 [32, 430, 1024] and [32, 215, 2048]) in chip_smoke.py's configurations,
-the VJPs of the N=1024 mono ones, and three paths: ``Codec.
-round_trip_quantized`` in the three configurations of bench.py,
-``round_trip_fast`` in (r) (float32 ``highest``, N=1024) and a training
-step of chip_smoke.py's (r) trainer (``SpectralAE``): the wall time per
+the VJPs of the N=1024 mono ones and of the radix ones, the int8 probe's
+three kernels at its shape ([14336, 1024] x [1024, 1024]), and four
+paths: ``Codec.round_trip_quantized`` in the three configurations of
+bench.py, ``round_trip_fast`` in (r) (float32 ``highest``, N=1024) and a
+training step of chip_smoke.py's (r) and (r2) trainers (``SpectralAE``;
+the gains at N=2048 through the radix kernels): the wall time per
 call (CUDA events around 20 calls, 10 steps, issued back to back) and,
 from a torch.profiler trace of 10 calls, the device's busy time per call
 (the union of its kernels' spans), which does not depend on how fast the
@@ -75,7 +77,8 @@ def worker(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import audiocodec_tpu_torch
     from audiocodec_tpu_torch import Codec
-    from audiocodec_tpu_torch.ops import _build, cuda_mdct
+    from audiocodec_tpu_torch.ops import _build, cuda_mdct, cuda_probe
+    from audiocodec_tpu_torch.probes import int8_probe
 
     if Path(audiocodec_tpu_torch.__file__).resolve().parents[1] != tree:
         raise RuntimeError(f"imported {audiocodec_tpu_torch.__file__}, not "
@@ -101,7 +104,8 @@ def worker(tree: Path) -> dict:
                 torch, lambda: fwd(rows, *fargs), iters=50, warmup=5)
             times[f"{inv.__name__} {label}"] = cs.cuda_ms(
                 torch, lambda: inv(spec, *iargs), iters=50, warmup=5)
-            if n == cs.FILTERS_N and mdct.kernel_design == "mono":
+            radix = mdct.kernel_design == "radix"
+            if radix or n == cs.FILTERS_N:
                 gen = torch.Generator(device="cpu").manual_seed(cs.SEED)
                 for direction, inp in (("forward", rows), ("inverse", spec)):
                     vjp = getattr(cuda_mdct,
@@ -113,6 +117,17 @@ def worker(tree: Path) -> dict:
                     times[f"{vjp.__name__} {label}"] = cs.cuda_ms(
                         torch, lambda: vjp(cot, *vargs), iters=50, warmup=5)
             del mdct, rows, spec
+        probe = cuda_probe.probe_matrices()
+        x = torch.from_numpy(int8_probe.make_input()).cuda()
+        for variant in ("bf16", "int8", "int8_grouped"):
+            key = "bf16" if variant == "bf16" else "int8"
+            mat = probe[key].cuda()
+            args = (mat,) if key == "bf16" else (mat, probe["rescale"])
+            kernel = getattr(cuda_probe, f"probe_{variant}")
+            op = cuda_probe.operand(mat)
+            times[f"probe_{variant}"] = cs.cuda_ms(
+                torch, lambda: kernel(x, *args, op), iters=50, warmup=5)
+        del x
         for label, cfg in cs.CONFIGS.items():
             codec = Codec.create(cs.SAMPLE_RATE, filters_n=cs.FILTERS_N,
                                  bark_bands_n=64, device="cuda", **cfg)
@@ -129,12 +144,17 @@ def worker(tree: Path) -> dict:
         call = lambda: codec.round_trip_fast(x, cs.SEED)  # noqa: E731
         times["round_trip_fast (r) wall"] = cs.cuda_ms(torch, call, iters=20)
         times["round_trip_fast (r) device busy"] = busy_ms(torch, call)
-    _, _, step = cs.trainer(torch, codec, "spectral_ae", x)
     gen = torch.Generator(device="cuda")
-    call = lambda: step(gen.manual_seed(cs.SEED))  # noqa: E731
-    times["train (r) spectral_ae step wall"] = cs.cuda_ms(torch, call,
-                                                          iters=10)
-    times["train (r) spectral_ae step device busy"] = busy_ms(torch, call)
+    for label, model in (("r", "spectral_ae"), ("r2", "gains")):
+        if label != "r":
+            codec = Codec.create(cs.SAMPLE_RATE, bark_bands_n=64,
+                                 device="cuda", **cs.VJP_CASES[label])
+        _, _, step = cs.trainer(torch, codec, model, x)
+        call = lambda: step(gen.manual_seed(cs.SEED))  # noqa: E731
+        times[f"train ({label}) {model} step wall"] = cs.cuda_ms(
+            torch, call, iters=10)
+        times[f"train ({label}) {model} step device busy"] = busy_ms(
+            torch, call)
     return times
 
 

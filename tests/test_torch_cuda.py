@@ -254,11 +254,17 @@ def test_radix_wrappers_refuse_what_the_kernels_do_not_take():
     fwd = m.kernel_args("forward")
     x = torch.zeros(1, 4, 256, device="cuda")
     with pytest.raises(ValueError, match="tiers"):
-        cuda_mdct.radix_fold_matmul(x, *fwd[:-1], "int8")
+        cuda_mdct.radix_fold_matmul(x, *fwd[:-2], "int8", fwd[-1])
     with pytest.raises(NotImplementedError, match="backward"):
         cuda_mdct.radix_fold_matmul(x.clone().requires_grad_(), *fwd)
     with pytest.raises(ValueError, match="rotation"):
         cuda_mdct.radix_fold_matmul(x, *fwd[:4], fwd[4][:1], *fwd[5:])
+    with pytest.raises(ValueError, match="operand form"):
+        cuda_mdct.radix_fold_matmul(x, *fwd[:-1], None)
+    with pytest.raises(TypeError, match="float32 input"):
+        cuda_mdct.radix_fold_matmul(x.bfloat16(),
+                                    *(w.bfloat16() for w in fwd[:5]),
+                                    *fwd[5:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -75,7 +75,7 @@ def test_jax_probe_runs_without_a_compilation_cache(jax_probe):
 def test_cpu_run_prints_snrs_only(port_probe):
     assert set(port_probe) == {"rows", "n", "tb"} | {
         f"{v}_snr_db" for v in PAIRS}
-    assert port_probe["tb"] == {"bf16": 64, "int8": 128, "int8_grouped": 128}
+    assert port_probe["tb"] == {"bf16": 128, "int8": 128, "int8_grouped": 128}
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -163,3 +163,68 @@ def test_card_without_a_card_fails():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="card"):
         int8_probe.run()
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8_grouped"])
+def test_wrapper_refuses_an_operand_of_the_wrong_form(variant):
+    """The kernels' checks (run before a launch, here on CPU tensors): the
+    operand form of the other tier, a missing, transposed-view, misshapen
+    or misaligned operand, and x of another shape or dtype."""
+    m = cuda_probe.probe_matrices()
+    key = "bf16" if variant == "bf16" else "int8"
+    op = cuda_probe.operand(m[key])
+    other = cuda_probe.operand(m["int8" if key == "bf16" else "bf16"])
+    x = torch.zeros(4, 1024)
+    cuda_probe._check(variant, x, op)  # accepted
+    flat = torch.zeros(1024 * 1024 + 16, dtype=op.dtype)
+    for bad in (None, other, op.T, op[:512].contiguous(),
+                flat[1:1024 * 1024 + 1].view(1024, 1024)):
+        with pytest.raises(ValueError):
+            cuda_probe._check(variant, x, bad)
+    for xb in (torch.zeros(4, 512), torch.zeros(0, 1024),
+               torch.zeros(4, 1024, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="float32"):
+            cuda_probe._check(variant, xb, op)
+    with pytest.raises(ValueError, match="no kernel for a tensor on cpu"):
+        cuda_probe._launch(variant, x, op)
+
+
+H100_SHARED_BYTES = 232448  # the dynamic shared memory a CTA may opt into
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8_grouped"])
+def test_tile_constants_agree_with_the_kernel_geometry(variant):
+    """The kernels' geometry as the Python constants state it
+    (csrc/probe_kernels.cu BM, IC, Cfg/Layout; chip_smoke.py holds
+    ``shared_bytes`` to ``acx_probe_shared_bytes`` on the card): a 128 KB
+    A tile of TILE_ROWS rows of the CTA's share of K, whose 128-byte K
+    tiles are the wgmma groups of int8g, a CTA that fits the card with
+    its ring as deep as the room allows, and the launch's row tiles
+    (csrc launch) at the probe's 14336 rows on the H100's 132 SMs: at int8
+    one whole tile of at most 128 rows for each CTA, at bf16 tiles of 128
+    rows over 66 clusters of two."""
+    esize = 2 if variant == "bf16" else 1
+    rows, cols = cuda_probe.TILE_ROWS[variant], cuda_probe.TILE_COLUMNS[variant]
+    kc = cuda_probe.N // cuda_probe.KSPLIT[variant]  # K of a CTA
+    assert rows * kc * esize == 128 * 1024
+    assert kc * esize // 128 == 8  # K tiles of 128 bytes: int8g's groups
+    assert rows == 2 * 64 and cols % 128 == 0 and cuda_probe.N % cols == 0
+    stage = cols * 128
+    smem = cuda_probe.shared_bytes(variant)
+    # the int8 tiers' scales, or the partial sums a bf16 warpgroup receives
+    extra = 4 * 64 * cols if variant == "bf16" else 4 * rows * 8
+    assert smem == (1024 + 128 * 1024 + cuda_probe.STAGES[variant] * stage
+                    + 128 + extra)
+    assert smem <= H100_SHARED_BYTES < smem + stage  # the ring fills the CTA
+    assert smem == {"bf16": 230528, "int8": 218240,
+                    "int8_grouped": 218240}[variant]
+    rows_n, groups = int8_probe.ROWS, 132 // cuda_probe.KSPLIT[variant]
+    tile_rows = rows
+    if variant != "bf16":  # whole tiles, `per` a CTA
+        per = -(-(-(-rows_n // rows)) // groups)
+        tile_rows = -(-rows_n // (groups * per))
+        assert per == 1 and groups * tile_rows >= rows_n
+    items = -(-rows_n // tile_rows) * (cuda_probe.N // cols)
+    assert (tile_rows, items) == ((128, 896) if variant == "bf16"
+                                  else (109, 1056))
+    assert (2 * cuda_probe.STAGES[variant] + 2) * 8 <= 128  # barriers

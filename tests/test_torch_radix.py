@@ -141,11 +141,11 @@ def test_radix_cpu_tensor_takes_the_plain_version_and_counts_nothing():
     assert torch.equal(got, cuda_mdct.radix_fold_matmul_reference(x, *fwd))
     assert set(cuda_mdct.launch_counts().values()) == {0}
     with pytest.raises(ValueError, match="tiers"):
-        cuda_mdct.radix_fold_matmul(x, *fwd[:-1], "int8")
+        cuda_mdct.radix_fold_matmul(x, *fwd[:-2], "int8", fwd[-1])
     meta = lambda t: t.to("meta")  # noqa: E731
     with pytest.raises(ValueError, match="no kernel for a tensor on meta"):
-        cuda_mdct.radix_matmul_scatter(meta(x), *map(meta, fwd[:-1]),
-                                       "highest")
+        cuda_mdct.radix_matmul_scatter(meta(x), *map(meta, fwd[:-2]),
+                                       "highest", meta(fwd[-1]))
 
 
 class TestKernelDesign:
@@ -206,3 +206,134 @@ def test_convert_carries_a_jax_radix_codec(precision):
         spec_j = _np(jc.mdct.transform(xj))
     np.testing.assert_allclose(_np(got.mdct.transform(xt)), spec_j, rtol=0,
                                atol=1e-6)
+
+
+def _split_product(a, mat, passes):
+    from tests.test_torch_split import split_product
+    return split_product(a.float(), mat.float(), passes)
+
+
+def radix_emulation(m, x, direction, passes):
+    """The radix kernels as the card runs them, in torch on the CPU: the
+    fold and rotation (or the transposed butterfly) in x's dtype, the two
+    [N/2, N/2] products as split_gemm_kernel sums them (``passes`` plane
+    products a K block of 64, a fresh float32 sum each), the butterfly (or
+    the transposed rotation, rounded to x's dtype, and the overlap
+    scatter)."""
+    from audiocodec_tpu_torch.ops import folding
+
+    args = m.kernel_args(direction)
+    h = x.shape[-1] // 2
+    if direction == "forward":
+        wa_r, wb, wc, ffr, rot, mats = args[:6]
+        rt = radix.rotate(folding.fold(x, wa_r, wb, wc, ffr), rot)
+        u = _split_product(rt[..., :h], mats[0], passes)
+        v2 = _split_product(rt[..., h:], mats[1], passes)
+        return radix.butterfly(u, v2).to(x.dtype)
+    p, q, r, s_r, rot, mats = args[:6]
+    us, vs = radix.butterfly_t(x)
+    z = radix.rotate_t(_split_product(us, mats[0], passes),
+                       _split_product(vs, mats[1], passes), rot).to(x.dtype)
+    return folding.unfold(z, p, q, r, s_r).to(x.dtype)
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("tier", ["highest", "default-bf16"])
+def test_split_radix_products_match_pallas(n, tier):
+    """The radix route on the split GEMM core, emulated (six passes on three
+    planes at `highest`, one pass on the bf16 planes at `default`), against
+    the JAX radix Pallas kernels in interpret mode, at the tolerances of
+    test_radix_plain_versions_match_pallas and
+    test_radix_bf16_default_tier_matches_pallas."""
+    bf16 = tier == "default-bf16"
+    kw = dict(compute_dtype="bfloat16", fast_bf16=True,
+              dct_precision="default") if bf16 else {}
+    jm, tm = _pair(n, **kw)
+    passes = 1 if bf16 else 6
+    assert cuda_mdct.RADIX_PLANES[tm.kernel_precision] == (1 if bf16 else 3)
+    dtype = "bfloat16" if bf16 else "float32"
+    xj, xt = _inputs((2, 5 * n, 1), dtype, n)
+    sj, st = _inputs((2, 5, n, 1), dtype, n + 1, scale=0.05 if bf16 else 0.5)
+    with pltpu.force_tpu_interpret_mode():
+        yj = _np(jm.transform(xj))
+        oj = _np(jm.inverse_transform(sj))
+    y = radix_emulation(tm, xt[..., 0].reshape(2, 5, n), "forward", passes)
+    out = radix_emulation(tm, st[..., 0], "inverse", passes)
+    yt = _np(y)[..., None]
+    ot = _np(out.reshape(2, -1))[..., None]
+    if bf16:
+        np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-3)
+        peak = np.abs(oj).max()
+        np.testing.assert_allclose(
+            ot, oj, rtol=0, atol=2.0 * 2.0 ** (np.floor(np.log2(peak)) - 7))
+    else:
+        np.testing.assert_allclose(yt, yj, rtol=0, atol=2e-6)
+        np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_radix_operand_residents(precision):
+    """The radix kernels' operand form: each factor transposed, as bf16
+    planes [2, P, N/2, N/2] (three at the split tiers, summing back to the
+    float32 factor exactly; at `default` one, its bf16 rounding); the VJP
+    operands are the planes of the remapped factors; both are the last
+    argument of the kernel's and of the VJP's arguments."""
+    n = 256
+    m = MDCT(n, use_kernel=True, kernel_design="radix",
+             dct_precision=precision, device="cpu")
+    planes = cuda_mdct.RADIX_PLANES[precision]
+    for d in ("fwd", "inv"):
+        mats, op = getattr(m, f"radix_mat_{d}"), getattr(m, f"kernel_op_{d}")
+        assert op.shape == (2, planes, n // 2, n // 2)
+        assert op.dtype == torch.bfloat16 and op.is_contiguous()
+        for h in range(2):
+            assert torch.equal(op[h, 0], mats[h].T.to(torch.bfloat16))
+            if planes == 3:
+                assert torch.equal(op[h].double().sum(0), mats[h].T.double())
+        vmats, vop = getattr(m, f"vjp_mat_{d}"), getattr(m, f"vjp_op_{d}")
+        remap = (cuda_mdct.radix_fold_vjp_residents if d == "fwd"
+                 else cuda_mdct.radix_unfold_vjp_residents)
+        assert torch.equal(vmats, remap(getattr(m, f"radix_rot_{d}"),
+                                        mats)[1])
+        assert torch.equal(vop, torch.stack([
+            cuda_mdct.split_planes(v.T, planes) for v in vmats]))
+    assert m.kernel_args("forward")[-1] is m.kernel_op_fwd
+    assert m.kernel_args("inverse")[-1] is m.kernel_op_inv
+    assert m.vjp_args("forward")[-1] is m.vjp_op_fwd
+    assert m.vjp_args("inverse")[-1] is m.vjp_op_inv
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_convert_rebuilds_the_radix_operands(precision):
+    """A JAX radix codec carried across: the kernels' operand forms and the
+    VJP operands are rebuilt from the converted factors, equal to those of
+    a port codec built the same way."""
+    n, sr = 256, 44100
+    jc = JaxCodec.create(sr, filters_n=n, bark_bands_n=32, use_pallas=True,
+                         pallas_kernel="radix", dct_precision=precision)
+    got = codec_from_arrays(*_leaves_and_meta(jc), device="cpu").mdct
+    for d in ("fwd", "inv"):
+        want = cuda_mdct.radix_operand(getattr(got, f"radix_mat_{d}"),
+                                       precision)
+        assert torch.equal(getattr(got, f"kernel_op_{d}"), want)
+        assert torch.equal(getattr(got, f"vjp_op_{d}"),
+                           cuda_mdct.radix_operand(
+                               getattr(got, f"vjp_mat_{d}"), precision))
+        assert getattr(got, f"kernel_op_{d}").shape[1] == (
+            cuda_mdct.RADIX_PLANES[precision])
+
+
+def test_radix_wrappers_check_the_operand_form():
+    """The radix wrappers' operand check (before a launch): the planes of
+    another tier, a mono operand and bfloat16 input at a split tier."""
+    m = MDCT(256, use_kernel=True, kernel_design="radix", device="cpu")
+    x = torch.zeros(1, 4, 256)
+    op = m.kernel_op_fwd
+    cuda_mdct._check_operand(x, op, "highest", radix=True)  # accepted
+    with pytest.raises(ValueError, match="radix_operand"):
+        cuda_mdct._check_operand(x, op[:, :1].contiguous(), "highest",
+                                 radix=True)
+    with pytest.raises(ValueError, match="radix_operand"):
+        cuda_mdct._check_operand(x, op, "default", radix=True)
+    with pytest.raises(TypeError, match="float32 input"):
+        cuda_mdct._check_operand(x.bfloat16(), op, "highest", radix=True)

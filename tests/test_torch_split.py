@@ -20,9 +20,10 @@ torch.set_num_threads(1)
 
 # (A plane, B plane) of each pass, small terms first, as split_gemm_kernel
 # runs them (csrc/mdct_kernels.cu pass_plane); three passes are the JAX
-# kernel's `high` recipe (pallas_mdct.py _mxu)
+# kernel's `high` recipe (pallas_mdct.py _mxu), one the radix design's
+# `default` (bf16 operands)
 PASSES = {6: [(1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)],
-          3: [(0, 1), (1, 0), (0, 0)]}
+          3: [(0, 1), (1, 0), (0, 0)], 1: [(0, 0)]}
 K_BLOCK = 64  # K of a kernel stage: one fresh float32 sum, then the total
 
 
