@@ -9,6 +9,12 @@
 //                             (kernel body _fwd_kernel_radix)
 //   * radix_matmul_scatter <- pallas_mdct.py, radix_matmul_scatter
 //                             (kernel body _inv_kernel_radix)
+// and, in a transposed-fold mode of the two analysis routes (TF below:
+// acx_fold_matmul_t, acx_radix_fold_matmul_t), the synthesis VJPs
+// pallas_mdct.py _matmul_scatter_bwd and _radix_matmul_scatter_bwd, which
+// read the cotangent in place: one call, no flip, lane swap or crop around
+// it. The analysis VJPs run the synthesis routes on the reversed cotangent
+// (ops/cuda_mdct.py).
 //
 // The radix design (ops/radix.py) splits the DCT-IV over the pairs
 // (f_n, f_{N-1-n}): a per-pair rotation, two [N/2, N/2] products and a
@@ -131,15 +137,61 @@ __device__ __forceinline__ float fold_value(
   return rnd<T>(__fsub_rn(a, b));
 }
 
-// The A operand: the folded signal (analysis) or the spectrum rows
-// (synthesis).
-template <typename T, bool FOLD>
+// One element of the transposed fold (ops/folding.py::fold_t): frame n of
+// the synthesis VJP's T folded frames, read from the cotangent g [T+1, N]
+// in place (w = the unfold VJP weights, ops/cuda_mdct.py):
+//   k <  h: wa_r[k]*g[n+1, N-1-k] + wb[k]*g[n+1, k]
+//   k >= h: wc[j]*g[n, h+j]       - ffr[j]*g[n, h-1-j],  j = k - h
+// fold_value's products, sum and roundings with the same weight on the same
+// load: only the addresses differ (the forward value at k, the mirrored one
+// at N-1-k, in both halves). It equals fold_value on swap(flipT(g)) at
+// frame T-n, bit for bit (flipT reverses the frames, swap exchanges the
+// lane halves). Every frame it reads exists (n < T).
+template <typename T>
+__device__ __forceinline__ float fold_t_value(
+    const T* __restrict__ gr, const T* __restrict__ wa_r,
+    const T* __restrict__ wb, const T* __restrict__ wc,
+    const T* __restrict__ ffr, int n, int k, int N) {
+  const int h = N >> 1;
+  if (k < h) {
+    const T* gb = gr + (size_t)(n + 1) * N;
+    const float a = rnd<T>(__fmul_rn(to_f(gb[N - 1 - k]), to_f(wa_r[k])));
+    const float b = rnd<T>(__fmul_rn(to_f(gb[k]), to_f(wb[k])));
+    return rnd<T>(__fadd_rn(a, b));
+  }
+  const int j = k - h;
+  const T* gb = gr + (size_t)n * N;
+  const float a = rnd<T>(__fmul_rn(to_f(gb[k]), to_f(wc[j])));
+  const float b = rnd<T>(__fmul_rn(to_f(gb[h - 1 - j]), to_f(ffr[j])));
+  return rnd<T>(__fsub_rn(a, b));
+}
+
+// The folded frames a row of t_in input frames: T+1 from x [T] (the
+// analysis), T from the cotangent g [T+1] in the transposed fold (TF).
+__host__ __device__ constexpr int fold_frames(bool tf, int t_in) {
+  return tf ? t_in - 1 : t_in + 1;
+}
+
+// Element k of folded frame n: the fold of x, or with TF the transposed
+// fold of g.
+template <typename T, bool TF>
+__device__ __forceinline__ float fold_at(
+    const T* __restrict__ xr, const T* __restrict__ w0,
+    const T* __restrict__ w1, const T* __restrict__ w2,
+    const T* __restrict__ w3, int n, int k, int t_in, int N) {
+  if constexpr (TF) return fold_t_value<T>(xr, w0, w1, w2, w3, n, k, N);
+  else return fold_value<T>(xr, w0, w1, w2, w3, n, k, t_in, N);
+}
+
+// The A operand: the folded signal (analysis; with TF the transposed fold
+// of the synthesis VJP) or the spectrum rows (synthesis).
+template <typename T, bool FOLD, bool TF = false>
 __device__ __forceinline__ float a_value(
     const T* __restrict__ xr, const T* __restrict__ w0,
     const T* __restrict__ w1, const T* __restrict__ w2,
     const T* __restrict__ w3, int n, int k, int t_in, int N) {
   if constexpr (FOLD) {
-    return fold_value<T>(xr, w0, w1, w2, w3, n, k, t_in, N);
+    return fold_at<T, TF>(xr, w0, w1, w2, w3, n, k, t_in, N);
   } else {
     return n < t_in ? to_f(xr[(size_t)n * N + k]) : 0.f;
   }
@@ -249,20 +301,21 @@ __global__ void __launch_bounds__(THREADS) scatter_kernel(
 // Radix analysis, first pass: the fold and the per-pair rotation, from x
 // [rows, T, N] to the split GEMM's A planes of rt = [r | t~] ([NP, m_pad,
 // N] bf16, row m = row x (T+1) + frame; rows from rows x (T+1) to m_pad are
-// zeros). With a_k = folded[k] and b_k = folded[N-1-k] (k < M = N/2) and
-// rot = [rot1; rot2], [2, N]:
+// zeros). With TF (the synthesis VJP) the fold is the transposed one of the
+// cotangent g [rows, t_in = T+1, N], T frames a row. With a_k = folded[k]
+// and b_k = folded[N-1-k] (k < M = N/2) and rot = [rot1; rot2], [2, N]:
 //   r_k  = a_k * rot1[k]   + b_k * rot2[k]
 //   t~_k = b_k * rot1[M+k] + a_k * rot2[M+k]
 // each product and sum rounded to T (ops/radix.py::rotate), then split into
 // NP planes (split3; a bf16 value is its own plane 0). One block a row of A.
-template <typename T, int NP>
+template <typename T, int NP, bool TF>
 __global__ void __launch_bounds__(THREADS) fold_rotate_kernel(
     const T* __restrict__ x, const T* __restrict__ wa_r,
     const T* __restrict__ wb, const T* __restrict__ wc,
     const T* __restrict__ ffr, const T* __restrict__ rot,
     bf16* __restrict__ planes, int rows, int t_in, int N, int m_pad) {
   const int m = blockIdx.x;
-  const int frames = t_in + 1;
+  const int frames = fold_frames(TF, t_in);
   const bool valid = m < rows * frames;
   const int row = valid ? m / frames : 0;
   const int n = m - row * frames;
@@ -273,9 +326,9 @@ __global__ void __launch_bounds__(THREADS) fold_rotate_kernel(
   for (int k = threadIdx.x; k < M; k += THREADS) {
     float r = 0.f, t = 0.f;
     if (valid) {
-      const float a = fold_value<T>(xr, wa_r, wb, wc, ffr, n, k, t_in, N);
+      const float a = fold_at<T, TF>(xr, wa_r, wb, wc, ffr, n, k, t_in, N);
       const float b =
-          fold_value<T>(xr, wa_r, wb, wc, ffr, n, N - 1 - k, t_in, N);
+          fold_at<T, TF>(xr, wa_r, wb, wc, ffr, n, N - 1 - k, t_in, N);
       r = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(a, to_f(rot[k]))),
                            rnd<T>(__fmul_rn(b, to_f(rot[N + k])))));
       t = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(b, to_f(rot[M + k]))),
@@ -517,7 +570,12 @@ __device__ __forceinline__ uint4* a_chunk(uint8_t* tile, int m, int c) {
 // Fold, for k = k0 + e (fold_value's operations and roundings):
 //   k0 <  h: v = wa_r[k]*x[n-1, h-1-k] + wb[k]*x[n-1, h+k]
 //   k0 >= h: v = wc[j]*x[n, j] - ffr[j]*x[n, N-1-j],  j = k - h
-template <typename T, int TIER, bool FOLD>
+// The chunk P holds the values that meet wb (k0 < h) or wc, Q reversed
+// those that meet wa_r or ffr. With TF (the synthesis VJP's transposed fold
+// of the cotangent g, fold_t_value) P is g[src, k0..k0+7] and Q g[src,
+// N-8-k0..N-1-k0] in both halves, src = n+1 for k0 < h and n above: the
+// same pairs of weights and values, so the arithmetic below is shared.
+template <typename T, int TIER, bool FOLD, bool TF>
 __device__ __forceinline__ void build_a(
     uint8_t* A, float* scales, const T* __restrict__ xr,
     const T* __restrict__ w0, const T* __restrict__ w1,
@@ -562,7 +620,17 @@ __device__ __forceinline__ void build_a(
         for (int hf = 0; hf < HW; ++hf) {
           const int ci = lane + 32 * i, k0 = kb + ci * CW + 8 * hf;
           const int n = first + m0 + 8 * f;
-          if constexpr (FOLD) {
+          if constexpr (TF) {  // g[n+1] below h, g[n] above
+            const int src = k0 < h ? n + 1 : n;
+            if (ci < chunks && src < t_in) {
+              const T* gb = xr + (size_t)src * N;
+              P[f][i][hf].load(gb + k0);
+              Q[f][i][hf].load(gb + N - 8 - k0);
+            } else {
+              P[f][i][hf].zero();
+              Q[f][i][hf].zero();
+            }
+          } else if constexpr (FOLD) {
             const int src = k0 < h ? n - 1 : n;
             if (ci < chunks && src >= 0 && src < t_in) {
               const T* xb = xr + (size_t)src * N;
@@ -733,8 +801,10 @@ __device__ __forceinline__ void store4(T* p, float a, float b, float c,
 
 // x [rows, T, N] -> out [rows, T+1, N]: the analysis (FOLD; w = wa_r, wb,
 // wc, ffr) or the synthesis (w = p, q, r, s_r) at a tensor-core tier, the
-// operand matrix behind `tmap` (boxes of 128 bytes of K by BN rows).
-template <typename T, int TIER, bool FOLD>
+// operand matrix behind `tmap` (boxes of 128 bytes of K by BN rows). TF
+// (with FOLD): the synthesis VJP, the cotangent g [rows, t_in = T+1, N] ->
+// out [rows, T, N] through the transposed fold.
+template <typename T, int TIER, bool FOLD, bool TF = false>
 __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
     const __grid_constant__ CUtensorMap tmap, const T* __restrict__ x,
     const T* __restrict__ w0, const T* __restrict__ w1,
@@ -745,6 +815,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
   constexpr int BM = Cfg::BM, BNW = Cfg::BNW, STAGES = Cfg::STAGES;
   constexpr int NR = BNW / 2;  // accumulator registers a thread
   constexpr bool SPLIT_N = Cfg::SPLIT_N;
+  static_assert(FOLD || !TF, "the transposed fold is an analysis mode");
 
   extern __shared__ uint8_t raw_smem[];
   const uint32_t raw = hopper::smem_addr(raw_smem);
@@ -763,7 +834,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
   const int tid = threadIdx.x;
   const int row = blockIdx.y;
   const int tile0 = blockIdx.x * Cfg::TILE;  // first output frame
-  const int t_out = t_in + 1;
+  const int t_out = TF ? t_in - 1 : t_in + 1;
   const int kt_n = N / Cfg::KT_ELEMS;  // K tiles
   const int kt_a = TC_KA / Cfg::KT_ELEMS;  // K tiles of a pass
   const int passes = (kt_n + kt_a - 1) / kt_a;
@@ -806,8 +877,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
   // consumers: build A, then the products
   const T* xr = x + (size_t)row * t_in * N;
   auto build = [&](int p, bool scan) {
-    build_a<T, TIER, FOLD>(smem, scales, xr, w0, w1, w2, w3, tile0, t_in, N,
-                           p * TC_KA, scan, tid >> 5, tid & 31);
+    build_a<T, TIER, FOLD, TF>(smem, scales, xr, w0, w1, w2, w3, tile0, t_in,
+                               N, p * TC_KA, scan, tid >> 5, tid & 31);
   };
   if (TIER == INT8 && FOLD && passes > 1) {  // the frames' scales first
     for (int p = 0; p < passes; ++p) build(p, true);
@@ -1096,15 +1167,17 @@ __host__ __device__ constexpr int pass_plane(int i, bool b) {
 // The A planes: row m of [rows x frames] (frames = T+1 with FOLD, else T)
 // is the fold of frame m % frames of row m / frames (w = wa_r, wb, wc, ffr)
 // or that row of y, split into NP planes at planes + p * m_pad * N; rows
-// from rows x frames to m_pad are zeros. One block a row, 4 values a thread.
-template <bool FOLD, int NP>
+// from rows x frames to m_pad are zeros. TF: the transposed fold of the
+// cotangent g [rows, t_in = T+1, N], T frames a row. One block a row, 4
+// values a thread.
+template <bool FOLD, int NP, bool TF = false>
 __global__ void __launch_bounds__(THREADS) split_kernel(
     const float* __restrict__ x, const float* __restrict__ w0,
     const float* __restrict__ w1, const float* __restrict__ w2,
     const float* __restrict__ w3, bf16* __restrict__ planes, int rows,
     int t_in, int N, int m_pad) {
   const int m = blockIdx.x;
-  const int frames = FOLD ? t_in + 1 : t_in;
+  const int frames = FOLD ? fold_frames(TF, t_in) : t_in;
   const bool valid = m < rows * frames;
   const int row = valid ? m / frames : 0;
   const int n = m - row * frames;
@@ -1113,8 +1186,8 @@ __global__ void __launch_bounds__(THREADS) split_kernel(
     bf16 s[4][3];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      split3(valid ? a_value<float, FOLD>(xr, w0, w1, w2, w3, n, k + e, t_in,
-                                          N)
+      split3(valid ? a_value<float, FOLD, TF>(xr, w0, w1, w2, w3, n, k + e,
+                                              t_in, N)
                    : 0.f,
              s[e]);
 #pragma unroll
@@ -1227,7 +1300,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) split_gemm_kernel(
 }
 
 // Launch tc_kernel on the operand matrix `op` ([N, N], K contiguous).
-template <typename T, int TIER, bool FOLD>
+template <typename T, int TIER, bool FOLD, bool TF = false>
 int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
               const void* w3, const void* op, void* out, int rows, int t_in,
               int N, float mat_scale, cudaStream_t st) {
@@ -1235,12 +1308,13 @@ int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
   CUtensorMap map;
   int rc = hopper::operand_map(&map, op, TIER == BF16, N, N, Cfg::BN);
   if (rc) return rc;
-  auto kernel = tc_kernel<T, TIER, FOLD>;
+  auto kernel = tc_kernel<T, TIER, FOLD, TF>;
   static std::atomic<uint64_t> shared_set{0};
   rc = hopper::allow_shared(kernel, shared_set);
   if (rc) return rc;
   const size_t smem = Cfg::smem_bytes(N);
-  const dim3 grid((t_in + 1 + Cfg::TILE - 1) / Cfg::TILE, rows);
+  const int t_out = TF ? t_in - 1 : t_in + 1;  // as tc_kernel's
+  const dim3 grid((t_out + Cfg::TILE - 1) / Cfg::TILE, rows);
   kernel<<<grid, TC_THREADS, smem, st>>>(
       map, static_cast<const T*>(x), static_cast<const T*>(w0),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
@@ -1274,18 +1348,18 @@ int split_gemm(void* planes, const void* op, float* out, int M, int m_pad,
 }
 
 // The split tiers' product of A (the fold of x with FOLD, w = wa_r, wb,
-// wc, ffr; else the rows of x) and the operand planes `op` ([NP, N, N]
-// bf16) into out [rows x frames, N] float, through the A planes' scratch
-// `planes` ([NP, m_pad, N] bf16, m_pad = rows x frames rounded up to
-// SPLIT_BM).
-template <int PASSES, bool FOLD>
+// wc, ffr, or with TF the transposed fold of the cotangent; else the rows
+// of x) and the operand planes `op` ([NP, N, N] bf16) into out [rows x
+// frames, N] float, through the A planes' scratch `planes` ([NP, m_pad, N]
+// bf16, m_pad = rows x frames rounded up to SPLIT_BM).
+template <int PASSES, bool FOLD, bool TF = false>
 int launch_split(const float* x, const float* w0, const float* w1,
                  const float* w2, const float* w3, const void* op,
                  void* planes, float* out, int rows, int t_in, int N,
                  cudaStream_t st) {
-  const int M = rows * (FOLD ? t_in + 1 : t_in);
+  const int M = rows * (FOLD ? fold_frames(TF, t_in) : t_in);
   const int m_pad = split_rows(M);
-  split_kernel<FOLD, Split<PASSES>::NP><<<m_pad, THREADS, 0, st>>>(
+  split_kernel<FOLD, Split<PASSES>::NP, TF><<<m_pad, THREADS, 0, st>>>(
       x, w0, w1, w2, w3, static_cast<bf16*>(planes), rows, t_in, N, m_pad);
   return split_gemm<PASSES>(planes, op, out, M, m_pad, N, 1, st);
 }
@@ -1297,17 +1371,21 @@ int launch_split(const float* x, const float* w0, const float* w1,
 // `highest`'s six. ops/cuda_mdct.py SPLIT_PLANES follows this constant.
 constexpr int HIGH_PASSES = 6;
 
-template <typename T>
+// The analysis at `tier`, or with TF the synthesis VJP's transposed fold
+// and product (no int8 instance: the int8 tier's backward runs `default`).
+template <typename T, bool TF = false>
 int launch_fold_matmul(const void* x, const void* wa_r, const void* wb,
                        const void* wc, const void* ffr, const void* op,
                        void* planes, void* out, int rows, int t_in, int N,
                        int tier, float mat_scale, cudaStream_t st) {
   if (tier == BF16)
-    return launch_tc<T, BF16, true>(x, wa_r, wb, wc, ffr, op, out, rows,
-                                    t_in, N, mat_scale, st);
-  if (tier == INT8)
-    return launch_tc<T, INT8, true>(x, wa_r, wb, wc, ffr, op, out, rows,
-                                    t_in, N, mat_scale, st);
+    return launch_tc<T, BF16, true, TF>(x, wa_r, wb, wc, ffr, op, out, rows,
+                                        t_in, N, mat_scale, st);
+  if constexpr (!TF) {
+    if (tier == INT8)
+      return launch_tc<T, INT8, true>(x, wa_r, wb, wc, ffr, op, out, rows,
+                                      t_in, N, mat_scale, st);
+  }
   if constexpr (std::is_same<T, float>::value) {  // the split tiers
     const float* w[4] = {static_cast<const float*>(wa_r),
                          static_cast<const float*>(wb),
@@ -1316,10 +1394,12 @@ int launch_fold_matmul(const void* x, const void* wa_r, const void* wb,
     const float* xf = static_cast<const float*>(x);
     float* o = static_cast<float*>(out);
     if (tier == HIGHEST)
-      return launch_split<6, true>(xf, w[0], w[1], w[2], w[3], op, planes, o,
-                                   rows, t_in, N, st);
-    return launch_split<HIGH_PASSES, true>(xf, w[0], w[1], w[2], w[3], op,
-                                           planes, o, rows, t_in, N, st);
+      return launch_split<6, true, TF>(xf, w[0], w[1], w[2], w[3], op,
+                                       planes, o, rows, t_in, N, st);
+    if (tier == HIGH)
+      return launch_split<HIGH_PASSES, true, TF>(xf, w[0], w[1], w[2], w[3],
+                                                 op, planes, o, rows, t_in,
+                                                 N, st);
   }
   return (int)cudaErrorInvalidValue;  // bf16 input at a split tier
 }
@@ -1363,8 +1443,10 @@ int launch_matmul_scatter(const void* y, const void* p, const void* q,
 // that writes A's planes (fold_rotate_kernel with FOLD, else
 // butterfly_in_kernel), the two [N/2, N/2] products on split_gemm_kernel
 // (op [2, NP, N/2, N/2]) into the float scratch `prod`, then the pass that
-// reads them (butterfly_out_kernel, or scatter_kernel<.., RADIX>).
-template <typename T, int PASSES, bool FOLD>
+// reads them (butterfly_out_kernel, or scatter_kernel<.., RADIX>). TF (with
+// FOLD): the synthesis VJP, the transposed fold of the cotangent [rows,
+// t_in, N] into out [rows, t_in - 1, N].
+template <typename T, int PASSES, bool FOLD, bool TF = false>
 int radix(const void* x, const void* const (&w)[4], const void* rot,
           const void* op, void* planes, void* prod, void* out, int rows,
           int t_in, int N, cudaStream_t st) {
@@ -1378,17 +1460,17 @@ int radix(const void* x, const void* const (&w)[4], const void* rot,
   bf16* a = static_cast<bf16*>(planes);
   float* pr = static_cast<float*>(prod);
   T* o = static_cast<T*>(out);
-  const int M = rows * (FOLD ? t_in + 1 : t_in), m_pad = split_rows(M);
+  const int frames = FOLD ? fold_frames(TF, t_in) : t_in;  // A's a row
+  const int M = rows * frames, m_pad = split_rows(M);
   if constexpr (FOLD)
-    fold_rotate_kernel<T, NP><<<m_pad, THREADS, 0, st>>>(
+    fold_rotate_kernel<T, NP, TF><<<m_pad, THREADS, 0, st>>>(
         in, w0, w1, w2, w3, rt, a, rows, t_in, N, m_pad);
   else
     butterfly_in_kernel<T, NP><<<m_pad, THREADS, 0, st>>>(in, a, M, N, m_pad);
   const int rc = split_gemm<PASSES>(planes, op, pr, M, m_pad, N / 2, 2, st);
   if (rc) return rc;
   if constexpr (FOLD)
-    butterfly_out_kernel<T><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(pr, o,
-                                                                      N);
+    butterfly_out_kernel<T><<<dim3(frames, rows), THREADS, 0, st>>>(pr, o, N);
   else
     scatter_kernel<float, T, true><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
         pr, w0, w1, w2, w3, rt, o, t_in, N);
@@ -1397,20 +1479,20 @@ int radix(const void* x, const void* const (&w)[4], const void* rot,
 
 // radix at `tier`: `default` on one plane, the split tiers (float32 input
 // only) on their passes.
-template <typename T, bool FOLD>
+template <typename T, bool FOLD, bool TF = false>
 int launch_radix(const void* x, const void* const (&w)[4], const void* rot,
                  const void* op, void* planes, void* prod, void* out,
                  int rows, int t_in, int N, int tier, cudaStream_t st) {
   if (tier == BF16)
-    return radix<T, 1, FOLD>(x, w, rot, op, planes, prod, out, rows, t_in, N,
-                             st);
+    return radix<T, 1, FOLD, TF>(x, w, rot, op, planes, prod, out, rows,
+                                 t_in, N, st);
   if constexpr (std::is_same<T, float>::value) {
     if (tier == HIGHEST)
-      return radix<T, 6, FOLD>(x, w, rot, op, planes, prod, out, rows, t_in,
-                               N, st);
+      return radix<T, 6, FOLD, TF>(x, w, rot, op, planes, prod, out, rows,
+                                   t_in, N, st);
     if (tier == HIGH)
-      return radix<T, HIGH_PASSES, FOLD>(x, w, rot, op, planes, prod, out,
-                                         rows, t_in, N, st);
+      return radix<T, HIGH_PASSES, FOLD, TF>(x, w, rot, op, planes, prod,
+                                             out, rows, t_in, N, st);
   }
   return (int)cudaErrorInvalidValue;  // int8, or bf16 input at a split tier
 }
@@ -1442,6 +1524,29 @@ int acx_fold_matmul(const void* x, const void* wa_r, const void* wb,
                                       rows, t_in, N, tier, mat_scale, st)
           : launch_fold_matmul<bf16>(x, wa_r, wb, wc, ffr, op, planes, out,
                                      rows, t_in, N, tier, mat_scale, st);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// The synthesis VJP in one call: the analysis route in its transposed-fold
+// mode, the cotangent g [rows, t_in = T+1, N] (t_in >= 2), read in place,
+// -> out [rows, T, N]. w: the unfold VJP weights (ops/cuda_mdct.py
+// unfold_vjp_weights); op: the VJP matrix's analysis operand form; planes
+// as for acx_fold_matmul, m_pad from rows x T. Tiers `default`, `highest`
+// and `high`: the int8 tier's backward is `default` on the dequantized
+// matrix, so there is no int8 instance.
+int acx_fold_matmul_t(const void* g, const void* wa_r, const void* wb,
+                      const void* wc, const void* ffr, const void* op,
+                      void* planes, void* out, int rows, int t_in, int N,
+                      int dtype, int tier, void* stream) {
+  if (!shape_ok(rows, t_in, N, dtype, tier) || t_in < 2 || tier == INT8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc =
+      dtype == F32
+          ? launch_fold_matmul<float, true>(g, wa_r, wb, wc, ffr, op, planes,
+                                            out, rows, t_in, N, tier, 1.f, st)
+          : launch_fold_matmul<bf16, true>(g, wa_r, wb, wc, ffr, op, planes,
+                                           out, rows, t_in, N, tier, 1.f, st);
   return rc ? rc : (int)cudaGetLastError();
 }
 
@@ -1499,6 +1604,29 @@ int acx_radix_fold_matmul(const void* x, const void* wa_r, const void* wb,
                                            rows, t_in, N, tier, st)
           : launch_radix<bf16, true>(x, w, rot, op, planes, uv, out,
                                           rows, t_in, N, tier, st);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// The radix synthesis VJP in one call: the radix analysis route in its
+// transposed-fold mode, the cotangent g [rows, t_in = T+1, N] (t_in >= 2)
+// -> out [rows, T, N]. rot and op: the VJP's rotation and factors
+// (ops/cuda_mdct.py radix_unfold_vjp_residents); the scratches planes
+// (m_pad from rows x T) and uv [rows, T, N] float.
+int acx_radix_fold_matmul_t(const void* g, const void* wa_r, const void* wb,
+                            const void* wc, const void* ffr, const void* rot,
+                            const void* op, void* planes, void* uv,
+                            void* out, int rows, int t_in, int N, int dtype,
+                            int tier, void* stream) {
+  if (!shape_ok(rows, t_in, N, dtype, tier) || t_in < 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* const w[4] = {wa_r, wb, wc, ffr};
+  const int rc =
+      dtype == F32
+          ? launch_radix<float, true, true>(g, w, rot, op, planes, uv, out,
+                                            rows, t_in, N, tier, st)
+          : launch_radix<bf16, true, true>(g, w, rot, op, planes, uv, out,
+                                           rows, t_in, N, tier, st);
   return rc ? rc : (int)cudaGetLastError();
 }
 

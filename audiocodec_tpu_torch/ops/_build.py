@@ -91,9 +91,11 @@ def library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "acx_fold_matmul": [ptr] * 8 + [i32] * 5 + [f32, ptr],
+        "acx_fold_matmul_t": [ptr] * 8 + [i32] * 5 + [ptr],
         "acx_matmul_scatter": [ptr] * 9 + [i32] * 5 + [f32, ptr],
         "acx_tc_shared_bytes": [i32] * 3,
         "acx_radix_fold_matmul": [ptr] * 10 + [i32] * 5 + [ptr],
+        "acx_radix_fold_matmul_t": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_radix_matmul_scatter": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_add_masked_noise": [ptr] * 3 + [
             ctypes.c_longlong, ctypes.c_uint, i32, f32, ptr,

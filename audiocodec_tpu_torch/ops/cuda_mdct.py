@@ -32,10 +32,12 @@ versions take and ignore it.
 
 Each kernel has a ``torch.autograd.Function`` (:data:`FUNCTIONS`) whose
 backward is its VJP wrapper (``*_vjp``, replacing ``pallas_mdct.py``
-``_fold_matmul_bwd`` and its three siblings): the other direction's kernel
-on the block-reversed cotangent with remapped residents, counted apart
-from the forward launches; the plain versions ``*_vjp_reference`` run the
-other direction's plain version.
+``_fold_matmul_bwd`` and its three siblings), counted apart from the
+forward launches, with remapped residents: the analysis VJPs run the
+synthesis kernel on the block-reversed cotangent; the synthesis VJPs are
+one launch of the analysis route in a transposed-fold mode that reads the
+cotangent in place (see "The VJPs" below). The plain versions
+``*_vjp_reference`` compute the same in torch.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ SPLIT_PLANES = {"highest": 3, "high": 3}
 RADIX_PLANES = {**SPLIT_PLANES, "default": 1}
 SPLIT_ROWS = 128  # A rows of a split_gemm_kernel block (csrc SPLIT_BM)
 _TIERS = {"highest": 0, "default": 1, "int8": 2, "high": 3}
-_RADIX_TIERS = {t: v for t, v in _TIERS.items() if t != "int8"}
+# the tiers on float operands: the radix kernels' and the synthesis VJPs'
+_FLOAT_TIERS = {t: v for t, v in _TIERS.items() if t != "int8"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -174,12 +177,20 @@ def radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
     """Plain version of :func:`radix_fold_matmul`: the fold and the
     rotation in x's dtype, the two products at the tier and the butterfly
     in float32; out in x's dtype. ``operand`` is not read."""
-    _check_tier(precision, _RADIX_TIERS)
-    h = x.shape[-1] // 2
-    rt = _radix.rotate(_folding.fold(x, wa_r, wb, wc, ffr), rot)
+    _check_tier(precision, _FLOAT_TIERS)
+    return _radix_products(_folding.fold(x, wa_r, wb, wc, ffr), rot, mats,
+                           precision)
+
+
+def _radix_products(folded, rot, mats, precision):
+    """The radix analysis after the fold: the rotation in the folded
+    frames' dtype, the two products at the tier and the butterfly in
+    float32; out in the folded frames' dtype."""
+    h = folded.shape[-1] // 2
+    rt = _radix.rotate(folded, rot)
     u = _dct.matmul(rt[..., :h], mats[0], precision)
     v2 = _dct.matmul(rt[..., h:], mats[1], precision)
-    return _radix.butterfly(u, v2).to(x.dtype)
+    return _radix.butterfly(u, v2).to(folded.dtype)
 
 
 def radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
@@ -188,7 +199,7 @@ def radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
     butterfly in y's dtype, the two products at the tier and the transposed
     rotation in float32, rounded to y's dtype, then the overlap scatter in
     y's dtype. ``operand`` is not read."""
-    _check_tier(precision, _RADIX_TIERS)
+    _check_tier(precision, _FLOAT_TIERS)
     us, vs = _radix.butterfly_t(y)
     rs = _dct.matmul(us, mats[0], precision)
     ts = _dct.matmul(vs, mats[1], precision)
@@ -202,16 +213,17 @@ def _check_tier(precision, tiers=_TIERS):
                          f"kernel's tiers {sorted(tiers)}")
 
 
-def _check(x, weights, mat, precision, mat_shape=None, tiers=_TIERS):
+def _check(x, weights, mat, precision, mat_shape=None, tiers=_TIERS,
+           frames=1):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for a tensor on {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel input must be float32 or bfloat16, got "
                         f"{x.dtype}")
     _check_tier(precision, tiers)
-    if x.dim() != 3 or x.shape[1] < 1 or x.shape[2] % 256:
-        raise ValueError("kernel input must be [rows, T>=1, N] with N a "
-                         f"multiple of 256, got {tuple(x.shape)}")
+    if x.dim() != 3 or x.shape[1] < frames or x.shape[2] % 256:
+        raise ValueError(f"kernel input must be [rows, T>={frames}, N] with "
+                         f"N a multiple of 256, got {tuple(x.shape)}")
     rows, t, n = x.shape
     if rows * (t + 1) * n >= 2**31:
         raise ValueError(f"{tuple(x.shape)} is too large for 32-bit indices")
@@ -382,10 +394,10 @@ def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0,
     return out
 
 
-def _check_radix(x, weights, rot, mats, precision, operand):
+def _check_radix(x, weights, rot, mats, precision, operand, frames=1):
     n = x.shape[-1]
     _check(x, weights, mats, precision, mat_shape=(2, n // 2, n // 2),
-           tiers=_RADIX_TIERS)
+           tiers=_FLOAT_TIERS, frames=frames)
     if (rot.shape != (2, n) or rot.dtype != x.dtype
             or rot.device != x.device or not rot.is_contiguous()):
         raise ValueError(f"rotation must be a contiguous [2, {n}] {x.dtype} "
@@ -394,15 +406,19 @@ def _check_radix(x, weights, rot, mats, precision, operand):
     _check_operand(x, operand, precision, radix=True)
 
 
-def _launch_radix(entry, x, weights, rot, mats, precision, operand, frames):
-    """One radix direction: ``entry`` of the library on x [rows, T, N], its
+def _launch_radix(entry, x, weights, rot, mats, precision, operand, frames,
+                  out_frames):
+    """One radix route: ``entry`` of the library on x [rows, T, N], its
     split GEMM's A planes over ``frames`` frames a row, the float products
-    [rows, frames, N] and the output [rows, T+1, N]."""
-    _check_radix(x, weights, rot, mats, precision, operand)
+    [rows, frames, N] and the output [rows, out_frames, N] (T+1 frames in
+    either direction, T-1 in the transposed fold of the synthesis VJP)."""
+    transposed = out_frames < x.shape[1]  # the VJP's fold reads T >= 2
+    _check_radix(x, weights, rot, mats, precision, operand,
+                 frames=2 if transposed else 1)
     from audiocodec_tpu_torch.ops import _build
 
     rows, t, n = x.shape
-    out = torch.empty(rows, t + 1, n, dtype=x.dtype, device=x.device)
+    out = torch.empty(rows, out_frames, n, dtype=x.dtype, device=x.device)
     planes = _split_scratch(x, rows * frames, RADIX_PLANES[precision])
     prod = torch.empty(rows, frames, n, dtype=torch.float32, device=x.device)
     rc = getattr(_build.library(), entry)(
@@ -418,8 +434,9 @@ def _launch_radix(entry, x, weights, rot, mats, precision, operand, frames):
 
 def _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision,
                               operand=None):
+    t = x.shape[1]
     return _launch_radix("acx_radix_fold_matmul", x, (wa_r, wb, wc, ffr),
-                         rot, mats, precision, operand, x.shape[1] + 1)
+                         rot, mats, precision, operand, t + 1, t + 1)
 
 
 def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest",
@@ -439,8 +456,9 @@ def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest",
 
 def _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision,
                                  operand=None):
+    t = y.shape[1]
     return _launch_radix("acx_radix_matmul_scatter", y, (p, q, r, s_r), rot,
-                         mats, precision, operand, y.shape[1])
+                         mats, precision, operand, t, t + 1)
 
 
 def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest",
@@ -474,12 +492,27 @@ def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest",
 #     along one axis, the rotation's quarters reversed and exchanged
 #     (:func:`radix_fold_vjp_residents`, :func:`radix_unfold_vjp_residents`).
 #
-# The analysis VJP swaps the lane halves of its output, the synthesis VJP
-# those of its input; both reverse the blocks of the result and drop its
-# first and last frame. Every remapping is a sign, a permutation or a
-# transpose, exact in bfloat16, built once on the host side of a module
-# (mdct.py). At int8 the backward is straight-through: the ``default`` tier
-# on the dequantized matrix, q * (mat_scale * 127).
+# Every remapping is a sign, a permutation or a transpose, exact in
+# bfloat16, built once on the host side of a module (mdct.py). At int8 the
+# backward is straight-through: the ``default`` tier on the dequantized
+# matrix, q * (mat_scale * 127).
+#
+# The synthesis VJP reads the cotangent g [rows, T+1, N] in place. Run as
+# written, it would be fold_matmul on x' = swap(flipT(g)) (flipT reverses
+# the blocks, swap exchanges the lane halves), T+2 frames out', reversed
+# and cut to frames 1..T. The flips cancel: result frame t is out'[T-t],
+# whose fold reads x'[T-t-1] = swap(g[t+1]) and x'[T-t] = swap(g[t]), so
+# it is the transposed fold (folding.fold_t) of g in natural order, T
+# frames and no zero frame, then the same product:
+#
+#   gf[t, k]   = wa_r[k]*g[t+1, N-1-k] + wb[k]*g[t+1, k]        (k < h)
+#   gf[t, h+j] = wc[j]*g[t, h+j]       - ffr[j]*g[t, h-1-j]     (j < h)
+#
+# Each element keeps fold's two products and one sum, the same weight on
+# the same load; only the addresses change. The kernels run it as a mode of
+# the analysis route (csrc acx_fold_matmul_t, acx_radix_fold_matmul_t): one
+# launch, no torch pass. The analysis VJP still runs the synthesis kernel
+# on flipT(g), then reverses, cuts and swaps its output (:func:`_flip_vjp`).
 
 
 def _swap(t: torch.Tensor) -> torch.Tensor:
@@ -544,22 +577,20 @@ def dequantized(q: torch.Tensor, mat_scale: float) -> torch.Tensor:
                                               dtype=torch.float32)
 
 
-def _vjp(g, run, args, analysis):
-    """The VJP of an analysis (``analysis``) or synthesis kernel, through
-    ``run``, the other direction's kernel or plain version, with its
-    remapped residents ``args``."""
-    gr = torch.flip(g, (1,))
-    if not analysis:
-        gr = _swap(gr)
-    full = torch.flip(run(kernel_input(gr, g.dtype), *args), (1,))[:, 1:-1]
-    return _swap(full) if analysis else full
+def _flip_vjp(g, run, args):
+    """The VJP of an analysis kernel through ``run``, the synthesis kernel
+    or its plain version, with its remapped residents ``args``: run on the
+    block-reversed cotangent, then reversed, cut by its first and last
+    frame, its lane halves swapped."""
+    gr = kernel_input(torch.flip(g, (1,)), g.dtype)
+    return _swap(torch.flip(run(gr, *args), (1,))[:, 1:-1])
 
 
 def fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision="highest",
                               operand=None):
     """Plain version of :func:`fold_matmul_vjp`."""
-    return _vjp(g, matmul_scatter_reference, (p, q, r, s_r, mat, precision),
-                True)
+    return _flip_vjp(g, matmul_scatter_reference,
+                     (p, q, r, s_r, mat, precision))
 
 
 def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest",
@@ -570,30 +601,56 @@ def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest",
     :func:`synthesis_operand`."""
     if g.device.type == "cpu":
         return fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision)
-    out = _vjp(g, _launch_matmul_scatter,
-               (p, q, r, s_r, mat, precision, 1.0, operand), True)
+    out = _flip_vjp(g, _launch_matmul_scatter,
+                    (p, q, r, s_r, mat, precision, 1.0, operand))
     fold_matmul_vjp.launches += 1
     return out
 
 
 def matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
                                  precision="highest", operand=None):
-    """Plain version of :func:`matmul_scatter_vjp`."""
-    return _vjp(g, fold_matmul_reference, (wa_r, wb, wc, ffr, mat, precision),
-                False)
+    """Plain version of :func:`matmul_scatter_vjp`: the transposed fold
+    (:func:`folding.fold_t`) in g's dtype, then the tier's matmul; out in
+    g's dtype. ``operand`` is not read."""
+    _check_tier(precision, _FLOAT_TIERS)
+    folded = _folding.fold_t(g, wa_r, wb, wc, ffr)
+    return tier_matmul(folded, mat, precision, 1.0, grouped=False).to(g.dtype)
+
+
+def _launch_fold_matmul_t(g, wa_r, wb, wc, ffr, mat, precision, operand):
+    weights = (wa_r, wb, wc, ffr)
+    _check(g, weights, mat, precision, tiers=_FLOAT_TIERS, frames=2)
+    _check_operand(g, operand, precision)
+    from audiocodec_tpu_torch.ops import _build
+
+    rows, t1, n = g.shape
+    out = torch.empty(rows, t1 - 1, n, dtype=g.dtype, device=g.device)
+    planes = _split_scratch(g, rows * (t1 - 1), SPLIT_PLANES.get(precision))
+    rc = _build.library().acx_fold_matmul_t(
+        g.data_ptr(), *(w.data_ptr() for w in weights), operand.data_ptr(),
+        _ptr(planes), out.data_ptr(), rows, t1, n, _DTYPES[g.dtype],
+        _TIERS[precision], _stream(g),
+    )
+    if rc:
+        raise RuntimeError(
+            f"matmul_scatter_vjp kernel launch failed: CUDA error {rc}"
+        )
+    return out
 
 
 def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
                        operand=None):
     """The VJP of :func:`matmul_scatter`: the cotangent [rows, T+1, N] ->
-    [rows, T, N] through the analysis kernel, with the residents of
+    [rows, T, N], one launch of the analysis route in its transposed-fold
+    mode (g read in place, in natural order), with the residents of
     :func:`unfold_vjp_weights` and :func:`unfold_vjp_matrix` and that
-    matrix's :func:`analysis_operand`."""
+    matrix's :func:`analysis_operand`. The tiers: ``highest``, ``high``,
+    ``default`` (the int8 tier's straight-through backward)."""
     if g.device.type == "cpu":
         return matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, mat,
                                             precision)
-    out = _vjp(g, _launch_fold_matmul,
-               (wa_r, wb, wc, ffr, mat, precision, 1.0, operand), False)
+    out = _launch_fold_matmul_t(g, wa_r, wb, wc, ffr, mat, precision,
+                                operand)
     matmul_scatter_vjp.launches += 1
     return out
 
@@ -601,8 +658,8 @@ def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
 def radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
                                     precision="highest", operand=None):
     """Plain version of :func:`radix_fold_matmul_vjp`."""
-    return _vjp(g, radix_matmul_scatter_reference,
-                (p, q, r, s_r, rot, mats, precision), True)
+    return _flip_vjp(g, radix_matmul_scatter_reference,
+                     (p, q, r, s_r, rot, mats, precision))
 
 
 def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest",
@@ -614,30 +671,36 @@ def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest",
     if g.device.type == "cpu":
         return radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
                                                precision)
-    out = _vjp(g, _launch_radix_matmul_scatter,
-               (p, q, r, s_r, rot, mats, precision, operand), True)
+    out = _flip_vjp(g, _launch_radix_matmul_scatter,
+                    (p, q, r, s_r, rot, mats, precision, operand))
     radix_fold_matmul_vjp.launches += 1
     return out
 
 
 def radix_matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, rot, mats,
                                        precision="highest", operand=None):
-    """Plain version of :func:`radix_matmul_scatter_vjp`."""
-    return _vjp(g, radix_fold_matmul_reference,
-                (wa_r, wb, wc, ffr, rot, mats, precision), False)
+    """Plain version of :func:`radix_matmul_scatter_vjp`: the transposed
+    fold (:func:`folding.fold_t`) and the rotation in g's dtype, the two
+    products at the tier and the butterfly in float32; out in g's dtype.
+    ``operand`` is not read."""
+    _check_tier(precision, _FLOAT_TIERS)
+    return _radix_products(_folding.fold_t(g, wa_r, wb, wc, ffr), rot, mats,
+                           precision)
 
 
 def radix_matmul_scatter_vjp(g, wa_r, wb, wc, ffr, rot, mats,
                              precision="highest", operand=None):
-    """The VJP of :func:`radix_matmul_scatter` through the radix analysis
-    kernel, with the residents of :func:`unfold_vjp_weights` and
-    :func:`radix_unfold_vjp_residents` and those factors'
-    :func:`radix_operand`."""
+    """The VJP of :func:`radix_matmul_scatter`: the cotangent [rows, T+1,
+    N] -> [rows, T, N], one launch of the radix analysis route in its
+    transposed-fold mode (g read in place), with the residents of
+    :func:`unfold_vjp_weights` and :func:`radix_unfold_vjp_residents` and
+    those factors' :func:`radix_operand`."""
     if g.device.type == "cpu":
         return radix_matmul_scatter_vjp_reference(g, wa_r, wb, wc, ffr, rot,
                                                   mats, precision)
-    out = _vjp(g, _launch_radix_fold_matmul,
-               (wa_r, wb, wc, ffr, rot, mats, precision, operand), False)
+    t = g.shape[1]
+    out = _launch_radix("acx_radix_fold_matmul_t", g, (wa_r, wb, wc, ffr),
+                        rot, mats, precision, operand, t - 1, t - 1)
     radix_matmul_scatter_vjp.launches += 1
     return out
 

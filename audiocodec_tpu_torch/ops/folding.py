@@ -2,7 +2,8 @@
 
 The numpy float64 builders are copies of ``audiocodec_tpu/ops/folding.py``
 (the port must not import the JAX package); :func:`fold` and :func:`unfold`
-are its tensor functions in torch. See that module for the derivation.
+are its tensor functions in torch, and :func:`fold_t` the transposed fold of
+the synthesis VJP. See that module for the derivation.
 
   analysis   folded[n, k]   = wa_r[k]*x[n-1, h-1-k] + wb[k]*x[n-1, h+k]   (k < h)
              folded[n, h+j] = wc[j]*x[n, j]        - ffr[j]*x[n, N-1-j]  (j < h)
@@ -78,6 +79,25 @@ def fold(x_blocks: torch.Tensor, wa_r, wb, wc, ffr) -> torch.Tensor:
     zeros = torch.zeros_like(to_next[..., :1, :])
     lower = torch.cat([zeros, to_next], dim=-2)
     upper = torch.cat([to_cur, zeros], dim=-2)
+    return torch.cat([lower, upper], dim=-1)
+
+
+def fold_t(g_blocks: torch.Tensor, wa_r, wb, wc, ffr) -> torch.Tensor:
+    """Transposed fold: [..., blocks+1, N] -> [..., blocks, N], the fold of
+    the synthesis VJP read from the cotangent in its natural order,
+
+      gf[n, k]   = wa_r[k]*g[n+1, N-1-k] + wb[k]*g[n+1, k]   (k < h)
+      gf[n, h+j] = wc[j]*g[n, h+j]       - ffr[j]*g[n, h-1-j] (j < h)
+
+    with the weights of ``cuda_mdct.unfold_vjp_weights``. Each element has
+    :func:`fold`'s products and sum, with the same weight on the same side:
+    ``fold(swap(flipT(g)))`` reversed in its blocks and cut by its first and
+    last block, bit for bit (flipT reverses the blocks, swap exchanges the
+    halves of the last axis)."""
+    h = g_blocks.shape[-1] // 2
+    nxt, cur = g_blocks[..., 1:, :], g_blocks[..., :-1, :]
+    lower = torch.flip(nxt[..., h:], (-1,)) * wa_r + nxt[..., :h] * wb
+    upper = cur[..., h:] * wc - torch.flip(cur[..., :h], (-1,)) * ffr
     return torch.cat([lower, upper], dim=-1)
 
 

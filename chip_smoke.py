@@ -7,7 +7,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from audiocodec_tpu_torch/csrc/; each of the
-   eight ``tc_kernel`` instances and the three ``probe_kernel`` ones
+   ten ``tc_kernel`` instances and the three ``probe_kernel`` ones
    (bf16, int8, int8g) must hold warpgroup MMA (HGMMA or IGMMA) and TMA
    load (UTMALDG) instructions in its SASS (cuobjdump), each
    ``split_gemm_kernel`` instance (the split tiers and the radix products)
@@ -53,15 +53,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    mono and radix designs are timed side by side in ``round_trip_fast`` at
    N=2048, at ``highest`` and bf16 ``default``, and the mono design at
    ``high`` and int8 (its one-pass kernels run K in two passes there);
-11. each VJP (``ops/cuda_mdct.py`` ``*_vjp``: the other direction's kernel
-   on the block-reversed cotangent) against ``torch.autograd.grad``
-   through its plain forward version on the same seeded cotangent, at the
-   main path's shapes: mono [32, 430, 1024] at f32 ``highest``, f32
-   ``high``, f32 ``default``, bf16 ``default`` and int8 (straight-through:
-   against the ``default`` forward on the dequantized matrix), radix [32,
-   215, 2048] at f32 ``highest`` and bf16 ``default``; each timed against
-   its plain version and a conv1d / conv_transpose1d call of the same
-   function;
+11. each VJP (``ops/cuda_mdct.py`` ``*_vjp``) against
+   ``torch.autograd.grad`` through its plain forward version on the same
+   seeded cotangent, at the main path's shapes: mono [32, 430, 1024] at f32
+   ``highest``, f32 ``high``, f32 ``default``, bf16 ``default`` and int8
+   (straight-through: against the ``default`` forward on the dequantized
+   matrix), radix [32, 215, 2048] at f32 ``highest`` and bf16 ``default``;
+   each timed against its plain version and a conv1d / conv_transpose1d
+   call of the same function. The synthesis VJPs (one call of the analysis
+   route in its transposed-fold mode, reading the cotangent in place) must
+   equal the flip route (the analysis wrapper on the reversed, lane-swapped
+   cotangent, reversed and cut; composed here) bit for bit at every tier,
+   there and at 5 rows of 1, 127 and 129 frames, and their trace must hold
+   the route's device functions only; the analysis VJPs (the synthesis
+   kernel on the block-reversed cotangent) are timed with their torch
+   flips and swaps alone;
 12. training at full width (32 mono clips of 10 s, 64 Bark bands), Adam
    1e-3: ``SpectralAE(1024, 512, 64, 1/32)`` in (r) f32 ``highest`` and (b)
    bf16 ``default``, the per-band-gain trainer in (r2) f32 ``highest``
@@ -351,6 +357,9 @@ def ptxas_summary(log):
 # them) and TMA loads in SASS, and the kernels that must hold them
 SASS_OPS = ("HGMMA", "HGMMA.F32.BF16", "IGMMA", "UTMALDG")
 TENSOR_CORE_KERNELS = ("tc_kernel", "split_gemm_kernel", "probe_kernel")
+# tc_kernel's instances: (float32, bf16 input) x (analysis, synthesis) x
+# (default, int8), and the synthesis VJP's transposed fold at default
+TC_INSTANCES = 10
 # GEMMs that the split wgmma core replaced, which must not come back
 RETIRED_GEMMS = ("ffma_gemm_kernel", "mma_gemm_kernel")
 
@@ -396,7 +405,8 @@ def tolerance(torch, ref, kernel, tier, dtype):
     return 1e-5 * peak
 
 
-# The other direction's kernel, which a VJP runs
+# The route whose device functions a VJP runs: the other direction's (the
+# synthesis VJPs run the analysis route in its transposed-fold mode)
 VJP_RUNS = {"fold_matmul": "matmul_scatter", "matmul_scatter": "fold_matmul",
             "radix_fold_matmul": "radix_matmul_scatter",
             "radix_matmul_scatter": "radix_fold_matmul"}
@@ -932,11 +942,51 @@ def vjp_tolerance(torch, want, tier, dtype):
     return 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
 
 
+def flip_route(torch, mdct, g):
+    """The synthesis VJP of ``mdct`` composed from the analysis kernel's
+    public wrapper and torch flips, which the transposed-fold route must
+    equal bit for bit: the wrapper on the block-reversed cotangent with its
+    lane halves exchanged, reversed back and cut by its first and last
+    frame."""
+    from audiocodec_tpu_torch.ops import cuda_mdct
+
+    args = mdct.vjp_args("inverse")
+    h = g.shape[-1] // 2
+    gr = torch.flip(g, (1,))
+    gr = torch.cat([gr[..., h:], gr[..., :h]], dim=-1).contiguous()
+    if mdct.kernel_design == "radix":
+        out = cuda_mdct.radix_fold_matmul(gr, *args)
+    else:  # the analysis wrapper takes mat_scale before the operand
+        out = cuda_mdct.fold_matmul(gr, *args[:-1], 1.0, args[-1])
+    return torch.flip(out, (1,))[:, 1:-1]
+
+
+def autograd_vjp(torch, mdct, direction, inp, cot):
+    """The gradient of the plain forward version of ``mdct``'s kernel of
+    ``direction`` at ``inp`` along ``cot`` (at int8 the straight-through
+    reference: the ``default`` forward on the dequantized matrix)."""
+    from audiocodec_tpu_torch.ops import cuda_mdct
+
+    name = mdct.kernel_name(direction)
+    args = mdct.kernel_args(direction)
+    if mdct.kernel_precision == "int8":
+        d = "fwd" if direction == "forward" else "inv"
+        deq = cuda_mdct.dequantized(getattr(mdct, f"kernel_q_{d}"), args[6])
+        args = (*args[:4], deq, "default", 1.0)
+    xg = inp.detach().requires_grad_()
+    plain = getattr(cuda_mdct, f"{name}_reference")
+    return torch.autograd.grad(plain(xg, *args), xg, cot)[0]
+
+
 def vjp_phase(torch, dev, entries):
     """11. Each VJP against torch.autograd through its plain forward
     version on the same cotangent (numpy seed) at the main path's shapes,
-    timed against its plain version, with the time of its block flips and
-    lane-half swaps (torch passes) alone."""
+    timed against its plain version. The synthesis VJPs (one call of the
+    analysis route in its transposed-fold mode) also equal the flip route
+    bit for bit, there and at 5 rows of 1, 127 and 129 frames, and their
+    trace holds the route's device functions only; the analysis VJPs are
+    timed with their block flips and lane-half swaps (torch passes)
+    alone."""
     import numpy as np
 
     from audiocodec_tpu_torch import MDCT
@@ -954,25 +1004,15 @@ def vjp_phase(torch, dev, entries):
                                               *mdct.kernel_args("forward"))
         for direction, inp in (("forward", rows), ("inverse", spectrum)):
             name = mdct.kernel_name(direction)
-            args, vjp_args = (mdct.kernel_args(direction),
-                              mdct.vjp_args(direction))
+            vjp_args = mdct.vjp_args(direction)
             cot = torch.from_numpy(rng.uniform(
                 -1.0, 1.0, (BATCH, inp.shape[1] + 1, n)).astype(np.float32)
             ).to(dev, inp.dtype)
             vjp = getattr(cuda_mdct, f"{name}_vjp")
             plain_vjp = getattr(cuda_mdct, f"{name}_vjp_reference")
-            plain = getattr(cuda_mdct, f"{name}_reference")
-            plain_args = args
-            if tier == "int8":  # straight-through: default, dequantized
-                d = "fwd" if direction == "forward" else "inv"
-                deq = cuda_mdct.dequantized(getattr(mdct, f"kernel_q_{d}"),
-                                            args[6])
-                plain_args = (*args[:4], deq, "default", 1.0)
             got = vjp(cot, *vjp_args)
-            xg = inp.detach().requires_grad_()
-            want, = torch.autograd.grad(plain(xg, *plain_args), xg, cot)
+            want = autograd_vjp(torch, mdct, direction, inp, cot)
             torch.cuda.synchronize()
-            del xg
             check(got.shape == want.shape == inp.shape,
                   f"{name}_vjp {tier}: shape {tuple(got.shape)}")
             err = float((got.float() - want.float()).abs().max())
@@ -980,13 +1020,24 @@ def vjp_phase(torch, dev, entries):
                                .float()).abs().max())
             tol = vjp_tolerance(torch, want, tier, inp.dtype)
             ms = cuda_ms(torch, lambda: vjp(cot, *vjp_args))
+            by_function = function_ms(torch, lambda: vjp(cot, *vjp_args))
             plain_ms = cuda_ms(torch, lambda: plain_vjp(cot, *vjp_args),
                                iters=10)
             analysis = direction == "forward"
-            full = torch.empty(BATCH, cot.shape[1] + 1, n, dtype=inp.dtype,
-                               device=dev)
-            glue_ms = cuda_ms(torch, lambda: cuda_mdct._vjp(
-                cot, lambda *_: full, (), analysis))
+            route = dict(glue_ms=None, flip_route_ms=None, ragged={})
+            if analysis:
+                full = torch.empty(BATCH, cot.shape[1] + 1, n,
+                                   dtype=inp.dtype, device=dev)
+                route["glue_ms"] = cuda_ms(torch, lambda: cuda_mdct._flip_vjp(
+                    cot, lambda *_: full, ()))
+                del full
+                extra = f"flips/swaps {route['glue_ms']:.4f} ms"
+            else:
+                route.update(synthesis_vjp_route(torch, mdct, cot, got, rng,
+                                                 by_function))
+                extra = (f"the flip route {route['flip_route_ms']:.4f} ms "
+                         "(bit-equal here and at T=" + ", ".join(
+                             map(str, route["ragged"])) + ")")
             spectrum_frames = cot.shape[1] if analysis else got.shape[1]
             bound_ms, bound_by, ffma_bound_ms = bound(
                 gemm_flops(spectrum_frames, n, radix),
@@ -1003,9 +1054,10 @@ def vjp_phase(torch, dev, entries):
                   f"{tuple(got.shape)}: max_abs_err {err:.3e} (tol "
                   f"{tol:.3e}; against the VJP's plain version "
                   f"{plain_err:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-                  f"flips/swaps {glue_ms:.4f} ms, library {library_ms} ms "
-                  f"(max_abs_err {library_err}), bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+                  f"{extra}, library {library_ms} ms (max_abs_err "
+                  f"{library_err}), bound {bound_ms:.4f} ms ({bound_by}); "
+                  "device ms " + ", ".join(
+                      f"{f} {t:.4f}" for f, t in by_function.items()))
             check(err <= tol, f"{name}_vjp {tier} {dtype}: error {err} > "
                   f"{tol}")
             config = (f"train ({k})" if not analysis and k in TRAIN_CONFIGS
@@ -1014,12 +1066,56 @@ def vjp_phase(torch, dev, entries):
                                  route_tier=mdct.vjp_precision,
                                  max_abs_err=err, tol=tol,
                                  plain_version_err=plain_err, ms=ms,
-                                 plain_ms=plain_ms, glue_ms=glue_ms,
+                                 plain_ms=plain_ms, **route,
                                  bound_ms=bound_ms, bound_by=bound_by,
                                  ffma_bound_ms=ffma_bound_ms,
-                                 library_ms=library_ms))
-            del cot, got, want, full
+                                 library_ms=library_ms,
+                                 function_ms=by_function))
+            del cot, got, want
         del mdct, rows, spectrum
+
+
+def synthesis_vjp_route(torch, mdct, cot, got, rng, by_function):
+    """11, continued: the synthesis VJP ``got`` of ``mdct`` at the main
+    path's shape equals the flip route bit for bit, and its trace
+    ``by_function`` holds the analysis route's device functions only (no
+    torch pass); then the same equality, and the tolerance against
+    autograd, at 5 rows of 1, 127 and 129 frames. Returns the flip route's
+    time and the ragged errors."""
+    import numpy as np
+
+    from audiocodec_tpu_torch.ops import cuda_mdct
+
+    name = f"{mdct.kernel_name('inverse')}_vjp"
+    tier, n = mdct.kernel_precision, mdct.filters_n
+    vjp = getattr(cuda_mdct, name)
+    vjp_args = mdct.vjp_args("inverse")
+    old = flip_route(torch, mdct, cot)
+    check(torch.equal(got, old), f"{name} {tier}: not the flip route's bits "
+          f"(max_abs_err {float((got.float() - old.float()).abs().max())})")
+    route = device_functions(name, mdct.vjp_precision)
+    stray = [f for f in by_function if f not in route]
+    check(not stray, f"{name} {tier}: device functions {stray} outside its "
+          f"route {route}")
+    ragged = {}
+    for blocks in (1, 127, 129):
+        y = torch.from_numpy(rng.uniform(-1.0, 1.0, (5, blocks, n)).astype(
+            np.float32)).to(cot.device, cot.dtype)
+        g = torch.from_numpy(rng.uniform(
+            -1.0, 1.0, (5, blocks + 1, n)).astype(np.float32)).to(
+            cot.device, cot.dtype)
+        out = vjp(g, *vjp_args)
+        want = autograd_vjp(torch, mdct, "inverse", y, g)
+        err = float((out.float() - want.float()).abs().max())
+        tol = vjp_tolerance(torch, want, tier, g.dtype)
+        check(out.shape == (5, blocks, n) and torch.equal(
+            out, flip_route(torch, mdct, g)),
+              f"{name} {tier} T={blocks}: not the flip route's bits")
+        check(err <= tol, f"{name} {tier} T={blocks}: error {err} > {tol}")
+        ragged[blocks] = err
+    return dict(flip_route_ms=cuda_ms(torch, lambda: flip_route(torch, mdct,
+                                                                cot)),
+                ragged=ragged)
 
 
 def trainer(torch, codec, model, x):
@@ -1550,10 +1646,11 @@ def main() -> int:
         print(f"sass: e.g. {line}")
     tc = {k: ops for k, ops in sass.items() if "tc_kernel" in k}
     split = {k: ops for k, ops in sass.items() if "split_gemm_kernel" in k}
-    check(len(tc) == 8 and all(
+    check(len(tc) == TC_INSTANCES and all(
         (ops["HGMMA"] or ops["IGMMA"]) and ops["UTMALDG"]
         for ops in tc.values()),
-        f"tc_kernel: not 8 instances with wgmma and TMA in SASS: {tc}")
+        f"tc_kernel: not {TC_INSTANCES} instances with wgmma and TMA in "
+        f"SASS: {tc}")
     check(split and all(
         ops["HGMMA.F32.BF16"] and ops["UTMALDG"] for ops in split.values()),
         "split_gemm_kernel: an instance without bf16 wgmma into float32 or "

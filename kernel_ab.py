@@ -21,9 +21,13 @@ the gains at N=2048 through the radix kernels): the wall time per
 call (CUDA events around 20 calls, 10 steps, issued back to back) and,
 from a torch.profiler trace of 10 calls, the device's busy time per call
 (the union of its kernels' spans), which does not depend on how fast the
-host issues the call's kernels. A case one tree has no kernel for is left
-out. The last line is a JSON object with every turn's times and, per
-case, the mean of each tree and their ratio.
+host issues the call's kernels; a training step also gives the peak of
+allocated device memory over one step (MB, after a first step). A case
+one tree has no kernel for is left out. Then, for each kernel instance of
+this tree's library, the other tree's instance with the same SASS
+(cuobjdump), if any. The last line is a JSON object with every turn's
+numbers (ms, or MB), per case each tree's and their ratio of means, and
+those SASS twins.
 
 Exits non-zero without a CUDA device. Imports torch, chip_smoke.py (its
 configurations and timer) and the trees' ``audiocodec_tpu_torch`` only.
@@ -32,6 +36,8 @@ configurations and timer) and the trees' ``audiocodec_tpu_torch`` only.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -69,6 +75,38 @@ def busy_ms(torch, fn, calls=10):
         elif end > reach:
             busy, reach = busy + end - reach, end
     return busy / 1e3 / calls
+
+
+def sass_bodies(tree: Path) -> dict:
+    """{kernel instance: its SASS instructions} of the library the tree's
+    workers built (cuobjdump), with the anonymous namespaces' hashes, the
+    addresses and the branch labels left out."""
+    lib = subprocess.run(
+        [sys.executable, "-c", "from audiocodec_tpu_torch.ops import _build; "
+         "print(_build.build()[0])"], cwd=tree, capture_output=True,
+        text=True, check=True).stdout.split()[-1]
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    bodies, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = re.sub(r"_ZN\d+_GLOBAL__N__\w{8}_\d+_\w+?_cu_\w{8}", "",
+                          ln.split("Function :", 1)[1].strip())
+            bodies[name] = []
+        elif name and (m := re.match(r"\s*/\*[0-9a-f]+\*/\s*(.*?);", ln)):
+            bodies[name].append(re.sub(r"\.L_x_\d+", ".L", m.group(1)))
+    return bodies
+
+
+def sass_twins(this: Path, other: Path) -> dict:
+    """Per kernel instance of this tree, the other tree's instance whose
+    SASS is the same instruction for instruction (None if there is none):
+    a kernel the change did not touch keeps its twin."""
+    twins = {tuple(body): name
+             for name, body in sass_bodies(other).items()}
+    return {name: twins.get(tuple(body))
+            for name, body in sass_bodies(this).items()}
 
 
 def worker(tree: Path) -> dict:
@@ -151,6 +189,13 @@ def worker(tree: Path) -> dict:
                                  device="cuda", **cs.VJP_CASES[label])
         _, _, step = cs.trainer(torch, codec, model, x)
         call = lambda: step(gen.manual_seed(cs.SEED))  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        times[f"train ({label}) {model} step peak MB"] = (
+            torch.cuda.max_memory_allocated() / 2**20)
         times[f"train ({label}) {model} step wall"] = cs.cuda_ms(
             torch, call, iters=10)
         times[f"train ({label}) {model} step device busy"] = busy_ms(
@@ -198,12 +243,18 @@ def main() -> int:
                 for t in ("other", "this")}
         spread = {t: [x["times"][case] for x in turns if x["tree"] == t]
                   for t in ("other", "this")}
-        summary[case] = dict(other_ms=spread["other"], this_ms=spread["this"],
+        summary[case] = dict(other=spread["other"], this=spread["this"],
                              ratio=mean["this"] / mean["other"])
-        print(f"{case}: other {mean['other']:.4f} ms, this "
-              f"{mean['this']:.4f} ms, ratio {mean['this'] / mean['other']:.3f}"
-              f" (other {spread['other']}, this {spread['this']})")
-    print(json.dumps({"card": smi, "summary": summary}))
+        unit = "MB" if case.endswith(" MB") else "ms"
+        print(f"{case}: other {mean['other']:.4f} {unit}, this "
+              f"{mean['this']:.4f} {unit}, ratio "
+              f"{mean['this'] / mean['other']:.3f} (other {spread['other']}, "
+              f"this {spread['this']})")
+    twins = sass_twins(this, other)
+    for name, twin in twins.items():
+        print(f"sass: {name}: " + (f"identical to the other tree's {twin}"
+                                   if twin else "no identical instance"))
+    print(json.dumps({"card": smi, "summary": summary, "sass_twins": twins}))
     return 0
 
 

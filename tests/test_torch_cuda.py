@@ -393,6 +393,67 @@ def test_split_tier_vjps_at_ragged_frame_counts(precision, n, blocks):
         "mono", "float32", False, precision, n, blocks)
 
 
+# The device functions of the analysis routes, the synthesis VJPs' own
+ANALYSIS_ROUTES = ("tc_kernel", "split_kernel", "split_gemm_kernel",
+                   "fold_rotate_kernel", "butterfly_out_kernel")
+
+
+def _flip_route(m, g):
+    """The synthesis VJP composed from the analysis kernel (the public
+    wrapper) and torch flips: the kernel on the block-reversed cotangent
+    with its lane halves exchanged, reversed back and cut to T frames."""
+    vjp_args = m.vjp_args("inverse")
+    h = g.shape[-1] // 2
+    gr = torch.flip(g, (1,))
+    gr = torch.cat([gr[..., h:], gr[..., :h]], dim=-1).contiguous()
+    if m.kernel_design == "radix":
+        out = cuda_mdct.radix_fold_matmul(gr, *vjp_args)
+    else:  # the analysis wrapper takes mat_scale before the operand
+        out = cuda_mdct.fold_matmul(gr, *vjp_args[:-1], 1.0, vjp_args[-1])
+    return torch.flip(out, (1,))[:, 1:-1]
+
+
+@pytest.mark.parametrize("n,blocks", [(1024, 1), (1024, 129), (2048, 64)])
+@pytest.mark.parametrize("design,dtype,fast,precision", VJP_TIERS)
+def test_synthesis_vjp_is_one_transposed_fold_launch(design, dtype, fast,
+                                                     precision, n, blocks):
+    """The synthesis VJP (one call of the analysis route in its
+    transposed-fold mode) equals the flip route bit for bit, and a
+    torch.profiler trace of one call holds the route's kernels and nothing
+    else: no flip, cat, copy or slice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, kernel_design=design, device="cuda")
+    vjp = getattr(cuda_mdct, f"{m.kernel_name('inverse')}_vjp")
+    vjp_args = m.vjp_args("inverse")
+    gen = torch.Generator(device="cpu").manual_seed(blocks)
+    g = (torch.rand(3, blocks + 1, n, generator=gen) * 2 - 1).to(
+        "cuda", m.kernel_dtype)
+    cuda_mdct.reset_launch_counts()
+    got = vjp(g, *vjp_args)
+    torch.cuda.synchronize()
+    assert cuda_mdct.launch_counts() == _once(vjp.__name__)
+    assert got.shape == (3, blocks, n) and got.dtype == g.dtype
+    assert torch.equal(got, _flip_route(m, g))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vjp(g, *vjp_args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all(any(f in nm for f in ANALYSIS_ROUTES)
+                         for nm in names), names
+
+
+def test_synthesis_vjps_refuse_a_one_frame_cotangent():
+    """A cotangent of one frame has no VJP frame: refused before a launch."""
+    for design in ("mono", "radix"):
+        m = MDCT(256, use_kernel=True, kernel_design=design, device="cuda")
+        vjp = getattr(cuda_mdct, f"{m.kernel_name('inverse')}_vjp")
+        with pytest.raises(ValueError, match="T>=2"):
+            vjp(torch.zeros(2, 1, 256, device="cuda"), *m.vjp_args("inverse"))
+
+
 def _vjp_tol(want, tier, dtype):
     """chip_smoke.py's ``vjp_tolerance``: 2e-5 of the peak at float32
     ``highest``; four bf16 ulps of the peak at the one-pass tiers, whose

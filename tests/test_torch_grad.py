@@ -52,6 +52,69 @@ def _residents(name, n, dtype=torch.float64):
     return (*w, mat, "highest"), (*vw, vmat, "highest")
 
 
+def flip_route(g, forward, args):
+    """The synthesis VJP through the analysis ``forward`` composed with
+    torch flips: ``forward`` on the block-reversed cotangent with its lane
+    halves exchanged, reversed back and cut by its first and last frame
+    (T+2 frames out, T kept). The oracle of the transposed fold."""
+    h = g.shape[-1] // 2
+    gr = torch.flip(g, (1,))
+    gr = torch.cat([gr[..., h:], gr[..., :h]], dim=-1).contiguous()
+    return torch.flip(forward(gr, *args), (1,))[:, 1:-1]
+
+
+SYNTHESIS_VJP_TIERS = [  # (compute dtype, fast_bf16, precision)
+    ("float32", False, "highest"),
+    ("float32", False, "high"),
+    ("float32", False, "int8"),  # straight-through: default, dequantized
+    ("bfloat16", True, "default"),
+]
+
+
+def _cotangent(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("frames", [2, 9, 130])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fold_t_is_the_flipped_fold(dtype, n, frames):
+    """folding.fold_t of the cotangent (T+1 frames) equals the fold of its
+    reversed, lane-swapped blocks, reversed back and cut to T frames, bit
+    for bit, with the synthesis VJP's weights in the working dtype."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=dtype == "bfloat16",
+             use_kernel=True, device="cpu")
+    weights = m.vjp_args("inverse")[:4]
+    assert {w.dtype for w in weights} == {getattr(torch, dtype)}
+    g = _cotangent((3, frames, n), dtype, frames)
+    got = folding.fold_t(g, *weights)
+    assert got.shape == (3, frames - 1, n) and got.dtype == g.dtype
+    assert torch.equal(got, flip_route(g, folding.fold, weights))
+
+
+@pytest.mark.parametrize("frames", [2, 9, 130])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype,fast,precision", SYNTHESIS_VJP_TIERS)
+def test_matmul_scatter_vjp_is_the_flip_route(dtype, fast, precision, n,
+                                              frames):
+    """The mono synthesis VJP's plain version (the transposed fold, then
+    the product), and the wrapper on a CPU tensor, equal the flip route
+    through the analysis's plain version bit for bit."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, device="cpu")
+    vjp_args = m.vjp_args("inverse")
+    g = _cotangent((3, frames, n), dtype, n + frames)
+    want = flip_route(g, cuda_mdct.fold_matmul_reference, vjp_args[:-1])
+    got = cuda_mdct.matmul_scatter_vjp_reference(g, *vjp_args)
+    assert got.shape == (3, frames - 1, n) and got.dtype == g.dtype
+    assert torch.equal(got, want)
+    cuda_mdct.reset_launch_counts()
+    assert torch.equal(cuda_mdct.matmul_scatter_vjp(g, *vjp_args), want)
+    assert set(cuda_mdct.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("n", [256, 512])
 @pytest.mark.parametrize("name", KERNELS)
 def test_function_matches_autograd_through_the_plain_version(name, n):

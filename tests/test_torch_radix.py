@@ -23,6 +23,7 @@ from audiocodec_tpu_torch import MDCT, Codec
 from audiocodec_tpu_torch.convert import codec_from_arrays
 from audiocodec_tpu_torch.ops import cuda_mdct, dct, radix
 from tests.test_torch_codec import _leaves_and_meta
+from tests.test_torch_grad import flip_route
 
 torch.set_num_threads(1)
 
@@ -269,6 +270,30 @@ def test_split_radix_products_match_pallas(n, tier):
     else:
         np.testing.assert_allclose(yt, yj, rtol=0, atol=2e-6)
         np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("frames", [2, 9, 130])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype,fast,precision", [
+    ("float32", False, "highest"), ("bfloat16", True, "default")])
+def test_radix_matmul_scatter_vjp_is_the_flip_route(dtype, fast, precision,
+                                                    n, frames):
+    """The radix synthesis VJP's plain version (the transposed fold, the
+    rotation, the two products, the butterfly), and the wrapper on a CPU
+    tensor, equal the flip route through the radix analysis's plain
+    version bit for bit."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, kernel_design="radix", device="cpu")
+    vjp_args = m.vjp_args("inverse")
+    _, g = _inputs((3, frames, n), dtype, n + frames)
+    want = flip_route(g, cuda_mdct.radix_fold_matmul_reference,
+                      vjp_args[:-1])
+    got = cuda_mdct.radix_matmul_scatter_vjp_reference(g, *vjp_args)
+    assert got.shape == (3, frames - 1, n) and got.dtype == g.dtype
+    assert torch.equal(got, want)
+    cuda_mdct.reset_launch_counts()
+    assert torch.equal(cuda_mdct.radix_matmul_scatter_vjp(g, *vjp_args), want)
+    assert set(cuda_mdct.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
