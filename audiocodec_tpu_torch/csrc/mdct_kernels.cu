@@ -9,12 +9,15 @@
 //                             (kernel body _fwd_kernel_radix)
 //   * radix_matmul_scatter <- pallas_mdct.py, radix_matmul_scatter
 //                             (kernel body _inv_kernel_radix)
-// and, in a transposed-fold mode of the two analysis routes (TF below:
-// acx_fold_matmul_t, acx_radix_fold_matmul_t), the synthesis VJPs
-// pallas_mdct.py _matmul_scatter_bwd and _radix_matmul_scatter_bwd, which
-// read the cotangent in place: one call, no flip, lane swap or crop around
-// it. The analysis VJPs run the synthesis routes on the reversed cotangent
-// (ops/cuda_mdct.py).
+// and the four VJPs, each in a transposed mode of the other direction's
+// route that reads the cotangent in place: one call, no flip, lane swap or
+// crop around it (ops/cuda_mdct.py, "The VJPs"):
+//   * the synthesis VJPs pallas_mdct.py _matmul_scatter_bwd and
+//     _radix_matmul_scatter_bwd in a transposed-fold mode of the analysis
+//     routes (TF below: acx_fold_matmul_t, acx_radix_fold_matmul_t);
+//   * the analysis VJPs _fold_matmul_bwd and _radix_fold_matmul_bwd in a
+//     transposed-scatter mode of the synthesis routes (TS below:
+//     acx_matmul_scatter_t, acx_radix_matmul_scatter_t).
 //
 // The radix design (ops/radix.py) splits the DCT-IV over the pairs
 // (f_n, f_{N-1-n}): a per-pair rotation, two [N/2, N/2] products and a
@@ -267,7 +270,14 @@ __device__ __forceinline__ float radix_z(const float* __restrict__ zf,
                           __fmul_rn(zf[M + m], to_f(rot[N + c]))));
 }
 
-template <typename Z, typename O, bool RADIX>
+// TS (the analysis VJP, ops/folding.py::unfold_t): the transposed scatter
+// of the product zg [rows, t_in = T+1, N] of the cotangent to out [rows, T,
+// N], with the analysis VJP's weights in the same slots (p, q, r, s_r):
+//   out[n, k]   = q[k]*zg[n, k]           + s_r[k]*zg[n+1, N-1-k]   (k < h)
+//   out[n, h+j] = p[h-1-j]*zg[n, h-1-j]   + r[j]*zg[n+1, h+j]       (j < h)
+// the overlap scatter's products, roundings and sum "current + the other
+// frame", reading frames n and n+1 (both exist) in place of n and n-1.
+template <typename Z, typename O, bool RADIX, bool TS = false>
 __global__ void __launch_bounds__(THREADS) scatter_kernel(
     const Z* __restrict__ z, const O* __restrict__ p, const O* __restrict__ q,
     const O* __restrict__ r, const O* __restrict__ s_r,
@@ -276,6 +286,28 @@ __global__ void __launch_bounds__(THREADS) scatter_kernel(
   const int n = blockIdx.x;
   const int row = blockIdx.y;
   const int h = N >> 1;
+  if constexpr (TS) {
+    const Z* zc = z + ((size_t)row * t_in + n) * N;  // n < T = t_in - 1
+    const Z* zn = zc + N;
+    O* o = out + ((size_t)row * (t_in - 1) + n) * N;
+    auto zv = [&](const Z* zf, int i) -> float {
+      if constexpr (RADIX) return radix_z<O>(zf, rot, i, N);
+      else return to_f(zf[i]);
+    };
+    for (int k = threadIdx.x; k < N; k += THREADS) {
+      float a, b;
+      if (k < h) {
+        a = rnd<R>(__fmul_rn(zv(zc, k), to_f(q[k])));
+        b = rnd<R>(__fmul_rn(zv(zn, N - 1 - k), to_f(s_r[k])));
+      } else {
+        const int j = k - h;
+        a = rnd<R>(__fmul_rn(zv(zc, h - 1 - j), to_f(p[h - 1 - j])));
+        b = rnd<R>(__fmul_rn(zv(zn, h + j), to_f(r[j])));
+      }
+      o[k] = from_f<O>(rnd<R>(__fadd_rn(a, b)));
+    }
+    return;
+  }
   const Z* zc = z + ((size_t)row * t_in + n) * N;  // valid if n < T
   const Z* zp = zc - N;                             // valid if n >= 1
   const bool has_cur = n < t_in, has_prev = n >= 1;
@@ -803,8 +835,10 @@ __device__ __forceinline__ void store4(T* p, float a, float b, float c,
 // wc, ffr) or the synthesis (w = p, q, r, s_r) at a tensor-core tier, the
 // operand matrix behind `tmap` (boxes of 128 bytes of K by BN rows). TF
 // (with FOLD): the synthesis VJP, the cotangent g [rows, t_in = T+1, N] ->
-// out [rows, T, N] through the transposed fold.
-template <typename T, int TIER, bool FOLD, bool TF = false>
+// out [rows, T, N] through the transposed fold. TS (without FOLD, at
+// `default`): the analysis VJP, g [rows, T+1, N] -> out [rows, T, N]
+// through the transposed scatter (scatter_kernel's TS).
+template <typename T, int TIER, bool FOLD, bool TF = false, bool TS = false>
 __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
     const __grid_constant__ CUtensorMap tmap, const T* __restrict__ x,
     const T* __restrict__ w0, const T* __restrict__ w1,
@@ -816,6 +850,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
   constexpr int NR = BNW / 2;  // accumulator registers a thread
   constexpr bool SPLIT_N = Cfg::SPLIT_N;
   static_assert(FOLD || !TF, "the transposed fold is an analysis mode");
+  static_assert(!(FOLD || TIER == INT8) || !TS,
+                "the transposed scatter is a synthesis mode at `default`");
 
   extern __shared__ uint8_t raw_smem[];
   const uint32_t raw = hopper::smem_addr(raw_smem);
@@ -834,7 +870,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
   const int tid = threadIdx.x;
   const int row = blockIdx.y;
   const int tile0 = blockIdx.x * Cfg::TILE;  // first output frame
-  const int t_out = TF ? t_in - 1 : t_in + 1;
+  const int t_out = TF || TS ? t_in - 1 : t_in + 1;
   const int kt_n = N / Cfg::KT_ELEMS;  // K tiles
   const int kt_a = TC_KA / Cfg::KT_ELEMS;  // K tiles of a pass
   const int passes = (kt_n + kt_a - 1) / kt_a;
@@ -876,9 +912,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
 
   // consumers: build A, then the products
   const T* xr = x + (size_t)row * t_in * N;
+  // A's rows: spectrum frames from tile0 - 1 (the synthesis: output frame
+  // n reads z[n-1]), or from tile0 with TS (it reads zg[n+1])
   auto build = [&](int p, bool scan) {
-    build_a<T, TIER, FOLD, TF>(smem, scales, xr, w0, w1, w2, w3, tile0, t_in,
-                               N, p * TC_KA, scan, tid >> 5, tid & 31);
+    build_a<T, TIER, FOLD, TF>(smem, scales, xr, w0, w1, w2, w3,
+                               TS ? tile0 + 1 : tile0, t_in, N, p * TC_KA,
+                               scan, tid >> 5, tid & 31);
   };
   if (TIER == INT8 && FOLD && passes > 1) {  // the frames' scales first
     for (int p = 0; p < passes; ++p) build(p, true);
@@ -1019,6 +1058,56 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_kernel(
                 make_float2(z[4 * j + 2 * i], z[4 * j + 2 * i + 1]);
         }
       }
+    } else if constexpr (TS) {
+      // the transposed scatter of this warpgroup's pair block: zg rounded
+      // to T as the plain version rounds it, staged as below, then for
+      // output frame n = tile0 + m and pair u: zg[n, c] = zt[m][u] and
+      // zg[n+1, N-1-c] = zt[m + 1][32 + u] (both frames exist, n < T) give
+      // output columns c (q, s_r) and N-1-c (p, r). A thread takes 4
+      // neighbouring pairs.
+      float* zt = SPLIT_N ? zs + wg * 64 * BNW : zs;
+      auto zat = [&](int r, int col) {
+        return zt + r * BNW + (col ^ ((r & 7) << 3));
+      };
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NR / 4; ++j)
+          *reinterpret_cast<float2*>(zat(r0 + 8 * i, 8 * j + c0)) =
+              make_float2(rnd<T>(z[4 * j + 2 * i]),
+                          rnd<T>(z[4 * j + 2 * i + 1]));
+      hopper::named_sync(2 + wg, 128);
+      const int u0 = 4 * (t & 7);
+      const int c0p = (col0 / PAIR_BLOCK) * (PAIR_BLOCK / 2) + u0;
+      float pc[4], qc[4], rc[4], sc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pc[e] = to_f(w0[c0p + e]);
+        qc[e] = to_f(w1[c0p + e]);
+        rc[e] = to_f(w2[h - 1 - c0p - e]);
+        sc[e] = to_f(w3[c0p + e]);
+      }
+      for (int m = t >> 3; m < 63; m += 16) {
+        const int n = tile0 + m;
+        if (n >= t_out) break;
+        const float4 zc4 = *reinterpret_cast<const float4*>(zat(m, u0));
+        const float4 zn4 = *reinterpret_cast<const float4*>(
+            zat(m + 1, PAIR_BLOCK / 2 + u0));
+        const float zc[4] = {zc4.x, zc4.y, zc4.z, zc4.w};
+        const float zn[4] = {zn4.x, zn4.y, zn4.z, zn4.w};
+        float lo[4], hi[4];  // columns N-1-c and c, c = c0p + e
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          lo[e] = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(zc[e], pc[e])),
+                                   rnd<T>(__fmul_rn(zn[e], rc[e]))));
+          hi[e] = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(zc[e], qc[e])),
+                                   rnd<T>(__fmul_rn(zn[e], sc[e]))));
+        }
+        T* o = outr + (size_t)n * N;
+        store4<T>(o + c0p, hi[0], hi[1], hi[2], hi[3]);
+        store4<T>(o + N - 4 - c0p, lo[3], lo[2], lo[1], lo[0]);
+      }
+      hopper::named_sync(2 + wg, 128);  // zt is free for the next chunk
     } else {
       // the overlap scatter of this warpgroup's pair block: z rounded as
       // the plain version rounds it (to T, or float32 at int8g) into the
@@ -1300,7 +1389,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) split_gemm_kernel(
 }
 
 // Launch tc_kernel on the operand matrix `op` ([N, N], K contiguous).
-template <typename T, int TIER, bool FOLD, bool TF = false>
+template <typename T, int TIER, bool FOLD, bool TF = false, bool TS = false>
 int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
               const void* w3, const void* op, void* out, int rows, int t_in,
               int N, float mat_scale, cudaStream_t st) {
@@ -1308,12 +1397,12 @@ int launch_tc(const void* x, const void* w0, const void* w1, const void* w2,
   CUtensorMap map;
   int rc = hopper::operand_map(&map, op, TIER == BF16, N, N, Cfg::BN);
   if (rc) return rc;
-  auto kernel = tc_kernel<T, TIER, FOLD, TF>;
+  auto kernel = tc_kernel<T, TIER, FOLD, TF, TS>;
   static std::atomic<uint64_t> shared_set{0};
   rc = hopper::allow_shared(kernel, shared_set);
   if (rc) return rc;
   const size_t smem = Cfg::smem_bytes(N);
-  const int t_out = TF ? t_in - 1 : t_in + 1;  // as tc_kernel's
+  const int t_out = TF || TS ? t_in - 1 : t_in + 1;  // as tc_kernel's
   const dim3 grid((t_out + Cfg::TILE - 1) / Cfg::TILE, rows);
   kernel<<<grid, TC_THREADS, smem, st>>>(
       map, static_cast<const T*>(x), static_cast<const T*>(w0),
@@ -1405,19 +1494,23 @@ int launch_fold_matmul(const void* x, const void* wa_r, const void* wb,
 }
 
 // The split tiers run the product into the scratch z [rows, T, N] and the
-// overlap scatter after it; the one-pass tiers are one kernel.
-template <typename T>
+// overlap scatter after it; the one-pass tiers are one kernel. TS: the
+// analysis VJP's product of the cotangent and transposed scatter (no int8
+// instance: the int8 tier's backward runs `default`).
+template <typename T, bool TS = false>
 int launch_matmul_scatter(const void* y, const void* p, const void* q,
                           const void* r, const void* s_r, const void* op,
                           void* planes, void* z, void* out, int rows,
                           int t_in, int N, int tier, float mat_scale,
                           cudaStream_t st) {
   if (tier == BF16)
-    return launch_tc<T, BF16, false>(y, p, q, r, s_r, op, out, rows, t_in,
-                                     N, mat_scale, st);
-  if (tier == INT8)
-    return launch_tc<T, INT8, false>(y, p, q, r, s_r, op, out, rows, t_in,
-                                     N, mat_scale, st);
+    return launch_tc<T, BF16, false, false, TS>(y, p, q, r, s_r, op, out,
+                                                rows, t_in, N, mat_scale, st);
+  if constexpr (!TS) {
+    if (tier == INT8)
+      return launch_tc<T, INT8, false>(y, p, q, r, s_r, op, out, rows, t_in,
+                                       N, mat_scale, st);
+  }
   if constexpr (std::is_same<T, float>::value) {  // the split tiers
     const float* yf = static_cast<const float*>(y);
     float* zf = static_cast<float*>(z);
@@ -1429,8 +1522,8 @@ int launch_matmul_scatter(const void* y, const void* p, const void* q,
                                                nullptr, op, planes, zf, rows,
                                                t_in, N, st);
     if (rc) return rc;
-    scatter_kernel<float, float, false>
-        <<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
+    scatter_kernel<float, float, false, TS>
+        <<<dim3(TS ? t_in - 1 : t_in + 1, rows), THREADS, 0, st>>>(
             zf, static_cast<const float*>(p), static_cast<const float*>(q),
             static_cast<const float*>(r), static_cast<const float*>(s_r),
             nullptr, static_cast<float*>(out), t_in, N);
@@ -1445,8 +1538,9 @@ int launch_matmul_scatter(const void* y, const void* p, const void* q,
 // (op [2, NP, N/2, N/2]) into the float scratch `prod`, then the pass that
 // reads them (butterfly_out_kernel, or scatter_kernel<.., RADIX>). TF (with
 // FOLD): the synthesis VJP, the transposed fold of the cotangent [rows,
-// t_in, N] into out [rows, t_in - 1, N].
-template <typename T, int PASSES, bool FOLD, bool TF = false>
+// t_in, N] into out [rows, t_in - 1, N]. TS (without FOLD): the analysis
+// VJP, the cotangent's products and their transposed scatter, likewise.
+template <typename T, int PASSES, bool FOLD, bool TF = false, bool TS = false>
 int radix(const void* x, const void* const (&w)[4], const void* rot,
           const void* op, void* planes, void* prod, void* out, int rows,
           int t_in, int N, cudaStream_t st) {
@@ -1472,27 +1566,28 @@ int radix(const void* x, const void* const (&w)[4], const void* rot,
   if constexpr (FOLD)
     butterfly_out_kernel<T><<<dim3(frames, rows), THREADS, 0, st>>>(pr, o, N);
   else
-    scatter_kernel<float, T, true><<<dim3(t_in + 1, rows), THREADS, 0, st>>>(
-        pr, w0, w1, w2, w3, rt, o, t_in, N);
+    scatter_kernel<float, T, true, TS>
+        <<<dim3(TS ? t_in - 1 : t_in + 1, rows), THREADS, 0, st>>>(
+            pr, w0, w1, w2, w3, rt, o, t_in, N);
   return 0;
 }
 
 // radix at `tier`: `default` on one plane, the split tiers (float32 input
 // only) on their passes.
-template <typename T, bool FOLD, bool TF = false>
+template <typename T, bool FOLD, bool TF = false, bool TS = false>
 int launch_radix(const void* x, const void* const (&w)[4], const void* rot,
                  const void* op, void* planes, void* prod, void* out,
                  int rows, int t_in, int N, int tier, cudaStream_t st) {
   if (tier == BF16)
-    return radix<T, 1, FOLD, TF>(x, w, rot, op, planes, prod, out, rows,
-                                 t_in, N, st);
+    return radix<T, 1, FOLD, TF, TS>(x, w, rot, op, planes, prod, out, rows,
+                                     t_in, N, st);
   if constexpr (std::is_same<T, float>::value) {
     if (tier == HIGHEST)
-      return radix<T, 6, FOLD, TF>(x, w, rot, op, planes, prod, out, rows,
-                                   t_in, N, st);
+      return radix<T, 6, FOLD, TF, TS>(x, w, rot, op, planes, prod, out,
+                                       rows, t_in, N, st);
     if (tier == HIGH)
-      return radix<T, HIGH_PASSES, FOLD, TF>(x, w, rot, op, planes, prod,
-                                             out, rows, t_in, N, st);
+      return radix<T, HIGH_PASSES, FOLD, TF, TS>(x, w, rot, op, planes, prod,
+                                                 out, rows, t_in, N, st);
   }
   return (int)cudaErrorInvalidValue;  // int8, or bf16 input at a split tier
 }
@@ -1567,6 +1662,31 @@ int acx_matmul_scatter(const void* y, const void* p, const void* q,
                                          rows, t_in, N, tier, mat_scale, st)
           : launch_matmul_scatter<bf16>(y, p, q, r, s_r, op, planes, z, out,
                                         rows, t_in, N, tier, mat_scale, st);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// The analysis VJP in one call: the synthesis route in its
+// transposed-scatter mode, the cotangent g [rows, t_in = T+1, N] (t_in >=
+// 2), read in place, -> out [rows, T, N]. w: the fold VJP weights
+// (ops/cuda_mdct.py fold_vjp_weights); op: the VJP matrix's synthesis
+// operand form (pair order at `default`); planes and z as for
+// acx_matmul_scatter, from rows x (T+1). Tiers `default`, `highest` and
+// `high` (no int8 instance, as acx_fold_matmul_t).
+int acx_matmul_scatter_t(const void* g, const void* p, const void* q,
+                         const void* r, const void* s_r, const void* op,
+                         void* planes, void* z, void* out, int rows,
+                         int t_in, int N, int dtype, int tier, void* stream) {
+  if (!shape_ok(rows, t_in, N, dtype, tier) || t_in < 2 || tier == INT8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc =
+      dtype == F32
+          ? launch_matmul_scatter<float, true>(g, p, q, r, s_r, op, planes, z,
+                                               out, rows, t_in, N, tier, 1.f,
+                                               st)
+          : launch_matmul_scatter<bf16, true>(g, p, q, r, s_r, op, planes, z,
+                                              out, rows, t_in, N, tier, 1.f,
+                                              st);
   return rc ? rc : (int)cudaGetLastError();
 }
 
@@ -1647,6 +1767,31 @@ int acx_radix_matmul_scatter(const void* y, const void* p, const void* q,
                                              rows, t_in, N, tier, st)
           : launch_radix<bf16, false>(y, w, rot, op, planes, rsts, out,
                                             rows, t_in, N, tier, st);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// The radix analysis VJP in one call: the radix synthesis route in its
+// transposed-scatter mode, the cotangent g [rows, t_in = T+1, N] (t_in >=
+// 2) -> out [rows, T, N]. rot and op: the VJP's rotation and factors
+// (ops/cuda_mdct.py radix_fold_vjp_residents); the scratches planes (m_pad
+// from rows x (T+1)) and rsts [rows, T+1, N] float.
+int acx_radix_matmul_scatter_t(const void* g, const void* p, const void* q,
+                               const void* r, const void* s_r,
+                               const void* rot, const void* op, void* planes,
+                               void* rsts, void* out, int rows, int t_in,
+                               int N, int dtype, int tier, void* stream) {
+  if (!shape_ok(rows, t_in, N, dtype, tier) || t_in < 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* const w[4] = {p, q, r, s_r};
+  const int rc =
+      dtype == F32
+          ? launch_radix<float, false, false, true>(g, w, rot, op, planes,
+                                                    rsts, out, rows, t_in, N,
+                                                    tier, st)
+          : launch_radix<bf16, false, false, true>(g, w, rot, op, planes,
+                                                   rsts, out, rows, t_in, N,
+                                                   tier, st);
   return rc ? rc : (int)cudaGetLastError();
 }
 

@@ -93,10 +93,12 @@ def library() -> ctypes.CDLL:
         "acx_fold_matmul": [ptr] * 8 + [i32] * 5 + [f32, ptr],
         "acx_fold_matmul_t": [ptr] * 8 + [i32] * 5 + [ptr],
         "acx_matmul_scatter": [ptr] * 9 + [i32] * 5 + [f32, ptr],
+        "acx_matmul_scatter_t": [ptr] * 9 + [i32] * 5 + [ptr],
         "acx_tc_shared_bytes": [i32] * 3,
         "acx_radix_fold_matmul": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_radix_fold_matmul_t": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_radix_matmul_scatter": [ptr] * 10 + [i32] * 5 + [ptr],
+        "acx_radix_matmul_scatter_t": [ptr] * 10 + [i32] * 5 + [ptr],
         "acx_add_masked_noise": [ptr] * 3 + [
             ctypes.c_longlong, ctypes.c_uint, i32, f32, ptr,
         ],

@@ -33,10 +33,11 @@ versions take and ignore it.
 Each kernel has a ``torch.autograd.Function`` (:data:`FUNCTIONS`) whose
 backward is its VJP wrapper (``*_vjp``, replacing ``pallas_mdct.py``
 ``_fold_matmul_bwd`` and its three siblings), counted apart from the
-forward launches, with remapped residents: the analysis VJPs run the
-synthesis kernel on the block-reversed cotangent; the synthesis VJPs are
-one launch of the analysis route in a transposed-fold mode that reads the
-cotangent in place (see "The VJPs" below). The plain versions
+forward launches, with remapped residents: each VJP is one launch of the
+other direction's route in a transposed mode that reads the cotangent in
+place, with no torch pass around it (the analysis VJPs: the synthesis
+route's transposed scatter; the synthesis VJPs: the analysis route's
+transposed fold; see "The VJPs" below). The plain versions
 ``*_vjp_reference`` compute the same in torch.
 """
 
@@ -160,16 +161,21 @@ def fold_matmul_reference(x, wa_r, wb, wc, ffr, mat, precision="highest",
     return y.to(x.dtype)
 
 
+def _synthesis_product(y, weights, mat, precision, mat_scale):
+    """z = y @ mat at the tier, kept in float32 at int8 and else rounded to
+    y's dtype, and the unfold weights in z's dtype."""
+    zt = torch.float32 if precision == "int8" else y.dtype
+    z = tier_matmul(y, mat, precision, mat_scale, grouped=True).to(zt)
+    return z, [w.to(zt) for w in weights]
+
+
 def matmul_scatter_reference(y, p, q, r, s_r, mat, precision="highest",
                              mat_scale=1.0, operand=None):
     """Plain version of :func:`matmul_scatter`: z = y @ mat at the tier
     (kept in float32 at int8, else rounded to y's dtype), then the overlap
     scatter in z's dtype; out in y's dtype. ``operand`` is not read."""
-    z = tier_matmul(y, mat, precision, mat_scale, grouped=True)
-    zt = torch.float32 if precision == "int8" else y.dtype
-    z = z.to(zt)
-    out = _folding.unfold(z, p.to(zt), q.to(zt), r.to(zt), s_r.to(zt))
-    return out.to(y.dtype)
+    z, w = _synthesis_product(y, (p, q, r, s_r), mat, precision, mat_scale)
+    return _folding.unfold(z, *w).to(y.dtype)
 
 
 def radix_fold_matmul_reference(x, wa_r, wb, wc, ffr, rot, mats,
@@ -193,17 +199,24 @@ def _radix_products(folded, rot, mats, precision):
     return _radix.butterfly(u, v2).to(folded.dtype)
 
 
+def _radix_synthesis_product(y, rot, mats, precision):
+    """The radix synthesis before the overlap scatter: the transposed
+    butterfly in y's dtype, the two products at the tier and the transposed
+    rotation in float32, rounded to y's dtype."""
+    _check_tier(precision, _FLOAT_TIERS)
+    us, vs = _radix.butterfly_t(y)
+    rs = _dct.matmul(us, mats[0], precision)
+    ts = _dct.matmul(vs, mats[1], precision)
+    return _radix.rotate_t(rs, ts, rot).to(y.dtype)
+
+
 def radix_matmul_scatter_reference(y, p, q, r, s_r, rot, mats,
                                    precision="highest", operand=None):
     """Plain version of :func:`radix_matmul_scatter`: the transposed
     butterfly in y's dtype, the two products at the tier and the transposed
     rotation in float32, rounded to y's dtype, then the overlap scatter in
     y's dtype. ``operand`` is not read."""
-    _check_tier(precision, _FLOAT_TIERS)
-    us, vs = _radix.butterfly_t(y)
-    rs = _dct.matmul(us, mats[0], precision)
-    ts = _dct.matmul(vs, mats[1], precision)
-    z = _radix.rotate_t(rs, ts, rot).to(y.dtype)
+    z = _radix_synthesis_product(y, rot, mats, precision)
     return _folding.unfold(z, p, q, r, s_r).to(y.dtype)
 
 
@@ -411,8 +424,8 @@ def _launch_radix(entry, x, weights, rot, mats, precision, operand, frames,
     """One radix route: ``entry`` of the library on x [rows, T, N], its
     split GEMM's A planes over ``frames`` frames a row, the float products
     [rows, frames, N] and the output [rows, out_frames, N] (T+1 frames in
-    either direction, T-1 in the transposed fold of the synthesis VJP)."""
-    transposed = out_frames < x.shape[1]  # the VJP's fold reads T >= 2
+    either direction, T-1 in the transposed modes of the VJPs)."""
+    transposed = out_frames < x.shape[1]  # a VJP reads T >= 2
     _check_radix(x, weights, rot, mats, precision, operand,
                  frames=2 if transposed else 1)
     from audiocodec_tpu_torch.ops import _build
@@ -497,28 +510,29 @@ def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest",
 # backward is straight-through: the ``default`` tier on the dequantized
 # matrix, q * (mat_scale * 127).
 #
-# The synthesis VJP reads the cotangent g [rows, T+1, N] in place. Run as
-# written, it would be fold_matmul on x' = swap(flipT(g)) (flipT reverses
-# the blocks, swap exchanges the lane halves), T+2 frames out', reversed
-# and cut to frames 1..T. The flips cancel: result frame t is out'[T-t],
-# whose fold reads x'[T-t-1] = swap(g[t+1]) and x'[T-t] = swap(g[t]), so
-# it is the transposed fold (folding.fold_t) of g in natural order, T
-# frames and no zero frame, then the same product:
+# Each VJP reads the cotangent g [rows, T+1, N] in place. Run as written,
+# it would be the other direction on flipT(g) (flipT reverses the blocks),
+# T+2 frames out', reversed and cut to frames 1..T (and, for the analysis
+# VJP, its lane halves exchanged). The flips cancel: result frame t is
+# out'[T-t], which reads frames T-t-1 and T-t of the reversed input, that is
+# frames t+1 and t of g (or of its product), so each VJP runs in g's natural
+# order, T frames out and no zero frame:
 #
-#   gf[t, k]   = wa_r[k]*g[t+1, N-1-k] + wb[k]*g[t+1, k]        (k < h)
-#   gf[t, h+j] = wc[j]*g[t, h+j]       - ffr[j]*g[t, h-1-j]     (j < h)
+#   synthesis VJP, the transposed fold (folding.fold_t) of g, then the
+#   product:
+#     gf[t, k]   = wa_r[k]*g[t+1, N-1-k] + wb[k]*g[t+1, k]        (k < h)
+#     gf[t, h+j] = wc[j]*g[t, h+j]       - ffr[j]*g[t, h-1-j]     (j < h)
+#   analysis VJP, the product zg = g @ mat, then the transposed scatter
+#   (folding.unfold_t):
+#     dx[t, k]   = q[k]*zg[t, k]         + s_r[k]*zg[t+1, N-1-k]  (k < h)
+#     dx[t, h+j] = p[h-1-j]*zg[t, h-1-j] + r[j]*zg[t+1, h+j]      (j < h)
 #
-# Each element keeps fold's two products and one sum, the same weight on
-# the same load; only the addresses change. The kernels run it as a mode of
-# the analysis route (csrc acx_fold_matmul_t, acx_radix_fold_matmul_t): one
-# launch, no torch pass. The analysis VJP still runs the synthesis kernel
-# on flipT(g), then reverses, cuts and swaps its output (:func:`_flip_vjp`).
-
-
-def _swap(t: torch.Tensor) -> torch.Tensor:
-    """The two halves of the last axis exchanged."""
-    h = t.shape[-1] // 2
-    return torch.cat([t[..., h:], t[..., :h]], dim=-1)
+# Each element keeps the forward's two products and one sum, the same weight
+# on the same value; only the addresses change, so the result is the flip
+# route's bit for bit. The kernels run each as a mode of the other
+# direction's route (csrc acx_fold_matmul_t, acx_radix_fold_matmul_t,
+# acx_matmul_scatter_t, acx_radix_matmul_scatter_t): one launch, no torch
+# pass.
 
 
 def _flip(t: torch.Tensor) -> torch.Tensor:
@@ -577,32 +591,51 @@ def dequantized(q: torch.Tensor, mat_scale: float) -> torch.Tensor:
                                               dtype=torch.float32)
 
 
-def _flip_vjp(g, run, args):
-    """The VJP of an analysis kernel through ``run``, the synthesis kernel
-    or its plain version, with its remapped residents ``args``: run on the
-    block-reversed cotangent, then reversed, cut by its first and last
-    frame, its lane halves swapped."""
-    gr = kernel_input(torch.flip(g, (1,)), g.dtype)
-    return _swap(torch.flip(run(gr, *args), (1,))[:, 1:-1])
-
-
 def fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision="highest",
                               operand=None):
-    """Plain version of :func:`fold_matmul_vjp`."""
-    return _flip_vjp(g, matmul_scatter_reference,
-                     (p, q, r, s_r, mat, precision))
+    """Plain version of :func:`fold_matmul_vjp`: the product of g at the
+    tier, rounded to g's dtype, then the transposed scatter
+    (:func:`folding.unfold_t`) in g's dtype. ``operand`` is not read."""
+    _check_tier(precision, _FLOAT_TIERS)
+    z, w = _synthesis_product(g, (p, q, r, s_r), mat, precision, 1.0)
+    return _folding.unfold_t(z, *w).to(g.dtype)
+
+
+def _launch_matmul_scatter_t(g, p, q, r, s_r, mat, precision, operand):
+    weights = (p, q, r, s_r)
+    _check(g, weights, mat, precision, tiers=_FLOAT_TIERS, frames=2)
+    _check_operand(g, operand, precision)
+    from audiocodec_tpu_torch.ops import _build
+
+    rows, t1, n = g.shape
+    out = torch.empty(rows, t1 - 1, n, dtype=g.dtype, device=g.device)
+    # the split tiers' product goes through z (float32), as the synthesis's
+    planes = _split_scratch(g, rows * t1, SPLIT_PLANES.get(precision))
+    z = None if planes is None else torch.empty(rows, t1, n, dtype=g.dtype,
+                                                device=g.device)
+    rc = _build.library().acx_matmul_scatter_t(
+        g.data_ptr(), *(w.data_ptr() for w in weights), operand.data_ptr(),
+        _ptr(planes), _ptr(z), out.data_ptr(), rows, t1, n, _DTYPES[g.dtype],
+        _TIERS[precision], _stream(g),
+    )
+    if rc:
+        raise RuntimeError(
+            f"fold_matmul_vjp kernel launch failed: CUDA error {rc}"
+        )
+    return out
 
 
 def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest",
                     operand=None):
     """The VJP of :func:`fold_matmul`: the cotangent [rows, T+1, N] ->
-    [rows, T, N] through the synthesis kernel, with the residents of
-    :func:`fold_vjp_weights` and :func:`fold_vjp_matrix` and that matrix's
-    :func:`synthesis_operand`."""
+    [rows, T, N], one launch of the synthesis route in its
+    transposed-scatter mode (g read in place, in natural order), with the
+    residents of :func:`fold_vjp_weights` and :func:`fold_vjp_matrix` and
+    that matrix's :func:`synthesis_operand`. The tiers: ``highest``,
+    ``high``, ``default`` (the int8 tier's straight-through backward)."""
     if g.device.type == "cpu":
         return fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision)
-    out = _flip_vjp(g, _launch_matmul_scatter,
-                    (p, q, r, s_r, mat, precision, 1.0, operand))
+    out = _launch_matmul_scatter_t(g, p, q, r, s_r, mat, precision, operand)
     fold_matmul_vjp.launches += 1
     return out
 
@@ -657,22 +690,27 @@ def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
 
 def radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
                                     precision="highest", operand=None):
-    """Plain version of :func:`radix_fold_matmul_vjp`."""
-    return _flip_vjp(g, radix_matmul_scatter_reference,
-                     (p, q, r, s_r, rot, mats, precision))
+    """Plain version of :func:`radix_fold_matmul_vjp`: the radix synthesis's
+    transposed butterfly, products and transposed rotation on g (rounded to
+    g's dtype), then the transposed scatter (:func:`folding.unfold_t`) in
+    g's dtype. ``operand`` is not read."""
+    z = _radix_synthesis_product(g, rot, mats, precision)
+    return _folding.unfold_t(z, p, q, r, s_r).to(g.dtype)
 
 
 def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest",
                           operand=None):
-    """The VJP of :func:`radix_fold_matmul` through the radix synthesis
-    kernel, with the residents of :func:`fold_vjp_weights` and
-    :func:`radix_fold_vjp_residents` and those factors'
-    :func:`radix_operand`."""
+    """The VJP of :func:`radix_fold_matmul`: the cotangent [rows, T+1, N]
+    -> [rows, T, N], one launch of the radix synthesis route in its
+    transposed-scatter mode (g read in place), with the residents of
+    :func:`fold_vjp_weights` and :func:`radix_fold_vjp_residents` and those
+    factors' :func:`radix_operand`."""
     if g.device.type == "cpu":
         return radix_fold_matmul_vjp_reference(g, p, q, r, s_r, rot, mats,
                                                precision)
-    out = _flip_vjp(g, _launch_radix_matmul_scatter,
-                    (p, q, r, s_r, rot, mats, precision, operand))
+    t = g.shape[1]
+    out = _launch_radix("acx_radix_matmul_scatter_t", g, (p, q, r, s_r),
+                        rot, mats, precision, operand, t, t - 1)
     radix_fold_matmul_vjp.launches += 1
     return out
 

@@ -57,7 +57,8 @@ def add_masked_noise(spectrum, threshold, seed: int,
                      sigma_scale: float = SIGMA_SCALE):
     """spectrum + threshold * (sigma_scale * z), z standard normal from the
     Philox stream of ``seed`` (taken mod 2^32) indexed by the flat element
-    index; out in the spectrum's dtype."""
+    index (ops/philox.py: one call a four elements); out in the spectrum's
+    dtype."""
     if spectrum.device.type == "cpu":
         return add_masked_noise_reference(spectrum, threshold, seed,
                                           sigma_scale)
@@ -79,10 +80,10 @@ def add_masked_noise(spectrum, threshold, seed: int,
 
 
 def uniforms(seed: int, count: int, device="cuda"):
-    """(u1, u2), float32 [count]: the kernel's uniforms of elements
-    0..count-1 on a CUDA device (a launch of the same generator, not
-    counted), ops/philox.py's on the CPU. The card unless the caller asks
-    for the CPU."""
+    """(u1, u2), float32 [count]: the kernel's uniform pair of each of
+    elements 0..count-1 (elements 2p and 2p+1 share pair p) on a CUDA
+    device (a launch of the same generator, not counted), ops/philox.py's
+    on the CPU. The card unless the caller asks for the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return _philox.uniforms(seed, count)

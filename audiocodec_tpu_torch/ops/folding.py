@@ -2,8 +2,9 @@
 
 The numpy float64 builders are copies of ``audiocodec_tpu/ops/folding.py``
 (the port must not import the JAX package); :func:`fold` and :func:`unfold`
-are its tensor functions in torch, and :func:`fold_t` the transposed fold of
-the synthesis VJP. See that module for the derivation.
+are its tensor functions in torch, :func:`fold_t` the transposed fold of the
+synthesis VJP and :func:`unfold_t` the transposed unfold of the analysis
+VJP. See that module for the derivation.
 
   analysis   folded[n, k]   = wa_r[k]*x[n-1, h-1-k] + wb[k]*x[n-1, h+k]   (k < h)
              folded[n, h+j] = wc[j]*x[n, j]        - ffr[j]*x[n, N-1-j]  (j < h)
@@ -118,6 +119,26 @@ def unfold(z_blocks: torch.Tensor, p, q, r, s_r) -> torch.Tensor:
     up = torch.cat([cur_up, zeros], dim=-2) + torch.cat(
         [zeros, prev_up], dim=-2
     )
+    return torch.cat([low, up], dim=-1)
+
+
+def unfold_t(z_blocks: torch.Tensor, p, q, r, s_r) -> torch.Tensor:
+    """Transposed unfold: [..., blocks+1, N] -> [..., blocks, N], the
+    overlap scatter of the analysis VJP read from its product zg in natural
+    order,
+
+      dx[n, k]   = q[k]*zg[n, k]             + s_r[k]*zg[n+1, N-1-k]   (k < h)
+      dx[n, h+j] = p[h-1-j]*zg[n, h-1-j]     + r[j]*zg[n+1, h+j]       (j < h)
+
+    with the weights of ``cuda_mdct.fold_vjp_weights``. Each element has
+    :func:`unfold`'s two products and its sum "current + previous", the
+    same weight on the same value: ``unfold(flipT(zg))`` reversed in its
+    blocks, cut by its first and last block and its halves exchanged, bit
+    for bit (flipT reverses the blocks)."""
+    h = z_blocks.shape[-1] // 2
+    cur, nxt = z_blocks[..., :-1, :], z_blocks[..., 1:, :]
+    low = cur[..., :h] * q + torch.flip(nxt[..., h:], (-1,)) * s_r
+    up = torch.flip(cur[..., :h] * p, (-1,)) + nxt[..., h:] * r
     return torch.cat([low, up], dim=-1)
 
 

@@ -6,11 +6,14 @@ easy as 1, 2, 3" (SC 2011), as Random123 defines it: multipliers
 rounds. This module is the plain version of the generator inside
 ``csrc/noise_kernel.cu``, which it matches bit for bit.
 
-The stream is defined by (seed, flat element index): element i takes the
-counter (i mod 2^32, i div 2^32, 0, 0) and the key (seed mod 2^32, 0), and
-draws u1 from word 0 and u2 from word 1. It does not depend on how a launch
-is tiled. (The TPU kernel seeds its hardware generator by (seed, grid
-position), a stream no other hardware reproduces.)
+The stream is defined by (seed, flat element index), and no random bit of
+it is thrown away: element i = 4j + e belongs to the call with counter
+(j mod 2^32, j div 2^32, 0, 0) under the key (seed mod 2^32, 0). Its words
+(w0, w1) are the uniform pair (u1, u2) of elements 4j and 4j+1, which take
+r cos(2 pi u2) and r sin(2 pi u2), r = sqrt(-2 ln u1); (w2, w3) give
+elements 4j+2 and 4j+3 the same way. The stream does not depend on how a
+launch is tiled. (The TPU kernel seeds its hardware generator by (seed,
+grid position), a stream no other hardware reproduces.)
 
 Words are uint32 values held in int64 tensors. A 32 x 32 -> 64-bit product
 would overflow int64, so :func:`_mulhilo` splits the constant into 16-bit
@@ -62,22 +65,37 @@ def uniform_open01(bits: torch.Tensor) -> torch.Tensor:
     return 2.0 - one_to_two
 
 
-def uniforms(seed: int, count: int, device="cpu"):
-    """(u1, u2), float32 [count] each: the uniforms of elements 0..count-1
-    of the stream of ``seed``."""
-    index = torch.arange(count, dtype=torch.int64, device=device)
+def _calls(seed: int, count: int, device):
+    """The uniforms of the calls that cover elements 0..count-1, float32
+    [calls, 2, 2]: call j, its pair 0 (w0, w1) or 1 (w2, w3), (u1, u2)."""
+    index = torch.arange(-(-count // 4), dtype=torch.int64, device=device)
     zero = torch.zeros_like(index)
-    w0, w1, _, _ = philox4x32((index & M32, index >> 32, zero, zero),
-                              (seed, 0))
-    return uniform_open01(w0), uniform_open01(w1)
+    words = philox4x32((index & M32, index >> 32, zero, zero), (seed, 0))
+    return uniform_open01(torch.stack(words, dim=-1)).reshape(-1, 2, 2)
 
 
-def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
-    """Standard normals sqrt(-2 ln u1) * cos(2 pi u2), in float32. u1 > 0,
-    so the logarithm is finite."""
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
+def uniforms(seed: int, count: int, device="cpu"):
+    """(u1, u2), float32 [count] each: the uniform pair of each of elements
+    0..count-1 of the stream of ``seed`` (elements 2p and 2p+1 share pair
+    p: the cosine's and the sine's)."""
+    pairs = _calls(seed, count, device).reshape(-1, 2)
+    pairs = pairs.repeat_interleave(2, dim=0)[:count]
+    return pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor):
+    """The standard normals (r cos(2 pi u2), r sin(2 pi u2)), r = sqrt(-2 ln
+    u1), in float32; both of one rounded angle fl(2 pi u2). u1 > 0, so the
+    logarithm is finite."""
+    radius = torch.sqrt(-2.0 * torch.log(u1))
+    angle = TWO_PI * u2
+    return radius * torch.cos(angle), radius * torch.sin(angle)
 
 
 def normal(seed: int, count: int, device="cpu") -> torch.Tensor:
-    """float32 [count] standard normals of the stream of ``seed``."""
-    return box_muller(*uniforms(seed, count, device))
+    """float32 [count] standard normals of the stream of ``seed``: element
+    4j + e is the cosine (e even) or the sine (e odd) of pair e // 2 of
+    call j."""
+    u = _calls(seed, count, device)
+    return torch.stack(box_muller(u[..., 0], u[..., 1]),
+                       dim=-1).reshape(-1)[:count]

@@ -33,10 +33,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    three configurations in audio-seconds per second with the device time of
    each of their stages;
 7. the noise kernel against its plain version at [32, 431, 1024, 1] in
-   float32 and bfloat16: its uniforms equal the plain generator's bit for
-   bit, its output is within tolerance, the noise of spectrum 0 and
-   threshold 1 has the moments of N(0, 1/36), and a seed reproduces its
-   output while another seed does not;
+   float32 and bfloat16, and there at counts that are not a multiple of 8
+   and from a base one element in (its scalar path): its uniforms equal the
+   plain generator's bit for bit (the full count, a ragged one and 1-9),
+   its output is within tolerance, the noise of spectrum 0 and threshold 1
+   has the moments of N(0, 1/36), and a seed reproduces its output while
+   another seed does not;
 8. the radix kernels against their plain versions at N=2048, [32, 215,
    2048] -> [32, 216, 2048], at ``highest`` (float32) and ``default``
    (bfloat16), and the mono kernels there at ``highest``, ``high``,
@@ -60,14 +62,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (straight-through: against the ``default`` forward on the dequantized
    matrix), radix [32, 215, 2048] at f32 ``highest`` and bf16 ``default``;
    each timed against its plain version and a conv1d / conv_transpose1d
-   call of the same function. The synthesis VJPs (one call of the analysis
-   route in its transposed-fold mode, reading the cotangent in place) must
-   equal the flip route (the analysis wrapper on the reversed, lane-swapped
-   cotangent, reversed and cut; composed here) bit for bit at every tier,
-   there and at 5 rows of 1, 127 and 129 frames, and their trace must hold
-   the route's device functions only; the analysis VJPs (the synthesis
-   kernel on the block-reversed cotangent) are timed with their torch
-   flips and swaps alone;
+   call of the same function. Each VJP is one call of the other direction's
+   route in a transposed mode that reads the cotangent in place (the
+   synthesis VJPs: the analysis route's transposed fold; the analysis VJPs:
+   the synthesis route's transposed scatter) and must equal the flip route
+   (the other direction's wrapper on the reversed cotangent, lane-swapped
+   before it for the synthesis VJPs and after it for the analysis ones,
+   reversed and cut; composed here, and timed) bit for bit at every tier,
+   there and at 5 rows of 1, 127 and 129 frames, and its trace must hold
+   the route's device functions only;
 12. training at full width (32 mono clips of 10 s, 64 Bark bands), Adam
    1e-3: ``SpectralAE(1024, 512, 64, 1/32)`` in (r) f32 ``highest`` and (b)
    bf16 ``default``, the per-band-gain trainer in (r2) f32 ``highest``
@@ -158,10 +161,17 @@ REPLACES = {
 # memory rate, TB/s
 PEAK = {"int8": 1979.0, "default": 989.0, "float32": 67.0}
 MEMORY_TB_S = 3.35
-# Operations an element of the noise kernel: Philox4x32-10 (10 rounds of
-# 2 32x32->64-bit products, 2 xors and 2 key additions) and Box-Muller
-# (log, sqrt, cos, a few products), counted against the float32 rate
-NOISE_OPS_PER_ELEMENT = 130
+# Operations an element of the noise kernel, counted against the float32
+# rate: one Philox4x32-10 call a four elements (10 rounds of 2 32x32->64-bit
+# products, 4 xors and 2 key additions: 20 an element), one Box-Muller a
+# pair (2 uniform maps of 3, a log, a product, a sqrt, a product, a sin and
+# cos, 2 products: 14, 7 an element) and the masked add (2 products and a
+# sum)
+NOISE_OPS_PER_ELEMENT = 30
+# Ragged views of phase 7: (first element, elements cut from the end); the
+# counts are not a multiple of 8, and a first element of 1 is not 16-byte
+# aligned (the kernel's scalar path)
+NOISE_RAGGED = ((0, 13), (1, 0), (1, 5))
 
 CONFIGS = {
     "a": dict(compute_dtype="bfloat16", fast_bf16=True,
@@ -358,8 +368,9 @@ def ptxas_summary(log):
 SASS_OPS = ("HGMMA", "HGMMA.F32.BF16", "IGMMA", "UTMALDG")
 TENSOR_CORE_KERNELS = ("tc_kernel", "split_gemm_kernel", "probe_kernel")
 # tc_kernel's instances: (float32, bf16 input) x (analysis, synthesis) x
-# (default, int8), and the synthesis VJP's transposed fold at default
-TC_INSTANCES = 10
+# (default, int8), the synthesis VJP's transposed fold and the analysis
+# VJP's transposed scatter at default
+TC_INSTANCES = 12
 # GEMMs that the split wgmma core replaced, which must not come back
 RETIRED_GEMMS = ("ffma_gemm_kernel", "mma_gemm_kernel")
 
@@ -406,7 +417,8 @@ def tolerance(torch, ref, kernel, tier, dtype):
 
 
 # The route whose device functions a VJP runs: the other direction's (the
-# synthesis VJPs run the analysis route in its transposed-fold mode)
+# synthesis VJPs run the analysis route in its transposed-fold mode, the
+# analysis VJPs the synthesis route in its transposed-scatter mode)
 VJP_RUNS = {"fold_matmul": "matmul_scatter", "matmul_scatter": "fold_matmul",
             "radix_fold_matmul": "radix_matmul_scatter",
             "radix_matmul_scatter": "radix_fold_matmul"}
@@ -753,12 +765,15 @@ def noise_kernel_phase(torch, codecs, entries):
         bound_ms, bound_by, _ = bound(
             NOISE_OPS_PER_ELEMENT * spec.numel(), nbytes(spec, thr, got),
             "float32")
+        ragged = noise_ragged(torch, spec, thr, tol)
+        print(f"add_masked_noise {dtype}: ragged views (first element, "
+              f"count): max_abs_err {ragged}")
         entries.append(entry("add_masked_noise", None, dtype,
                              f"noise ({label})", codec.mdct.filters_n,
                              max_abs_err=err, tol=tol, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None,
-                             gb_per_s=gbs))
+                             gb_per_s=gbs, ragged_max_abs_err=ragged))
         del got, want
 
     dev = spec.device
@@ -769,8 +784,14 @@ def noise_kernel_phase(torch, codecs, entries):
     same = all(torch.equal(a, b) for a, b in zip(ku, pu))
     lo = min(float(u.min()) for u in ku)
     hi = max(float(u.max()) for u in ku)
-    print(f"noise uniforms: {count} pairs equal to the plain generator bit "
-          f"for bit: {same}; range [{lo:.3e}, {hi}]")
+    for c in (*range(1, 10), count - 13):  # counts that end inside a call
+        same = same and all(
+            torch.equal(a, b) for a, b in zip(
+                cuda_noise.uniforms(SEED, c, dev), philox.uniforms(SEED, c,
+                                                                   dev)))
+    print(f"noise uniforms: {count} pairs, and the first 1-9 and "
+          f"{count - 13}, equal to the plain generator bit for bit: {same}; "
+          f"range [{lo:.3e}, {hi}]")
     check(same, "noise uniforms differ from the plain generator's")
     check(0.0 < lo and hi <= 1.0, f"uniforms outside (0, 1]: {lo}, {hi}")
     del ku, pu
@@ -798,6 +819,30 @@ def noise_kernel_phase(torch, codecs, entries):
     check(float((other - z).abs().max()) > 1e-3,
           "another seed gave the same output")
     return moments
+
+
+def noise_ragged(torch, spec, thr, tol):
+    """7, continued: the noise kernel on flat views of ``spec`` and ``thr``
+    (NOISE_RAGGED) against its plain version on the same views, each one
+    launch; returns {"first,count": max_abs_err}."""
+    from audiocodec_tpu_torch.ops import cuda_noise
+
+    out = {}
+    for first, cut in NOISE_RAGGED:
+        end = spec.numel() - cut
+        s, t = spec.flatten()[first:end], thr.flatten()[first:end]
+        reset_all_launch_counts()
+        got = cuda_noise.add_masked_noise(s, t, SEED)
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        want = cuda_noise.add_masked_noise_reference(s, t, SEED)
+        err = float((got.float() - want.float()).abs().max())
+        out[f"{first},{s.numel()}"] = err
+        check(counts == expected_counts(add_masked_noise=1),
+              f"add_masked_noise at {first}:{end}: launch counts {counts}")
+        check(err <= tol, f"add_masked_noise at {first}:{end}: error {err} "
+              f"> {tol}")
+    return out
 
 
 def noise_path_phase(torch, dev, entries):
@@ -942,23 +987,34 @@ def vjp_tolerance(torch, want, tier, dtype):
     return 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
 
 
-def flip_route(torch, mdct, g):
-    """The synthesis VJP of ``mdct`` composed from the analysis kernel's
-    public wrapper and torch flips, which the transposed-fold route must
-    equal bit for bit: the wrapper on the block-reversed cotangent with its
-    lane halves exchanged, reversed back and cut by its first and last
-    frame."""
+def flip_route(torch, mdct, direction, g):
+    """The VJP of ``mdct``'s kernel of ``direction`` composed from the other
+    direction's public wrapper and torch flips, which the transposed route
+    must equal bit for bit: the wrapper on the block-reversed cotangent,
+    reversed back and cut by its first and last frame, with the lane halves
+    exchanged before the wrapper (the synthesis VJP) or after it (the
+    analysis VJP)."""
     from audiocodec_tpu_torch.ops import cuda_mdct
 
-    args = mdct.vjp_args("inverse")
+    args = mdct.vjp_args(direction)
     h = g.shape[-1] // 2
+
+    def swap(t):
+        return torch.cat([t[..., h:], t[..., :h]], dim=-1)
+
+    synthesis = direction == "inverse"
     gr = torch.flip(g, (1,))
-    gr = torch.cat([gr[..., h:], gr[..., :h]], dim=-1).contiguous()
-    if mdct.kernel_design == "radix":
-        out = cuda_mdct.radix_fold_matmul(gr, *args)
-    else:  # the analysis wrapper takes mat_scale before the operand
-        out = cuda_mdct.fold_matmul(gr, *args[:-1], 1.0, args[-1])
-    return torch.flip(out, (1,))[:, 1:-1]
+    gr = (swap(gr) if synthesis else gr).contiguous()
+    radix = mdct.kernel_design == "radix"
+    if synthesis:
+        wrapper = cuda_mdct.radix_fold_matmul if radix else cuda_mdct.fold_matmul
+    else:
+        wrapper = (cuda_mdct.radix_matmul_scatter if radix
+                   else cuda_mdct.matmul_scatter)
+    if not radix:  # the mono wrappers take mat_scale before the operand
+        args = (*args[:-1], 1.0, args[-1])
+    out = torch.flip(wrapper(gr, *args), (1,))[:, 1:-1]
+    return out if synthesis else swap(out)
 
 
 def autograd_vjp(torch, mdct, direction, inp, cot):
@@ -981,12 +1037,10 @@ def autograd_vjp(torch, mdct, direction, inp, cot):
 def vjp_phase(torch, dev, entries):
     """11. Each VJP against torch.autograd through its plain forward
     version on the same cotangent (numpy seed) at the main path's shapes,
-    timed against its plain version. The synthesis VJPs (one call of the
-    analysis route in its transposed-fold mode) also equal the flip route
-    bit for bit, there and at 5 rows of 1, 127 and 129 frames, and their
-    trace holds the route's device functions only; the analysis VJPs are
-    timed with their block flips and lane-half swaps (torch passes)
-    alone."""
+    timed against its plain version. Each VJP (one call of the other
+    direction's route in its transposed mode) also equals the flip route
+    bit for bit, there and at 5 rows of 1, 127 and 129 frames, and its
+    trace holds the route's device functions only."""
     import numpy as np
 
     from audiocodec_tpu_torch import MDCT
@@ -1024,20 +1078,11 @@ def vjp_phase(torch, dev, entries):
             plain_ms = cuda_ms(torch, lambda: plain_vjp(cot, *vjp_args),
                                iters=10)
             analysis = direction == "forward"
-            route = dict(glue_ms=None, flip_route_ms=None, ragged={})
-            if analysis:
-                full = torch.empty(BATCH, cot.shape[1] + 1, n,
-                                   dtype=inp.dtype, device=dev)
-                route["glue_ms"] = cuda_ms(torch, lambda: cuda_mdct._flip_vjp(
-                    cot, lambda *_: full, ()))
-                del full
-                extra = f"flips/swaps {route['glue_ms']:.4f} ms"
-            else:
-                route.update(synthesis_vjp_route(torch, mdct, cot, got, rng,
-                                                 by_function))
-                extra = (f"the flip route {route['flip_route_ms']:.4f} ms "
-                         "(bit-equal here and at T=" + ", ".join(
-                             map(str, route["ragged"])) + ")")
+            route = vjp_route(torch, mdct, direction, cot, got, rng,
+                              by_function)
+            extra = (f"the flip route {route['flip_route_ms']:.4f} ms "
+                     "(bit-equal here and at T=" + ", ".join(
+                         map(str, route["ragged"])) + ")")
             spectrum_frames = cot.shape[1] if analysis else got.shape[1]
             bound_ms, bound_by, ffma_bound_ms = bound(
                 gemm_flops(spectrum_frames, n, radix),
@@ -1075,22 +1120,22 @@ def vjp_phase(torch, dev, entries):
         del mdct, rows, spectrum
 
 
-def synthesis_vjp_route(torch, mdct, cot, got, rng, by_function):
-    """11, continued: the synthesis VJP ``got`` of ``mdct`` at the main
-    path's shape equals the flip route bit for bit, and its trace
-    ``by_function`` holds the analysis route's device functions only (no
-    torch pass); then the same equality, and the tolerance against
+def vjp_route(torch, mdct, direction, cot, got, rng, by_function):
+    """11, continued: the VJP ``got`` of ``mdct``'s kernel of ``direction``
+    at the main path's shape equals the flip route bit for bit, and its
+    trace ``by_function`` holds the other direction's device functions only
+    (no torch pass); then the same equality, and the tolerance against
     autograd, at 5 rows of 1, 127 and 129 frames. Returns the flip route's
     time and the ragged errors."""
     import numpy as np
 
     from audiocodec_tpu_torch.ops import cuda_mdct
 
-    name = f"{mdct.kernel_name('inverse')}_vjp"
+    name = f"{mdct.kernel_name(direction)}_vjp"
     tier, n = mdct.kernel_precision, mdct.filters_n
     vjp = getattr(cuda_mdct, name)
-    vjp_args = mdct.vjp_args("inverse")
-    old = flip_route(torch, mdct, cot)
+    vjp_args = mdct.vjp_args(direction)
+    old = flip_route(torch, mdct, direction, cot)
     check(torch.equal(got, old), f"{name} {tier}: not the flip route's bits "
           f"(max_abs_err {float((got.float() - old.float()).abs().max())})")
     route = device_functions(name, mdct.vjp_precision)
@@ -1105,17 +1150,17 @@ def synthesis_vjp_route(torch, mdct, cot, got, rng, by_function):
             -1.0, 1.0, (5, blocks + 1, n)).astype(np.float32)).to(
             cot.device, cot.dtype)
         out = vjp(g, *vjp_args)
-        want = autograd_vjp(torch, mdct, "inverse", y, g)
+        want = autograd_vjp(torch, mdct, direction, y, g)
         err = float((out.float() - want.float()).abs().max())
         tol = vjp_tolerance(torch, want, tier, g.dtype)
         check(out.shape == (5, blocks, n) and torch.equal(
-            out, flip_route(torch, mdct, g)),
+            out, flip_route(torch, mdct, direction, g)),
               f"{name} {tier} T={blocks}: not the flip route's bits")
         check(err <= tol, f"{name} {tier} T={blocks}: error {err} > {tol}")
         ragged[blocks] = err
-    return dict(flip_route_ms=cuda_ms(torch, lambda: flip_route(torch, mdct,
-                                                                cot)),
-                ragged=ragged)
+    return dict(flip_route_ms=cuda_ms(
+        torch, lambda: flip_route(torch, mdct, direction, cot)),
+        ragged=ragged)
 
 
 def trainer(torch, codec, model, x):

@@ -13,9 +13,12 @@ tree's kernels into that tree's ``build/`` and times, with CUDA events
 path's shapes (chip_smoke.py's signal, 32 clips of 10 s at 44.1 kHz:
 [32, 430, 1024] and [32, 215, 2048]) in chip_smoke.py's configurations,
 the VJPs of the N=1024 mono ones and of the radix ones, the int8 probe's
-three kernels at its shape ([14336, 1024] x [1024, 1024]), and four
-paths: ``Codec.round_trip_quantized`` in the three configurations of
-bench.py, ``round_trip_fast`` in (r) (float32 ``highest``, N=1024) and a
+three kernels at its shape ([14336, 1024] x [1024, 1024]), the noise kernel
+on the spectra and thresholds of (r) (float32) and (b) (bfloat16), [32,
+431, 1024, 1], and four paths: ``Codec.round_trip_quantized`` in the
+three configurations of bench.py, ``round_trip_fast`` in chip_smoke.py's
+noise configurations (r) (float32 ``highest``, N=1024), (r2) (float32
+``highest``, N=2048 radix) and (b) (bfloat16 ``default``), and a
 training step of chip_smoke.py's (r) and (r2) trainers (``SpectralAE``;
 the gains at N=2048 through the radix kernels): the wall time per
 call (CUDA events around 20 calls, 10 steps, issued back to back) and,
@@ -115,7 +118,7 @@ def worker(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import audiocodec_tpu_torch
     from audiocodec_tpu_torch import Codec
-    from audiocodec_tpu_torch.ops import _build, cuda_mdct, cuda_probe
+    from audiocodec_tpu_torch.ops import _build, cuda_mdct, cuda_noise, cuda_probe
     from audiocodec_tpu_torch.probes import int8_probe
 
     if Path(audiocodec_tpu_torch.__file__).resolve().parents[1] != tree:
@@ -176,12 +179,26 @@ def worker(tree: Path) -> dict:
             times[f"round_trip_quantized ({label}) device busy"] = busy_ms(
                 torch, call)
             del codec, x
+        for label in ("r", "r2", "b"):
+            codec = Codec.create(cs.SAMPLE_RATE, bark_bands_n=64,
+                                 device="cuda", **cs.NOISE_CONFIGS[label])
+            x = cs.make_signal(torch, "cuda", codec.mdct.compute_dtype)
+            if label != "r2":  # the noise kernel on the path's own operands
+                spec, thr = codec._analyze(x)
+                dtype = str(spec.dtype).removeprefix("torch.")
+                times[f"add_masked_noise {dtype}"] = cs.cuda_ms(
+                    torch, lambda: cuda_noise.add_masked_noise(spec, thr,
+                                                               cs.SEED),
+                    iters=50, warmup=5)
+                del spec, thr
+            call = lambda: codec.round_trip_fast(x, cs.SEED)  # noqa: E731
+            times[f"round_trip_fast ({label}) wall"] = cs.cuda_ms(
+                torch, call, iters=20)
+            times[f"round_trip_fast ({label}) device busy"] = busy_ms(
+                torch, call)
         codec = Codec.create(cs.SAMPLE_RATE, bark_bands_n=64, device="cuda",
                              **cs.NOISE_CONFIGS["r"])
         x = cs.make_signal(torch, "cuda", codec.mdct.compute_dtype)
-        call = lambda: codec.round_trip_fast(x, cs.SEED)  # noqa: E731
-        times["round_trip_fast (r) wall"] = cs.cuda_ms(torch, call, iters=20)
-        times["round_trip_fast (r) device busy"] = busy_ms(torch, call)
     gen = torch.Generator(device="cuda")
     for label, model in (("r", "spectral_ae"), ("r2", "gains")):
         if label != "r":

@@ -289,6 +289,35 @@ def test_noise_kernel_matches_plain_version(dtype):
         assert torch.equal(dev_u.cpu(), cpu_u)
 
 
+@pytest.mark.parametrize("offset,count", [(0, 1), (0, 7), (0, 9), (0, 4099),
+                                          (1, 9), (1, 4099), (3, 40001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_kernel_at_ragged_counts_and_offsets(dtype, offset, count):
+    """Counts that are not a multiple of 8 (the tail after the 16-byte
+    vectors) and operands that start one or three elements into their
+    buffers (the scalar path of a launch whose pointers are not 16-byte
+    aligned): one launch, within the plain version's tolerance, and the
+    uniforms bit for bit at that count."""
+    g = torch.Generator(device="cpu").manual_seed(count)
+    spec = (torch.rand(offset + count, generator=g) - 0.5).to("cuda", dtype)
+    thr = (torch.rand(offset + count, generator=g) * 0.1).to("cuda", dtype)
+    spec, thr = spec[offset:], thr[offset:]
+    cuda_noise.reset_launch_counts()
+    got = cuda_noise.add_masked_noise(spec, thr, 5)
+    want = cuda_noise.add_masked_noise_reference(spec, thr, 5)
+    torch.cuda.synchronize()
+    assert cuda_noise.launch_counts() == {"add_masked_noise": 1}
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * float(thr.max())
+    else:
+        peak = float(want.float().abs().max())
+        assert err <= 2.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    for dev_u, cpu_u in zip(cuda_noise.uniforms(5, count, "cuda"),
+                            cuda_noise.uniforms(5, count, "cpu")):
+        assert torch.equal(dev_u.cpu(), cpu_u)
+
+
 def test_noise_kernel_moments():
     shape = (8, 64, 1024, 1)
     zero = torch.zeros(shape, device="cuda")
@@ -446,12 +475,68 @@ def test_synthesis_vjp_is_one_transposed_fold_launch(design, dtype, fast,
 
 
 def test_synthesis_vjps_refuse_a_one_frame_cotangent():
-    """A cotangent of one frame has no VJP frame: refused before a launch."""
+    """A cotangent of one frame has no VJP frame: refused before a launch,
+    by the synthesis VJPs and the analysis ones."""
     for design in ("mono", "radix"):
         m = MDCT(256, use_kernel=True, kernel_design=design, device="cuda")
-        vjp = getattr(cuda_mdct, f"{m.kernel_name('inverse')}_vjp")
-        with pytest.raises(ValueError, match="T>=2"):
-            vjp(torch.zeros(2, 1, 256, device="cuda"), *m.vjp_args("inverse"))
+        for direction in ("inverse", "forward"):
+            vjp = getattr(cuda_mdct, f"{m.kernel_name(direction)}_vjp")
+            with pytest.raises(ValueError, match="T>=2"):
+                vjp(torch.zeros(2, 1, 256, device="cuda"),
+                    *m.vjp_args(direction))
+
+
+# The device functions of the synthesis routes, the analysis VJPs' own
+SYNTHESIS_ROUTES = ("tc_kernel", "split_kernel", "split_gemm_kernel",
+                    "scatter_kernel", "butterfly_in_kernel")
+
+
+def _scatter_flip_route(m, g):
+    """The analysis VJP composed from the synthesis kernel (the public
+    wrapper) and torch flips: the kernel on the block-reversed cotangent,
+    reversed back, cut to T frames and its lane halves exchanged."""
+    vjp_args = m.vjp_args("forward")
+    gr = torch.flip(g, (1,)).contiguous()
+    if m.kernel_design == "radix":
+        out = cuda_mdct.radix_matmul_scatter(gr, *vjp_args)
+    else:  # the synthesis wrapper takes mat_scale before the operand
+        out = cuda_mdct.matmul_scatter(gr, *vjp_args[:-1], 1.0, vjp_args[-1])
+    out = torch.flip(out, (1,))[:, 1:-1]
+    h = g.shape[-1] // 2
+    return torch.cat([out[..., h:], out[..., :h]], dim=-1)
+
+
+@pytest.mark.parametrize("n,blocks", [(1024, 1), (1024, 129), (2048, 64)])
+@pytest.mark.parametrize("design,dtype,fast,precision", VJP_TIERS)
+def test_analysis_vjp_is_one_transposed_scatter_launch(design, dtype, fast,
+                                                       precision, n, blocks):
+    """The analysis VJP (one call of the synthesis route in its
+    transposed-scatter mode) equals the flip route bit for bit, and a
+    torch.profiler trace of one call holds the route's kernels and nothing
+    else: no flip, cat, copy or slice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, kernel_design=design, device="cuda")
+    vjp = getattr(cuda_mdct, f"{m.kernel_name('forward')}_vjp")
+    vjp_args = m.vjp_args("forward")
+    gen = torch.Generator(device="cpu").manual_seed(blocks)
+    g = (torch.rand(3, blocks + 1, n, generator=gen) * 2 - 1).to(
+        "cuda", m.kernel_dtype)
+    cuda_mdct.reset_launch_counts()
+    got = vjp(g, *vjp_args)
+    torch.cuda.synchronize()
+    assert cuda_mdct.launch_counts() == _once(vjp.__name__)
+    assert got.shape == (3, blocks, n) and got.dtype == g.dtype
+    assert torch.equal(got, _scatter_flip_route(m, g))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):  # one call of 2 frames may leave no event
+            vjp(g, *vjp_args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all(any(f in nm for f in SYNTHESIS_ROUTES)
+                         for nm in names), names
 
 
 def _vjp_tol(want, tier, dtype):

@@ -63,6 +63,17 @@ def flip_route(g, forward, args):
     return torch.flip(forward(gr, *args), (1,))[:, 1:-1]
 
 
+def scatter_flip_route(g, synthesis, args):
+    """The analysis VJP through the synthesis ``synthesis`` composed with
+    torch flips: ``synthesis`` on the block-reversed cotangent (T+2 frames
+    out), reversed back, cut by its first and last frame and its lane
+    halves exchanged. The oracle of the transposed scatter."""
+    h = g.shape[-1] // 2
+    out = torch.flip(synthesis(torch.flip(g, (1,)).contiguous(), *args),
+                     (1,))[:, 1:-1]
+    return torch.cat([out[..., h:], out[..., :h]], dim=-1)
+
+
 SYNTHESIS_VJP_TIERS = [  # (compute dtype, fast_bf16, precision)
     ("float32", False, "highest"),
     ("float32", False, "high"),
@@ -92,6 +103,46 @@ def test_fold_t_is_the_flipped_fold(dtype, n, frames):
     got = folding.fold_t(g, *weights)
     assert got.shape == (3, frames - 1, n) and got.dtype == g.dtype
     assert torch.equal(got, flip_route(g, folding.fold, weights))
+
+
+@pytest.mark.parametrize("frames", [2, 9, 130])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unfold_t_is_the_flipped_unfold(dtype, n, frames):
+    """folding.unfold_t of the cotangent's product (T+1 frames) equals the
+    unfold of its reversed blocks, reversed back, cut to T frames and its
+    lane halves exchanged, bit for bit, with the analysis VJP's weights in
+    the working dtype."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=dtype == "bfloat16",
+             use_kernel=True, device="cpu")
+    weights = m.vjp_args("forward")[:4]
+    assert {w.dtype for w in weights} == {getattr(torch, dtype)}
+    z = _cotangent((3, frames, n), dtype, frames)
+    got = folding.unfold_t(z, *weights)
+    assert got.shape == (3, frames - 1, n) and got.dtype == z.dtype
+    assert torch.equal(got, scatter_flip_route(z, folding.unfold, weights))
+
+
+@pytest.mark.parametrize("frames", [2, 9, 130])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype,fast,precision", SYNTHESIS_VJP_TIERS)
+def test_fold_matmul_vjp_is_the_flip_route(dtype, fast, precision, n,
+                                           frames):
+    """The mono analysis VJP's plain version (the product, then the
+    transposed scatter), and the wrapper on a CPU tensor, equal the flip
+    route through the synthesis's plain version bit for bit."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, device="cpu")
+    vjp_args = m.vjp_args("forward")
+    g = _cotangent((3, frames, n), dtype, 2 * n + frames)
+    want = scatter_flip_route(g, cuda_mdct.matmul_scatter_reference,
+                              vjp_args[:-1])
+    got = cuda_mdct.fold_matmul_vjp_reference(g, *vjp_args)
+    assert got.shape == (3, frames - 1, n) and got.dtype == g.dtype
+    assert torch.equal(got, want)
+    cuda_mdct.reset_launch_counts()
+    assert torch.equal(cuda_mdct.fold_matmul_vjp(g, *vjp_args), want)
+    assert set(cuda_mdct.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("frames", [2, 9, 130])

@@ -44,22 +44,49 @@ def test_philox_known_answers(counter, key, want):
     assert [int(w) for w in words] == list(want)
 
 
+def _word_uniforms(seed, calls):
+    """The TPU kernel's map u = 2 - float(0x3F800000 | bits >> 9) of the
+    four words of Philox calls 0..calls-1, numpy float32 [calls, 4]."""
+    index = torch.arange(calls, dtype=torch.int64)
+    zero = torch.zeros_like(index)
+    words = philox.philox4x32((index, zero, zero, zero), (seed, 0))
+    bits = np.stack([w.numpy() for w in words], axis=-1).astype(np.uint32)
+    return np.float32(2.0) - ((bits >> 9) | np.uint32(0x3F800000)).view(
+        np.float32)
+
+
 def test_uniforms_are_the_tpu_kernels_map_of_the_stream():
-    """u = 2 - float(0x3F800000 | bits >> 9), in (0, 1]; element i of a
-    stream does not depend on how many elements are drawn."""
-    u1, u2 = philox.uniforms(9, 4096)
+    """u = 2 - float(0x3F800000 | bits >> 9), in (0, 1]; element 4j + e
+    takes call j's words (w0, w1) for e = 0, 1 and (w2, w3) for e = 2, 3,
+    and its normal is that pair's cosine (e even) or sine (e odd): no word
+    of a call is thrown away."""
+    count = 4096
+    u1, u2 = philox.uniforms(9, count)
     assert u1.dtype == u2.dtype == torch.float32
     for u in (u1, u2):
         assert bool((u > 0).all()) and bool((u <= 1).all())
-    index = torch.arange(4096, dtype=torch.int64)
-    zero = torch.zeros_like(index)
-    w0, w1, _, _ = philox.philox4x32((index, zero, zero, zero), (9, 0))
-    for w, u in ((w0, u1), (w1, u2)):
-        bits = (w.numpy().astype(np.uint32) >> 9) | np.uint32(0x3F800000)
-        want = np.float32(2.0) - bits.view(np.float32)
-        np.testing.assert_array_equal(u.numpy(), want)
-    head = philox.uniforms(9, 100)
-    assert torch.equal(head[0], u1[:100]) and torch.equal(head[1], u2[:100])
+    w = _word_uniforms(9, count // 4)
+    for e in range(4):
+        pair = 2 * (e // 2)
+        np.testing.assert_array_equal(u1.numpy()[e::4], w[:, pair])
+        np.testing.assert_array_equal(u2.numpy()[e::4], w[:, pair + 1])
+    radius = torch.sqrt(-2.0 * torch.log(torch.from_numpy(w[:, 0::2])))
+    angle = philox.TWO_PI * torch.from_numpy(w[:, 1::2])
+    z = philox.normal(9, count).reshape(-1, 4)
+    assert torch.equal(z[:, 0::2], radius * torch.cos(angle))
+    assert torch.equal(z[:, 1::2], radius * torch.sin(angle))
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4, 5, 6, 7, 8, 9, 100])
+def test_an_element_does_not_depend_on_the_count(count):
+    """Element i of the stream is the same whatever the count drawn,
+    including counts that end inside a call."""
+    u1, u2 = philox.uniforms(9, 4096)
+    head = philox.uniforms(9, count)
+    assert head[0].shape == (count,)
+    assert torch.equal(head[0], u1[:count]) and torch.equal(head[1],
+                                                            u2[:count])
+    assert torch.equal(philox.normal(9, count), philox.normal(9, 4096)[:count])
 
 
 def _noise(seed, thr=None, shape=(8, 64, 1024, 1)):

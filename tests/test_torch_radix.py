@@ -23,7 +23,7 @@ from audiocodec_tpu_torch import MDCT, Codec
 from audiocodec_tpu_torch.convert import codec_from_arrays
 from audiocodec_tpu_torch.ops import cuda_mdct, dct, radix
 from tests.test_torch_codec import _leaves_and_meta
-from tests.test_torch_grad import flip_route
+from tests.test_torch_grad import flip_route, scatter_flip_route
 
 torch.set_num_threads(1)
 
@@ -293,6 +293,30 @@ def test_radix_matmul_scatter_vjp_is_the_flip_route(dtype, fast, precision,
     assert torch.equal(got, want)
     cuda_mdct.reset_launch_counts()
     assert torch.equal(cuda_mdct.radix_matmul_scatter_vjp(g, *vjp_args), want)
+    assert set(cuda_mdct.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("frames", [2, 9, 130])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype,fast,precision", [
+    ("float32", False, "highest"), ("bfloat16", True, "default")])
+def test_radix_fold_matmul_vjp_is_the_flip_route(dtype, fast, precision, n,
+                                                 frames):
+    """The radix analysis VJP's plain version (the radix synthesis's
+    products on the cotangent, then the transposed scatter), and the
+    wrapper on a CPU tensor, equal the flip route through the radix
+    synthesis's plain version bit for bit."""
+    m = MDCT(n, compute_dtype=dtype, fast_bf16=fast, use_kernel=True,
+             dct_precision=precision, kernel_design="radix", device="cpu")
+    vjp_args = m.vjp_args("forward")
+    _, g = _inputs((3, frames, n), dtype, 2 * n + frames)
+    want = scatter_flip_route(g, cuda_mdct.radix_matmul_scatter_reference,
+                              vjp_args[:-1])
+    got = cuda_mdct.radix_fold_matmul_vjp_reference(g, *vjp_args)
+    assert got.shape == (3, frames - 1, n) and got.dtype == g.dtype
+    assert torch.equal(got, want)
+    cuda_mdct.reset_launch_counts()
+    assert torch.equal(cuda_mdct.radix_fold_matmul_vjp(g, *vjp_args), want)
     assert set(cuda_mdct.launch_counts().values()) == {0}
 
 
