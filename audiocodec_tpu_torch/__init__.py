@@ -1,6 +1,9 @@
 """audiocodec_tpu_torch — the PyTorch/CUDA port of audiocodec_tpu.
 
-The quantized codec path, the noise-injection codec (MDCT, psychoacoustic
+The quantized codec path, the bitstream path with its feature ladder
+(``Codec.encode_frames`` -> ``EncodedFrames`` -> ``decode_bitstream[_ms]``:
+the scq sidecar grid, TNS, block switching, noise fill, bandwidth extension
+and intensity stereo), the noise-injection codec (MDCT, psychoacoustic
 model in parity and calibrated modes, temporal masking, quantizer, masked
 noise), training through the codec (``quantize.quantize_ste``,
 ``parallel.train``, ``models``), the discrete RVQ codec (``models.rvq``) and
@@ -12,8 +15,9 @@ It imports torch and numpy, never jax or audiocodec_tpu.
 """
 
 from audiocodec_tpu_torch import quantize
-from audiocodec_tpu_torch.codec import Codec
+from audiocodec_tpu_torch.codec import Codec, EncodedFrames
 from audiocodec_tpu_torch.mdct import MDCT
 from audiocodec_tpu_torch.psycho import PsychoacousticModel
 
-__all__ = ["Codec", "MDCT", "PsychoacousticModel", "quantize"]
+__all__ = ["Codec", "EncodedFrames", "MDCT", "PsychoacousticModel",
+           "quantize"]

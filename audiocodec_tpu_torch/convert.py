@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from audiocodec_tpu_torch import scq
 from audiocodec_tpu_torch.codec import Codec
 
 _MDCT_LEAVES = (
@@ -77,8 +78,10 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         ``bark_bands_n``, ``alpha``, ``window_type``, ``compute_dtype``
         (name), ``fast_bf16``, ``use_pallas`` and ``pallas_kernel``
         (resolved), ``dct_precision``, ``bark_precision``,
-        ``pallas_int8_scale`` and the psychoacoustic model's ``calibrated``
-        (False when absent).
+        ``pallas_int8_scale``, the psychoacoustic model's ``calibrated``
+        (False when absent) and the codec's ``sidecar_grid``
+        (``scq.DEFAULT_K2``, the JAX ``Codec``'s default, when absent; 0
+        ships raw bfloat16 sidecars).
     :param device: the card unless the caller asks for the CPU.
     :raises ValueError: if ``calibrated`` and the presence of
         ``psycho.quiet_threshold_freq_amp`` disagree.
@@ -108,6 +111,7 @@ def codec_from_arrays(leaves: dict, meta: dict, device="cuda") -> Codec:
         bark_precision=meta["bark_precision"],
         kernel_design=meta["pallas_kernel"],
         calibrated=calibrated,
+        sidecar_grid=meta.get("sidecar_grid", scq.DEFAULT_K2),
         device=device,
     )
     mdct, psycho = codec.mdct, codec.psycho

@@ -9,6 +9,8 @@ cannot represent the 1e-14 intensity floor of the psychoacoustic model
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 ALLOWED_COMPUTE_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
@@ -48,4 +50,28 @@ def check_input_dtype(x: torch.Tensor, compute_dtype, what: str = "input"):
 def scalar(value: float, dtype, device=None) -> torch.Tensor:
     """A 0-d constant rounded to ``dtype``, so that arithmetic with it
     rounds as the JAX package's numpy constants do."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def sidecar_work_dtype(spec: torch.Tensor) -> torch.dtype:
+    """Work dtype of the sidecar-steering math (the nf, bwe and intensity
+    analyses and fills): float32, which only picks a uint8 wire value,
+    except that a float64 pipeline stays float64. One definition, so that
+    the three modules' encoder-side gains agree."""
+    return torch.float64 if spec.dtype == torch.float64 else torch.float32
+
+
+def rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: multiplying a
+    tensor by it rounds as the JAX package's ``jnp.asarray(value, dtype)``
+    does (torch would hold a Python scalar in float32 for a bfloat16
+    tensor)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def divisor(value: float, dtype, device) -> torch.Tensor:
+    """A 0-d divisor on ``device``, made once: CUDA divides by a host
+    scalar through its reciprocal, which rounds twice, and by a device
+    tensor truly."""
     return torch.tensor(value, dtype=dtype, device=device)

@@ -101,7 +101,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    same codes; three training steps (``warmup_steps=1``) each launch the
    analysis, the synthesis and its VJP once, and the first step's loss
    and gradients meet ``TRAIN_TOL`` against the all-plain step; ms,
-   audio-s/s and peak memory.
+   audio-s/s and peak memory;
+16. the bitstream feature ladder at full width through its entry points
+   (``Codec.encode_frames`` on ``mdct.transform``, then
+   ``decode_bitstream``/``decode_bitstream_ms``), in the CLI's presets:
+   "music" (TNS, block switching, dead zone 0.7) on 32 mono clips of 10 s
+   in (r), "low" (mid/side, TNS, block switching, noise fill, temporal
+   masking 130 dB/s, bandwidth extension, intensity stereo, dead zone 1.0,
+   noise seed 5) on 16 stereo clips of 10 s in (r) and (b), on tones, noise,
+   attacks after gaps and impulses. Each encode launches ``fold_matmul``
+   once and each decode ``matmul_scatter`` once, and no other kernel; TNS,
+   block switching and noise filling fire; the payload meets the same
+   codec's with every kernel swapped for its plain version (codes at least
+   99.9% equal, each within one step; the sidecar's grid levels, TNS
+   indices, nf levels, bwe and intensity gains and block-switch flags at
+   least 99.9% equal, at float32 each within one level); the kernels' and
+   the plain versions' decodes of one payload agree within ``tolerance``'s
+   synthesis bound; the SNR is within 0.05 dB of the all-plain codec's; the
+   noise fill's threefry draw [16, 431, 416, 2] on the card equals the
+   CPU's bit for bit. Printed: the share of frames where each feature
+   fired, ms and audio-s/s of an encode and a decode (CUDA events), each
+   stage's device ms run alone, the draw's ms with and without its key
+   derivation, and the traced split and idle share.
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -235,6 +256,24 @@ RVQ_AE = dict(filters_n=FILTERS_N, hidden_n=512, latent_n=64,
 RVQ_CFG = dict(stages=4, codebook_size=1024, dim=64)
 RVQ_CODES_EQUAL = 0.999
 RVQ_TRAIN_STEPS = 3
+# The bitstream ladder of phase 16: the CLI's presets
+# (audiocodec_tpu/__main__.py _PRESETS) with their dead zones fixed,
+# preset -> (configurations, channels, clips, encode_frames keywords)
+LADDER_PRESETS = {
+    "music": (("r",), 1, BATCH, dict(tns=True, bs=True, deadzone=0.7)),
+    "low": (("r", "b"), 2, BATCH // 2,
+            dict(ms=True, deadzone=1.0, tns=True, bs=True, nf=True,
+                 tmask=130.0, bwe=True, intensity=True)),
+}
+LADDER_NF_SEED = 5
+# share of the codes, and of each member, equal to the all-plain codec's;
+# at float32 each difference is within one step or level (at the bf16
+# tier an intensity gain of an uncorrelated group, a projection near 0,
+# can flip its sign and with it its wire value)
+LADDER_EQUAL = 0.999
+# the payload's members held against the all-plain payload
+LADDER_MEMBERS = ("tns_idx", "nf_levels", "bs_flags", "bwe_gains",
+                  "is_gains")
 
 
 class PhaseError(RuntimeError):
@@ -1635,6 +1674,290 @@ def rvq_phase(torch, dev):
     return dict(serving=serving, training=training)
 
 
+def ladder_signal(torch, device, dtype, clips, channels):
+    """Tones (440 and 7000 Hz) over a noise floor, with an attack after a
+    gap every 20 frames (block switching fires) and an impulse 10 frames
+    later (TNS fires), each clip scaled by its own seeded gain; the second
+    channel is the first at 0.8 plus a little noise (a panned image):
+    [clips, SAMPLES, channels]."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    n = FILTERS_N
+    t = torch.arange(SAMPLES, dtype=torch.float64) / SAMPLE_RATE
+    x = (0.3 * torch.sin(2 * math.pi * 440 * t)
+         + 0.02 * torch.sin(2 * math.pi * 7000 * t)
+         + 0.03 * torch.randn(SAMPLES, generator=gen, dtype=torch.float64))
+    for frame in range(4, SAMPLES // n - 1, 20):
+        start = frame * n - n // 4
+        x[start:start + n // 2] *= 0.01
+        x[start + n // 2:start + 3 * n // 4] += 0.6 * torch.randn(
+            n // 4, generator=gen, dtype=torch.float64)
+        if frame + 10 < SAMPLES // n:
+            x[(frame + 10) * n + 300] += 0.9
+    x = x.clamp(-1.0, 1.0)
+    x = torch.stack([x, 0.8 * x + 0.01 * torch.randn(
+        SAMPLES, generator=gen, dtype=torch.float64)], dim=-1)[:, :channels]
+    gains = 0.5 + 0.5 * torch.rand(clips, 1, 1, generator=gen,
+                                   dtype=torch.float64)
+    return (x[None] * gains).to(torch.float32).to(device=device, dtype=dtype)
+
+
+def ladder_levels(torch, a, b, label, within_one):
+    """Share of entries of two integer tensors that are equal, checked >=
+    LADDER_EQUAL, and with ``within_one`` every difference within one
+    level: bf16 sidecars by their grid levels, intensity gains
+    (``is_gains``: bit 7 the sign) by their signed magnitude levels.
+
+    :return: (share equal, count of entries more than one level apart)."""
+    from audiocodec_tpu_torch import scq
+
+    if a.dtype == torch.bfloat16:
+        a, b = (torch.from_numpy(scq.levels_from_bark16(v, scq.DEFAULT_K2))
+                for v in (a, b))
+    a, b = a.long(), b.long()
+    if label.endswith("is_gains"):
+        a, b = (torch.where(v >= 128, -(v & 127), v) for v in (a, b))
+    diff = (a - b).abs()
+    same = float((diff == 0).float().mean())
+    far = int((diff > 1).sum())
+    check(same >= LADDER_EQUAL and (far == 0 or not within_one),
+          f"{label}: {same} equal to the all-plain payload, {far} more than "
+          f"one level apart (max {int(diff.max())})")
+    return same, far
+
+
+def ladder_stage_ms(torch, codec, x, kw, enc):
+    """Device ms of each stage of one encode and one decode, run alone on
+    their inputs (CUDA events, 10 after 3 warm-ups), in the methods' order
+    (codec.py quantize_frames_tns, decode_bitstream_ms)."""
+    from audiocodec_tpu_torch import (blockswitch, bwe, intensity, nf,
+                                      quantize, tns)
+
+    out = {}
+    prec = codec.mdct.dct_precision
+
+    def stage(name, fn):
+        out[name] = cuda_ms(torch, fn, iters=10)
+        return fn()
+
+    ms, dz = bool(kw.get("ms")), kw["deadzone"]
+    frames = stage("analysis MDCT", lambda: codec.mdct.transform(x))
+    flags = stage("bs detect", lambda: blockswitch.detect(frames,
+                                                          precision=prec))
+    spec, _, thr, _ = stage("psycho + sidecar", lambda: (
+        codec.analyze_for_quantization(frames, ms=ms,
+                                       tmask=kw.get("tmask", 0.0))))
+    tbs = codec.tns_band_start
+    idx = torch.where(flags[:, :, None, None], 0, stage(
+        "TNS analyze", lambda: tns.analyze(spec, tbs)))
+    spec_f = stage("TNS forward", lambda: tns.filter_forward(spec, idx, tbs))
+    thr = stage("TNS scale + bs pool", lambda: blockswitch.pool_threshold(
+        tns.scaled_threshold(thr, idx, tbs), flags))
+    spec_f = stage("bs split", lambda: blockswitch.split_spectrum(
+        spec_f, flags, precision=prec))
+    codes, delta = stage("quantize", lambda: quantize.quantize(
+        spec_f, thr, deadzone=dz))
+    excl = None
+    if kw.get("intensity"):
+        codes, excl = stage("intensity force", lambda: codec._intensity_force(
+            codes, flags, ms))
+    if kw.get("nf"):
+        stage("nf analyze", lambda: nf.analyze(
+            spec_f, codes, delta, codec.nf_band_start, deadzone=dz,
+            band_end=codec.bwe_start if kw.get("bwe") else None,
+            exclude=excl))
+    if kw.get("bwe"):
+        stage("bwe analyze", lambda: bwe.analyze(spec_f, codes, delta,
+                                                 codec.bwe_start, excl))
+    if kw.get("intensity"):
+        stage("intensity analyze", lambda: codec._intensity_gains(
+            spec_f, codes, delta, flags, enc.bwe_gains, excl))
+    # the decode, on the payload
+    cdt = codec.mdct.compute_dtype
+    thr = stage("sidecar threshold", lambda: (
+        codec._ms_threshold(enc.bark16) if ms else
+        codec.psycho.bark_intensity_to_threshold(enc.bark16.to(cdt))))
+    delta = stage("TNS scale + bs pool + step", lambda: quantize.step_size(
+        codec._decode_threshold(thr, enc.tns_idx, tbs, enc.bs_flags)))
+    spec = stage("dequantize", lambda: quantize.dequantize(
+        enc.codes, delta, dtype=cdt,
+        recon_offset=quantize.dz_recon_offset(dz)))
+    excl = (intensity.owned_mask(codec.mdct.filters_n, codec.is_start,
+                                 x.device) if kw.get("intensity") else None)
+    if kw.get("bwe"):
+        spec = stage("bwe fill", lambda: bwe.fill(
+            spec, enc.codes, delta, enc.bwe_gains, codec.bwe_start, excl))
+    if kw.get("nf"):
+        spec = stage("nf fill (threefry draw)", lambda: nf.fill(
+            spec, enc.codes, delta, enc.nf_levels, codec.nf_band_start,
+            LADDER_NF_SEED, band_end=codec.bwe_start if kw.get("bwe")
+            else None, exclude=excl))
+    if kw.get("intensity"):
+        spec = stage("intensity fill", lambda: intensity.fill(
+            spec, enc.codes, delta, enc.is_gains, codec.is_start,
+            mid_ref=intensity.mid_reference(
+                enc.codes, delta, codec.mdct.compute_dtype, enc.bwe_gains,
+                codec.bwe_start, excl)))
+    spec = stage("bs merge", lambda: blockswitch.merge_spectrum(
+        spec, enc.bs_flags, precision=prec))
+    spec = stage("TNS inverse", lambda: tns.filter_inverse(
+        spec, enc.tns_idx, tbs))
+    if ms:
+        spec = stage("mid/side derotation",
+                     lambda: codec.from_mid_side(spec))
+    stage("synthesis MDCT", lambda: codec.mdct.inverse_transform(spec))
+    return out
+
+
+def ladder_phase(torch, dev):
+    """16. The bitstream ladder at full width through its entry points, in
+    the CLI's presets: "music" in (r), "low" (mid/side) in (r) and (b).
+    Each encode launches the analysis kernel once and each decode the
+    synthesis kernel once, and no other kernel; TNS, block switching and
+    noise filling fire; the payload meets the all-plain codec's (codes and
+    members at least 99.9% equal, the codes each within one step, and at
+    float32 each member within one level), the
+    kernels' and the plain versions' decodes of one payload agree within
+    the synthesis tolerance, and the SNR is within SNR_MARGIN_DB of the
+    all-plain codec's; the noise fill's threefry draw on the card equals
+    the CPU's bit for bit. Times, stage split and traced idle share."""
+    from audiocodec_tpu_torch import Codec, nf, quantize
+    from audiocodec_tpu_torch.ops import threefry
+
+    results = {}
+    for preset, (configs, channels, clips, kw) in LADDER_PRESETS.items():
+        for k in configs:
+            codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                                 **NOISE_CONFIGS[k])
+            check(codec.mdct.use_kernel is True and codec.sidecar_grid == 4,
+                  f"ladder {preset} ({k}): kernels off or sidecar grid "
+                  f"{codec.sidecar_grid}")
+            dtype = codec.mdct.compute_dtype
+            x = ladder_signal(torch, dev, dtype, clips, channels)
+            name = ("decode_bitstream_ms" if kw.get("ms")
+                    else "decode_bitstream")
+
+            def encode():
+                return codec.encode_frames(codec.mdct.transform(x), **kw)
+
+            def decode(enc):
+                extra = dict(is_gains=enc.is_gains) if kw.get("ms") else {}
+                return getattr(codec, name)(
+                    enc.codes, enc.bark16,
+                    dz_recon=quantize.dz_recon_offset(kw["deadzone"]),
+                    tns_idx=enc.tns_idx, nf_levels=enc.nf_levels,
+                    nf_seed=LADDER_NF_SEED, bs_flags=enc.bs_flags,
+                    bwe_gains=enc.bwe_gains, **extra)
+
+            label = f"ladder {preset} ({k})"
+            with torch.no_grad():
+                reset_all_launch_counts()
+                enc = encode()
+                torch.cuda.synchronize()
+                enc_counts = all_launch_counts()
+                reset_all_launch_counts()
+                y = decode(enc)
+                torch.cuda.synchronize()
+                dec_counts = all_launch_counts()
+                check(enc_counts == expected_counts(fold_matmul=1),
+                      f"{label}: encode launch counts {enc_counts}")
+                check(dec_counts == expected_counts(matmul_scatter=1),
+                      f"{label}: decode launch counts {dec_counts}")
+                check(y.shape == (clips, SAMPLES + 2 * FILTERS_N, channels)
+                      and y.dtype == dtype
+                      and bool(torch.isfinite(y).all()),
+                      f"{label}: decode {tuple(y.shape)} {y.dtype}")
+                fired = {
+                    "tns": float((enc.tns_idx != 0).any(dim=2).float()
+                                 .mean()),
+                    "bs": float(enc.bs_flags.float().mean()),
+                }
+                if kw.get("nf"):
+                    fired["nf"] = float((enc.nf_levels > 0).float().mean())
+                    fired["bwe"] = float((enc.bwe_gains > 0).float().mean())
+                    fired["intensity"] = float((enc.is_gains > 0).float()
+                                               .mean())
+                check(all(v > 0 for v in fired.values()),
+                      f"{label}: a feature never fired: {fired}")
+                with plain_kernels():
+                    plain = encode()
+                    plain_y = decode(plain)
+                    plain_same = decode(enc)
+                f32 = dtype == torch.float32
+                equal = {"codes": ladder_levels(
+                    torch, enc.codes, plain.codes, f"{label}: codes", True)}
+                equal["bark16"] = ladder_levels(
+                    torch, enc.bark16.cpu(), plain.bark16.cpu(),
+                    f"{label}: bark16", f32)
+                for m in LADDER_MEMBERS:
+                    if getattr(enc, m) is not None:
+                        equal[m] = ladder_levels(
+                            torch, getattr(enc, m), getattr(plain, m),
+                            f"{label}: {m}", f32)
+                err = float((y.float() - plain_same.float()).abs().max())
+                tol = tolerance(torch, plain_same, "matmul_scatter",
+                                codec.mdct.dct_precision, dtype)
+                check(err <= tol, f"{label}: decode of one payload {err} > "
+                      f"{tol} from the plain versions'")
+                snr, plain_snr = (snr_db(x, v) for v in (y, plain_y))
+                check(abs(snr - plain_snr) <= SNR_MARGIN_DB,
+                      f"{label}: SNR {snr} vs all-plain {plain_snr}")
+                draw = None
+                if kw.get("nf"):
+                    shape = (clips, enc.codes.shape[1],
+                             codec.bwe_start - codec.nf_band_start,
+                             channels)
+                    on_card = nf.noise(LADDER_NF_SEED, *shape[:2],
+                                       shape[2:], dtype, device=dev)
+                    on_cpu = nf.noise(LADDER_NF_SEED, *shape[:2], shape[2:],
+                                      dtype, device="cpu")
+                    check(torch.equal(on_card.cpu(), on_cpu),
+                          f"{label}: the threefry draw {shape} on the card "
+                          "differs from the CPU's")
+                    keys = threefry.fold_in(threefry.fold_in(
+                        threefry.key(LADDER_NF_SEED),
+                        torch.arange(clips, device=dev)[:, None]),
+                        torch.arange(shape[1], device=dev)[None, :])
+                    draw = dict(shape=shape, bit_equal=True,
+                                ms=cuda_ms(torch, lambda: nf.noise(
+                                    LADDER_NF_SEED, *shape[:2], shape[2:],
+                                    dtype, device=dev), iters=10),
+                                uniform_ms=cuda_ms(torch, lambda: (
+                                    threefry.uniform(keys, shape[2:], dtype,
+                                                     -1.0, 1.0)), iters=10))
+                del plain, plain_y, plain_same
+                encode_ms = cuda_ms(torch, encode, iters=10)
+                decode_ms = cuda_ms(torch, lambda: decode(enc), iters=10)
+                stages = ladder_stage_ms(torch, codec, x, kw, enc)
+                traces = {"encode": trace_steps(torch, encode),
+                          "decode": trace_steps(torch, lambda: decode(enc))}
+            audio_s = clips * SAMPLES / SAMPLE_RATE
+            results[f"{preset} ({k})"] = dict(
+                launches=dict(encode=enc_counts, decode=dec_counts),
+                fired=fired, equal_to_plain=equal, decode_max_abs_err=err,
+                decode_tol=tol, snr_db=snr, plain_snr_db=plain_snr,
+                encode_ms=encode_ms, decode_ms=decode_ms,
+                encode_audio_s_per_s=audio_s / (encode_ms * 1e-3),
+                decode_audio_s_per_s=audio_s / (decode_ms * 1e-3),
+                stages_ms=stages, traces=traces, threefry=draw)
+            r = results[f"{preset} ({k})"]
+            print(f"{label} {NOISE_CONFIGS[k]} {kw}, {clips} x {channels} ch "
+                  f"x 10 s: launches encode {enc_counts}, decode "
+                  f"{dec_counts}; fired {fired}; equal to the all-plain "
+                  f"payload {equal}; decode of one payload max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e}); SNR {snr:.4f} dB (all-plain "
+                  f"{plain_snr:.4f}); threefry draw {draw}; encode "
+                  f"(transform + encode_frames) {encode_ms:.3f} ms = "
+                  f"{r['encode_audio_s_per_s']:.1f} audio-s/s, {name} "
+                  f"{decode_ms:.3f} ms = {r['decode_audio_s_per_s']:.1f} "
+                  "audio-s/s; stages (ms) " + ", ".join(
+                      f"{s} {t:.3f}" for s, t in stages.items())
+                  + "; traced " + ", ".join(
+                      f"{s} {t['device_ms_per_step']}, idle "
+                      f"{t['idle_share']:.3f}" for s, t in traces.items()))
+            del codec, x, enc, y
+    return results
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -1800,16 +2123,20 @@ def main() -> int:
     probe = probe_phase(torch, dev, entries)
     t15 = time.monotonic()
     rvq = rvq_phase(torch, dev)
+
+    # 16. the bitstream ladder
+    t16 = time.monotonic()
+    ladder = ladder_phase(torch, dev)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
-          f"15 {time.monotonic() - t15:.1f} s")
+          f"15 {t16 - t15:.1f} s, 16 {time.monotonic() - t16:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
                       "tensor_core": tensor_core, **noise,
                       "training": training,
                       "waveform_grads": waveform_grads, "probe": probe,
-                      "rvq": rvq}))
+                      "rvq": rvq, "ladder": ladder}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

@@ -24,7 +24,8 @@ from audiocodec_tpu.models import post_filter as jax_pf
 from audiocodec_tpu.models import spectral_ae as jax_sae
 from audiocodec_tpu.parallel import make_mesh
 from audiocodec_tpu.parallel import train as jax_train
-from audiocodec_tpu_torch import MDCT, Codec, PsychoacousticModel, convert
+from audiocodec_tpu_torch import (MDCT, Codec, PsychoacousticModel,
+                                  blockswitch, convert, intensity, nf, scq)
 from audiocodec_tpu_torch.models import post_filter as pf
 from audiocodec_tpu_torch.models import rvq
 from audiocodec_tpu_torch.models import spectral_ae as sae
@@ -90,7 +91,9 @@ def test_entry_points_default_to_the_card():
     for fn in (MDCT, Codec.create, PsychoacousticModel,
                convert.codec_from_arrays, convert.params_from_arrays,
                convert.rvq_state_from_arrays, sae.init_params, pf.init_params,
-               rvq.init_state, int8_probe.run):
+               rvq.init_state, int8_probe.run, scq.table,
+               scq.bark16_from_levels, blockswitch.transition_matrices,
+               blockswitch.unpack_flags, intensity.owned_mask, nf.noise):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):

@@ -175,9 +175,13 @@ def test_build_without_nvcc_raises(tmp_path):
 
 def test_import_loads_no_jax():
     code = ("import sys, audiocodec_tpu_torch, audiocodec_tpu_torch.convert, "
-            "audiocodec_tpu_torch.models, audiocodec_tpu_torch.parallel; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'audiocodec_tpu.')) or "
+            "audiocodec_tpu_torch.models, audiocodec_tpu_torch.parallel, "
+            "audiocodec_tpu_torch.ops.threefry, audiocodec_tpu_torch.scq, "
+            "audiocodec_tpu_torch.tns, audiocodec_tpu_torch.blockswitch, "
+            "audiocodec_tpu_torch.nf, audiocodec_tpu_torch.bwe, "
+            "audiocodec_tpu_torch.intensity; "
+            "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
+            "m.startswith(('jax.', 'ml_dtypes.', 'audiocodec_tpu.')) or "
             "m == 'audiocodec_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
