@@ -8,8 +8,8 @@ a level to its value through one table (:func:`table`), computed on the
 host in float64 and rounded to bfloat16 as the JAX package's table is; the
 encoder gathers from it and never re-evaluates exp2 on the device.
 
-The levels' byte coding (``encode_levels``/``decode_levels``, which wrap
-``io/bitstream.encode_int2d``) comes with the port of ``io/bitstream.py``.
+The levels' byte coding (``encode_levels``/``decode_levels``) is the
+container's 2-D delta + run-length Rice coder, ``io/bitstream.encode_int2d``.
 """
 
 from __future__ import annotations
@@ -116,3 +116,19 @@ def bark16_from_levels(levels, k2: int, shape, device="cuda") -> torch.Tensor:
             "corrupt container"
         )
     return table(k2, device)[torch.from_numpy(lv - lo).to(device)]
+
+
+def encode_levels(levels: np.ndarray, block_axis: int) -> bytes:
+    """Grid levels -> bytes through THE shared 2-D MED-delta + run-length-
+    Rice integer coder (``io/bitstream.encode_int2d``, the same coding the
+    bfloat16 sidecar's "rrice2d" mode uses)."""
+    from audiocodec_tpu_torch.io import bitstream
+
+    return bitstream.encode_int2d(levels, block_axis)
+
+
+def decode_levels(data: bytes, shape, block_axis: int) -> np.ndarray:
+    """Inverse of :func:`encode_levels` -> int32 levels of ``shape``."""
+    from audiocodec_tpu_torch.io import bitstream
+
+    return bitstream.decode_int2d(data, shape, block_axis)

@@ -122,7 +122,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    CPU's bit for bit. Printed: the share of frames where each feature
    fired, ms and audio-s/s of an encode and a decode (CUDA events), each
    stage's device ms run alone, the draw's ms with and without its key
-   derivation, and the traced split and idle share.
+   derivation, and the traced split and idle share;
+17. the .acz clip path, the CLI's non-chunked encode and decode composed
+   from the port's library calls in (r) with the native host library
+   (``audiocodec_tpu_torch.native``, built with g++; the phase fails
+   without it, and on any zlib-coded container): the six lossy golden
+   vectors (tests/vectors/) decode on the card through ``io.bitstream.load``
+   with codes equal to the manifest's sha256 and PCM within 4 LSB; a 60 s
+   stereo PCM16 file written by ``native.write_wav`` is read back by
+   ``native.decode_wav`` (equal to ``io.wav.read_wav``'s samples), padded
+   to whole blocks, encoded with the "music" preset (TNS, block switching,
+   plain rounding), saved, loaded, decoded, trimmed and written: the
+   output has the input's sample count, the loaded codes equal the
+   encoded ones, the container is Rice-coded, the encode launches one
+   ``fold_matmul`` and the decode one ``matmul_scatter``, codes at least
+   99.9% equal (each within one step) and SNR within 0.05 dB of the same
+   path with every kernel plain; the "low" preset (mid/side) on phase
+   16's 16 stereo clips is rate-controlled to 40 kbps
+   (``rate.encode_with_target_bitrate_batch``: one ``fold_matmul`` for the
+   whole search), every clip within 15% of the target, every winning
+   container Rice-coded and decoding through ``decode_bitstream_ms``, and
+   where a clip's scale equals the all-plain search's, its SNR within 0.05
+   dB. Printed: each step's ms (WAV read, transform + encode_frames, pack,
+   unpack, decode, WAV write), audio-s/s both ways, and the search's wall
+   ms, traced device busy ms, idle share and host spans (``rate.*``).
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -274,6 +297,23 @@ LADDER_EQUAL = 0.999
 # the payload's members held against the all-plain payload
 LADDER_MEMBERS = ("tns_idx", "nf_levels", "bs_flags", "bwe_gains",
                   "is_gains")
+# The .acz path of phase 17, the CLI's non-chunked encode and decode in
+# (r) with its sidecar grid 4: the six lossy golden vectors (their codes'
+# sha256 and PCM within 4 LSB, tests/test_vectors.py's rule); one "music"
+# file of 60 s stereo (audiocodec_tpu/__main__.py _PRESETS: TNS and block
+# switching; its dead zone "auto" is plain rounding without --kbps); and
+# the "low" preset (mid/side) rate-controlled to 40 kbps on phase 16's 16
+# stereo clips of 10 s, each clip within tests/test_rate.py::
+# TestBatchRateControl's 15% of the target
+ACZ_VECTORS = ("plain", "scq", "bwe", "intensity", "ladder", "stereo_ms")
+ACZ_VECTOR_LSB = 4
+ACZ_SECONDS = 60
+ACZ_MUSIC = dict(tns=True, bs=True, deadzone=0.5)
+ACZ_LOW = dict(ms=True, deadzone="auto", tns=True, bs=True, nf=True,
+               tmask=130.0, bwe=True, intensity=True)
+ACZ_KBPS = 40.0
+ACZ_KBPS_TOLERANCE = 0.15
+ACZ_RATE_CLIPS = BATCH // 2
 
 
 class PhaseError(RuntimeError):
@@ -1265,7 +1305,13 @@ def trace_steps(torch, step, steps=5):
         else:
             key = "other"
         split[key] += (end - start) / 1e3 / steps
-    spans.sort()
+    busy, span = covered(spans)
+    return dict(device_ms_per_step=split, idle_share=1.0 - busy / span)
+
+
+def covered(spans):
+    """(time some span covers, the spans' whole extent) of [(start, end)]."""
+    spans = sorted(spans)
     busy, reach = 0.0, None
     for start, end in spans:
         if reach is None or start > reach:
@@ -1274,8 +1320,7 @@ def trace_steps(torch, step, steps=5):
         elif end > reach:
             busy += end - reach
             reach = end
-    span = max(end for _, end in spans) - spans[0][0]
-    return dict(device_ms_per_step=split, idle_share=1.0 - busy / span)
+    return busy, max(end for _, end in spans) - spans[0][0]
 
 
 def training_phase(torch, dev, entries):
@@ -1674,28 +1719,28 @@ def rvq_phase(torch, dev):
     return dict(serving=serving, training=training)
 
 
-def ladder_signal(torch, device, dtype, clips, channels):
+def ladder_signal(torch, device, dtype, clips, channels, samples=SAMPLES):
     """Tones (440 and 7000 Hz) over a noise floor, with an attack after a
     gap every 20 frames (block switching fires) and an impulse 10 frames
     later (TNS fires), each clip scaled by its own seeded gain; the second
     channel is the first at 0.8 plus a little noise (a panned image):
-    [clips, SAMPLES, channels]."""
+    [clips, samples, channels]."""
     gen = torch.Generator(device="cpu").manual_seed(1)
     n = FILTERS_N
-    t = torch.arange(SAMPLES, dtype=torch.float64) / SAMPLE_RATE
+    t = torch.arange(samples, dtype=torch.float64) / SAMPLE_RATE
     x = (0.3 * torch.sin(2 * math.pi * 440 * t)
          + 0.02 * torch.sin(2 * math.pi * 7000 * t)
-         + 0.03 * torch.randn(SAMPLES, generator=gen, dtype=torch.float64))
-    for frame in range(4, SAMPLES // n - 1, 20):
+         + 0.03 * torch.randn(samples, generator=gen, dtype=torch.float64))
+    for frame in range(4, samples // n - 1, 20):
         start = frame * n - n // 4
         x[start:start + n // 2] *= 0.01
         x[start + n // 2:start + 3 * n // 4] += 0.6 * torch.randn(
             n // 4, generator=gen, dtype=torch.float64)
-        if frame + 10 < SAMPLES // n:
+        if frame + 10 < samples // n:
             x[(frame + 10) * n + 300] += 0.9
     x = x.clamp(-1.0, 1.0)
     x = torch.stack([x, 0.8 * x + 0.01 * torch.randn(
-        SAMPLES, generator=gen, dtype=torch.float64)], dim=-1)[:, :channels]
+        samples, generator=gen, dtype=torch.float64)], dim=-1)[:, :channels]
     gains = 0.5 + 0.5 * torch.rand(clips, 1, 1, generator=gen,
                                    dtype=torch.float64)
     return (x[None] * gains).to(torch.float32).to(device=device, dtype=dtype)
@@ -1958,6 +2003,357 @@ def ladder_phase(torch, dev):
     return results
 
 
+def container_decode(torch, codec, codes, bark, meta):
+    """Decode a loaded container on the codec's device, with the keywords
+    the CLI's cmd_decode takes from its meta dict (the recorded band starts
+    and crossovers verbatim)."""
+    dev = codec.mdct.wa_r.device
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    kw = dict(threshold_scale=meta["threshold_scale"],
+              dz_recon=meta["dz_recon"])
+    if meta["tns_idx"] is not None:
+        kw.update(tns_idx=t(meta["tns_idx"]),
+                  tns_band_start=meta["tns_band_start"] or None)
+    if meta["nf_levels"] is not None:
+        kw.update(nf_levels=t(meta["nf_levels"]),
+                  nf_band_start=meta["nf_band_start"],
+                  nf_seed=meta["nf_seed"])
+    if meta["bs_flags"] is not None:
+        kw["bs_flags"] = t(meta["bs_flags"])
+    if meta["bwe_gains"] is not None:
+        kw.update(bwe_gains=t(meta["bwe_gains"]),
+                  bwe_start=meta["bwe_start"])
+    if meta["ms"] and meta["is_gains"] is not None:
+        kw.update(is_gains=t(meta["is_gains"]), is_start=meta["is_start"])
+    fn = codec.decode_bitstream_ms if meta["ms"] else codec.decode_bitstream
+    return fn(t(codes), bark.to(dev), **kw)
+
+
+def launched(counts):
+    """The kernels of a launch count that ran, with their counts."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def container_entropy(path_or_bytes):
+    """The codes' coder of a container: "rice", "rrice" or "zlib"."""
+    import io
+
+    import numpy as np
+
+    src = (io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes)
+           else path_or_bytes)
+    with np.load(src) as z:
+        return next((c for c in ("rice", "rrice") if c in z.files), "zlib")
+
+
+def acz_vectors(torch, dev):
+    """17a. The six lossy golden vectors through the port's load and
+    decode on the card: codes' sha256 and PCM within ACZ_VECTOR_LSB."""
+    import hashlib
+
+    import numpy as np
+
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.io import bitstream
+
+    vec = Path(__file__).resolve().parent / "tests" / "vectors"
+    manifest = json.loads((vec / "manifest.json").read_text())
+    out = {}
+    for name in ACZ_VECTORS:
+        codes, bark, meta = bitstream.load(str(vec / f"{name}.acz"))
+        want = manifest[f"{name}.acz"]
+        check(hashlib.sha256(codes.tobytes()).hexdigest()
+              == want["codes_sha256"], f"vector {name}: codes' sha256")
+        codec = Codec.create(meta["sample_rate"],
+                             filters_n=meta["filters_n"],
+                             bark_bands_n=meta["bark_bands_n"],
+                             compute_dtype=meta["compute_dtype"],
+                             bark_precision=meta["bark_precision"],
+                             device=dev)
+        n = meta["filters_n"]
+        with torch.no_grad():
+            wave = container_decode(torch, codec, codes, bark, meta)
+        wave = wave[0, n:-n].double().cpu().numpy()
+        if meta["orig_samples"]:
+            wave = wave[:meta["orig_samples"]]
+        pcm = np.load(vec / f"{name}.acz.pcm.npy").astype(np.int64)
+        got = np.round(np.clip(wave, -1, 1) * 32767.0).astype(np.int64)
+        check(got.shape == pcm.shape, f"vector {name}: {got.shape}")
+        lsb = int(np.abs(got - pcm).max())
+        check(lsb <= ACZ_VECTOR_LSB, f"vector {name}: PCM {lsb} LSB away")
+        out[name] = dict(max_lsb=lsb, entropy=container_entropy(
+            str(vec / f"{name}.acz")))
+    print(f"acz vectors on the card: {out}")
+    return out
+
+
+def acz_music(torch, dev, codec, workdir):
+    """17b. One 60 s stereo PCM16 file through the CLI's encode and decode
+    (read, pad, transform + encode_frames, save; load, decode, trim,
+    write), gapless, Rice-coded, one MDCT kernel launch each way, against
+    the same path with every kernel swapped for its plain version."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import native
+    from audiocodec_tpu_torch.io import bitstream, wav
+
+    n = FILTERS_N
+    samples = ACZ_SECONDS * SAMPLE_RATE
+    src, acz, dst = (str(workdir / f) for f in ("music.wav", "music.acz",
+                                                "restored.wav"))
+    x = ladder_signal(torch, "cpu", torch.float32, 1, 2, samples=samples)
+    native.write_wav(src, x[0].numpy(), SAMPLE_RATE)
+    meta = dict(sample_rate=SAMPLE_RATE, filters_n=n, bark_bands_n=64,
+                alpha=codec.psycho.alpha,
+                window_type=codec.mdct.window_type,
+                compute_dtype=bitstream.dtype_name(
+                    codec.mdct.compute_dtype),
+                ms=False, bark_precision=codec.psycho.bark_precision,
+                sidecar_grid=codec.sidecar_grid,
+                tns_band_start=codec.tns_band_start)
+
+    def run(times):
+        """One pass of the path, timed step by step on the host's clock
+        (each device step ends in a synchronize): (payload, restored)."""
+        def step(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        data, rate = step("wav read", lambda: native.decode_wav(src))
+        check(rate == SAMPLE_RATE, f"music: read rate {rate}")
+        pad = (-data.shape[1]) % n  # __main__.py _pad_to_blocks
+        padded = np.pad(data, ((0, 0), (0, pad), (0, 0)))
+
+        def encode():
+            xd = torch.from_numpy(padded).to(dev)
+            enc = codec.encode_frames(codec.mdct.transform(xd),
+                                      **ACZ_MUSIC)
+            torch.cuda.synchronize()
+            return enc
+
+        reset_all_launch_counts()
+        enc = step("transform + encode_frames", encode)
+        enc_counts = all_launch_counts()
+        blob = step("pack", lambda: bitstream.pack(
+            enc.codes, enc.bark16, tns_idx=enc.tns_idx,
+            bs_flags=enc.bs_flags, orig_samples=data.shape[1], **meta))
+        with open(acz, "wb") as f:
+            f.write(blob)
+        codes, bark, got = step("unpack", lambda: bitstream.load(acz))
+
+        def decode():
+            y = container_decode(torch, codec, codes, bark, got)
+            y = y[:, n:-n][:, :got["orig_samples"]].float().cpu().numpy()
+            return y
+
+        reset_all_launch_counts()
+        y = step("decode", decode)
+        dec_counts = all_launch_counts()
+        step("wav write", lambda: native.write_wav(dst, y, SAMPLE_RATE))
+        return dict(data=data, enc=enc, blob=blob, codes=codes, meta=got,
+                    y=y, counts=dict(encode=enc_counts, decode=dec_counts))
+
+    with torch.no_grad():
+        first = run({})
+        times = {}
+        r = run(times)
+        with plain_kernels():
+            plain = run({})
+    data = r["data"]
+    read_back, _ = wav.read_wav(src)
+    check(np.array_equal(data, read_back),
+          "music: native.decode_wav differs from io.wav.read_wav")
+    restored, _ = native.decode_wav(dst)
+    check(restored.shape == data.shape,
+          f"music: restored {restored.shape} vs input {data.shape}")
+    check(np.array_equal(r["codes"], r["enc"].codes.cpu().numpy()),
+          "music: loaded codes differ from the encoded ones")
+    entropy = container_entropy(r["blob"])
+    check(entropy in ("rice", "rrice"), f"music: entropy {entropy}")
+    check(r["counts"] == first["counts"] and r["counts"] == dict(
+        encode=expected_counts(fold_matmul=1),
+        decode=expected_counts(matmul_scatter=1)),
+        f"music: launches {r['counts']}")
+    same, far = ladder_levels(torch, r["enc"].codes, plain["enc"].codes,
+                              "music: codes", True)
+
+    def snr(y):
+        ref = data.astype(np.float64)
+        err = ((ref - y.astype(np.float64)) ** 2).sum()
+        return float(10 * math.log10((ref ** 2).sum() / max(err, 1e-300)))
+
+    got_snr, plain_snr = snr(r["y"]), snr(plain["y"])
+    check(abs(got_snr - plain_snr) <= SNR_MARGIN_DB,
+          f"music: SNR {got_snr} vs all-plain {plain_snr}")
+    audio_s = ACZ_SECONDS
+    enc_ms = sum(times[k] for k in ("wav read", "transform + encode_frames",
+                                    "pack"))
+    dec_ms = sum(times[k] for k in ("unpack", "decode", "wav write"))
+    out = dict(samples=data.shape[1], channels=data.shape[2],
+               frames=int(r["codes"].shape[1]), bytes=len(r["blob"]),
+               kbps=len(r["blob"]) * 8 / audio_s / 1e3, entropy=entropy,
+               launches=r["counts"], codes_equal_to_plain=same,
+               snr_db=got_snr, plain_snr_db=plain_snr, steps_ms=times,
+               encode_audio_s_per_s=audio_s / (enc_ms * 1e-3),
+               decode_audio_s_per_s=audio_s / (dec_ms * 1e-3))
+    print(f"acz music (r) {ACZ_MUSIC}, 1 x 2 ch x {ACZ_SECONDS} s: "
+          f"{out['samples']} samples -> {out['frames']} frames, "
+          f"{out['bytes']} bytes ({out['kbps']:.1f} kbps, {entropy}); "
+          f"gapless; launches encode {launched(r['counts']['encode'])}, "
+          f"decode {launched(r['counts']['decode'])}; codes equal to the "
+          "all-plain "
+          f"path {same}; SNR {got_snr:.4f} dB (all-plain {plain_snr:.4f}); "
+          "steps (ms) " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; encode (read + encode + pack) "
+          f"{out['encode_audio_s_per_s']:.1f} audio-s/s, decode (unpack + "
+          f"decode + write) {out['decode_audio_s_per_s']:.1f} audio-s/s")
+    return out
+
+
+def trace_search(torch, fn):
+    """One call of ``fn`` under torch.profiler: its result, and the device's
+    busy ms (kernels, their union), its span and idle share, and the host
+    spans the rate search labels (``rate.*``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    spans, host = [], {}
+    for e in prof.events():
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        if e.name.startswith("rate."):
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                host[e.name] = host.get(e.name, 0.0) + ms
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, span = covered(spans)
+    return out, dict(wall_ms=wall, device_busy_ms=busy / 1e3,
+                     device_span_ms=span / 1e3,
+                     idle_share=1.0 - busy / span, host_ms=host)
+
+
+def acz_rate(torch, dev, codec):
+    """17c. The "low" preset rate-controlled to ACZ_KBPS on phase 16's
+    stereo clips: one analysis launch for the whole search, every clip
+    within ACZ_KBPS_TOLERANCE, every winning container Rice-coded and
+    decoding through decode_bitstream_ms; where a clip's scale equals the
+    all-plain search's, its SNR is within SNR_MARGIN_DB of that one's."""
+    from audiocodec_tpu_torch import rate
+    from audiocodec_tpu_torch.io import bitstream
+
+    x = ladder_signal(torch, dev, torch.float32, ACZ_RATE_CLIPS, 2)
+
+    def search():
+        return rate.encode_with_target_bitrate_batch(
+            codec, x, ACZ_KBPS, orig_samples=SAMPLES, **ACZ_LOW)
+
+    def decoded(results):
+        out = []
+        for res in results:
+            codes, bark, meta = bitstream.unpack(res.packed)
+            check(meta["threshold_scale"] == res.threshold_scale
+                  and meta["ms"] and meta["is_gains"] is not None,
+                  f"rate: container meta {meta['threshold_scale']}")
+            out.append(container_decode(torch, codec, codes, bark, meta))
+        return out
+
+    with torch.no_grad():
+        reset_all_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = search()
+        torch.cuda.synchronize()
+        search_ms = (time.perf_counter() - t0) * 1e3
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        search_counts = all_launch_counts()
+        reset_all_launch_counts()
+        ys = decoded(results)
+        torch.cuda.synchronize()
+        dec_counts = all_launch_counts()
+        _, traced = trace_search(torch, search)
+        with plain_kernels():
+            plain = search()
+            plain_ys = decoded(plain)
+    check(search_counts == expected_counts(fold_matmul=1),
+          f"rate: search launches {search_counts}")
+    check(dec_counts == {k: len(results) * int(k == "matmul_scatter")
+                         for k in dec_counts},
+          f"rate: decode launches {dec_counts}")
+    kbps = [r.kbps for r in results]
+    check(all(abs(k - ACZ_KBPS) <= ACZ_KBPS_TOLERANCE * ACZ_KBPS
+              for k in kbps), f"rate: kbps {kbps}")
+    entropy = [container_entropy(r.packed) for r in results]
+    check(all(e in ("rice", "rrice") for e in entropy),
+          f"rate: entropy {entropy}")
+    same_scale, snrs = [], []
+    for b, (res, ref) in enumerate(zip(results, plain)):
+        check(ys[b].shape == (1, SAMPLES + 2 * FILTERS_N, 2)
+              and bool(torch.isfinite(ys[b]).all()),
+              f"rate: clip {b} decode {tuple(ys[b].shape)}")
+        snr, plain_snr = (snr_db(x[b:b + 1], y) for y in (ys[b],
+                                                          plain_ys[b]))
+        snrs.append((snr, plain_snr))
+        if res.threshold_scale == ref.threshold_scale:
+            same_scale.append(b)
+            check(abs(snr - plain_snr) <= SNR_MARGIN_DB,
+                  f"rate: clip {b} SNR {snr} vs all-plain {plain_snr}")
+    out = dict(clips=ACZ_RATE_CLIPS, target_kbps=ACZ_KBPS, kbps=kbps,
+               scales=[r.threshold_scale for r in results],
+               plain_scales=[r.threshold_scale for r in plain],
+               entropy=entropy, clips_at_plain_scale=len(same_scale),
+               snr_db=snrs, launches=dict(search=search_counts,
+                                          decode=dec_counts),
+               search_ms=search_ms, peak_mb=peak_mb, traced=traced)
+    print(f"acz rate (r) {ACZ_LOW} at {ACZ_KBPS} kbps, {ACZ_RATE_CLIPS} x 2 "
+          f"ch x 10 s: kbps {[round(k, 2) for k in kbps]}; entropy "
+          f"{sorted(set(entropy))}; launches search "
+          f"{launched(search_counts)}, decodes {launched(dec_counts)}; "
+          f"{len(same_scale)} clips at the all-plain "
+          f"scale, SNR (dB, kernels vs all-plain) "
+          + ", ".join(f"{a:.3f}/{p:.3f}" for a, p in snrs)
+          + f"; search {search_ms:.1f} ms wall, peak {peak_mb:.0f} MB; "
+          f"traced: wall "
+          f"{traced['wall_ms']:.1f} ms, device busy "
+          f"{traced['device_busy_ms']:.1f} ms of a "
+          f"{traced['device_span_ms']:.1f} ms span (idle share "
+          f"{traced['idle_share']:.3f}), host "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in traced["host_ms"]
+                      .items()))
+    return out
+
+
+def acz_phase(torch, dev):
+    """17. The .acz path: the golden vectors, one "music" file round trip,
+    and the "low" rate-controlled batch. Fails unless the native library
+    built and every container it writes is Rice-coded."""
+    import tempfile
+
+    from audiocodec_tpu_torch import Codec, native
+
+    check(native.available(), f"native library: {native.build_error()}")
+    out = dict(vectors=acz_vectors(torch, dev))
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    check(codec.mdct.use_kernel is True and codec.sidecar_grid == 4,
+          f"acz: kernels off or sidecar grid {codec.sidecar_grid}")
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        out["music"] = acz_music(torch, dev, codec, Path(tmp))
+    out["rate"] = acz_rate(torch, dev, codec)
+    return out
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -2127,16 +2523,21 @@ def main() -> int:
     # 16. the bitstream ladder
     t16 = time.monotonic()
     ladder = ladder_phase(torch, dev)
+
+    # 17. the .acz path
+    t17 = time.monotonic()
+    acz = acz_phase(torch, dev)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
-          f"15 {t16 - t15:.1f} s, 16 {time.monotonic() - t16:.1f} s")
+          f"15 {t16 - t15:.1f} s, 16 {t17 - t16:.1f} s, 17 "
+          f"{time.monotonic() - t17:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
                       "tensor_core": tensor_core, **noise,
                       "training": training,
                       "waveform_grads": waveform_grads, "probe": probe,
-                      "rvq": rvq, "ladder": ladder}))
+                      "rvq": rvq, "ladder": ladder, "acz": acz}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))
