@@ -1,5 +1,6 @@
 """Threefry-2x32 in torch integer arithmetic: the parts of ``jax.random``
-that the noise fill draws from (``nf.fill``).
+that the noise fill (``nf.fill``) and the stream decoder's concealment
+(``io/stream_container``: ``rademacher``) draw from.
 
 The JAX package draws its noise-fill uniforms with ``jax.random.uniform``
 under keys ``fold_in(fold_in(key(seed), batch), frame)``, and a decoder must
@@ -17,7 +18,10 @@ default):
 * ``uniform(key, shape, dtype, lo, hi)`` draws bits of the dtype's width,
   except that a dtype with fewer than 8 mantissa bits (bfloat16) draws 8;
   keeps the top ``nmant`` bits of them as the mantissa of a float in
-  [1, 2), subtracts 1, scales to [lo, hi) and clamps to lo.
+  [1, 2), subtracts 1, scales to [lo, hi) and clamps to lo;
+* ``rademacher(key, shape)`` is ``uniform(key, shape, float) < 0.5`` as
+  +1/-1, with the float of JAX's default dtype: float32 with x64 off,
+  float64 with x64 on, which give other signs.
 
 Threefry-2x32 is the 20-round hash of Salmon et al., "Parallel random
 numbers: as easy as 1, 2, 3" (SC 2011), with JAX's rotations and key
@@ -143,3 +147,14 @@ def uniform(k, shape, dtype: torch.dtype, minval: float = 0.0,
     lo = float(torch.tensor(minval, dtype=dtype))
     span = float(torch.tensor(maxval, dtype=dtype) - lo)
     return torch.clamp_min((floats - 1.0) * span + lo, lo)
+
+
+def rademacher(k, shape, dtype: torch.dtype, x64: bool = False) -> torch.Tensor:
+    """``jax.random.rademacher(k, shape, dtype)``: +1 or -1 of ``dtype`` for
+    every key of ``k`` (key words of shape K), [*K, *shape].
+
+    JAX draws it as ``uniform(k, shape, float) < 0.5`` with the float of its
+    default dtype, which the process's x64 flag sets: float32 draws (x64
+    off, the default) and float64 draws (``x64=True``) give other signs."""
+    u = uniform(k, shape, torch.float64 if x64 else torch.float32)
+    return torch.where(u < 0.5, 1, -1).to(dtype)

@@ -145,7 +145,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    where a clip's scale equals the all-plain search's, its SNR within 0.05
    dB. Printed: each step's ms (WAV read, transform + encode_frames, pack,
    unpack, decode, WAV write), audio-s/s both ways, and the search's wall
-   ms, traced device busy ms, idle share and host spans (``rate.*``).
+   ms, traced device busy ms, idle share and host spans (``rate.*``);
+18. the .acs stream path (``audiocodec_tpu_torch.streaming`` and
+   ``io.stream_container``) in BASELINE.md's configuration 5: 48 kHz
+   stereo, N=1024, 64 Bark bands, chunks of 256 blocks, (r). The streaming
+   drivers on 60 s equal the batch transforms (max-abs printed, held to the
+   tier's tolerance) in (r) and (b) with chunks of 256 and 7 blocks, one
+   kernel launch a step and one for the flush; ``encode_stream`` and
+   ``decode_stream`` of ``--stream-seconds`` (600: 110 chunks) launch
+   ``fold_matmul`` once a chunk and for the flush frame, ``matmul_scatter``
+   once a chunk, for the flush chunk and the tail, with codes and sidecar
+   levels at least 99.9% equal to the all-plain stream's (levels within
+   one grid step, codes within one step where the levels are equal) and
+   the decode equal to the plain synthesis's decode of the same file
+   within the synthesis tolerance (both SNRs and the all-plain stream's
+   are printed); seeks from chunk 1 and the
+   middle equal the full decode bit for bit; on 60 s the feature ladder
+   (mid/side, TNS, noise fill, block switching, bandwidth extension,
+   intensity) with FEC and without, one chunk corrupted: the decode raises
+   without concealment, and with it (the FEC rebuild; the interpolating
+   concealment, whose signs equal the CPU's threefry draw) matches the
+   CPU's decode of the same chunks within the synthesis tolerance; a DTX
+   stream (-60 dBFS) over silence and a noise floor; a CBR stream at 64
+   kbps with a 64 kbit reservoir, every prefix within its excursion bound;
+   the golden vector cbr_stream.acs (codes' sha256, PCM within 4 LSB).
+   Printed, each with the card's name and power limit: audio-s/s each way,
+   the time to a seek's first chunk, and a traced encode and decode of 4
+   chunks (device busy, idle share, host spans ``stream.*``).
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -314,6 +340,24 @@ ACZ_LOW = dict(ms=True, deadzone="auto", tns=True, bs=True, nf=True,
 ACZ_KBPS = 40.0
 ACZ_KBPS_TOLERANCE = 0.15
 ACZ_RATE_CLIPS = BATCH // 2
+# The .acs stream path of phase 18: BASELINE.md's configuration 5 (48 kHz
+# stereo, N=1024, 64 Bark bands, chunks of 256 blocks) in (r); (b) for the
+# stream-vs-batch check only. Streams are whole chunks: 60 s is 11 chunks,
+# the default 600 s 110 (``--stream-seconds``)
+STREAM_SR = 48000
+STREAM_CB = 256
+STREAM_SECONDS = 600
+STREAM_EQUAL_SECONDS = 60
+STREAM_EQUAL_CHUNKINGS = (256, 7)
+STREAM_TRACE_CHUNKS = 4
+# the feature ladder of the stream (the CLI's "low" preset's features
+# without temporal masking), with FEC at a 4x coarser threshold
+STREAM_LADDER = dict(ms=True, tns=True, nf=True, nf_seed=LADDER_NF_SEED,
+                     bs=True, bwe=True, intensity=True)
+STREAM_LADDER_FEC = 4.0
+STREAM_DTX = -60.0
+STREAM_CBR_KBPS = 64.0
+STREAM_RESERVOIR_KBITS = 64.0
 
 
 class PhaseError(RuntimeError):
@@ -2215,10 +2259,10 @@ def acz_music(torch, dev, codec, workdir):
     return out
 
 
-def trace_search(torch, fn):
+def trace_search(torch, fn, prefix="rate."):
     """One call of ``fn`` under torch.profiler: its result, and the device's
     busy ms (kernels, their union), its span and idle share, and the host
-    spans the rate search labels (``rate.*``)."""
+    spans labelled ``prefix*`` (the rate search's ``rate.*``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2231,7 +2275,7 @@ def trace_search(torch, fn):
     spans, host = [], {}
     for e in prof.events():
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        if e.name.startswith("rate."):
+        if e.name.startswith(prefix):
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 host[e.name] = host.get(e.name, 0.0) + ms
         elif e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2354,6 +2398,464 @@ def acz_phase(torch, dev):
     return out
 
 
+def stream_samples(seconds):
+    """``seconds`` of STREAM_SR audio rounded up to whole chunks."""
+    chunk = STREAM_CB * FILTERS_N
+    return -(-round(seconds * STREAM_SR) // chunk) * chunk
+
+
+def stream_codec(torch, dev, cfg):
+    from audiocodec_tpu_torch import Codec
+
+    return Codec.create(STREAM_SR, bark_bands_n=64, device=dev,
+                        **NOISE_CONFIGS[cfg])
+
+
+def stream_signal(torch, device, seconds):
+    """Phase 16's stereo ladder signal (tones, noise, attacks after gaps,
+    impulses), ``seconds`` rounded up to whole chunks: [1, samples, 2]."""
+    return ladder_signal(torch, device, torch.float32, 1, 2,
+                         samples=stream_samples(seconds))
+
+
+def stream_counts(**counts):
+    """Every kernel's count 0, except the named ones at theirs."""
+    return {k: counts.get(k, 0) for k in all_launch_counts()}
+
+
+def stream_equal(torch, dev, card):
+    """18a. ``stream_transform`` / ``stream_inverse_transform`` of 60 s of
+    stereo against the batch transforms, chunks of STREAM_EQUAL_CHUNKINGS
+    blocks, in (r) and (b): one kernel launch a step and one for the
+    flush; the maximum difference is printed and held to the tier's
+    tolerance (0 expected: each step runs the batch transform's kernel on
+    the same rows)."""
+    from audiocodec_tpu_torch import streaming
+
+    n = FILTERS_N
+    x = stream_signal(torch, dev, STREAM_EQUAL_SECONDS)
+    out = {}
+    for cfg in ("r", "b"):
+        mdct = stream_codec(torch, dev, cfg).mdct
+        xc = x.to(mdct.compute_dtype)
+        tier = mdct.kernel_precision
+        for cb in STREAM_EQUAL_CHUNKINGS:
+            blocks = xc.shape[1] // n // cb * cb
+            xs = xc[:, :blocks * n]
+            with torch.no_grad():
+                batch = mdct.transform(xs)
+                y = batch[:, :blocks]
+                ibatch = mdct.inverse_transform(y)
+                reset_all_launch_counts()
+                fwd = streaming.stream_transform(mdct, xs, cb)
+                torch.cuda.synchronize()
+                fwd_counts = all_launch_counts()
+                reset_all_launch_counts()
+                inv = streaming.stream_inverse_transform(mdct, y, cb)
+                torch.cuda.synchronize()
+                inv_counts = all_launch_counts()
+            steps = blocks // cb + 1  # the chunks and the flush
+            check(fwd_counts == stream_counts(fold_matmul=steps),
+                  f"stream ({cfg}) {cb}: analysis launches {fwd_counts}")
+            check(inv_counts == stream_counts(matmul_scatter=steps),
+                  f"stream ({cfg}) {cb}: synthesis launches {inv_counts}")
+            err_f = float((fwd.float() - batch.float()).abs().max())
+            err_i = float((inv.float() - ibatch.float()).abs().max())
+            tol_f = tolerance(torch, batch, "fold_matmul", tier,
+                              mdct.compute_dtype)
+            tol_i = tolerance(torch, ibatch, "matmul_scatter", tier,
+                              mdct.compute_dtype)
+            check(fwd.shape == batch.shape and err_f <= tol_f,
+                  f"stream ({cfg}) {cb}: analysis max-abs {err_f} > {tol_f}")
+            check(inv.shape == ibatch.shape and err_i <= tol_i,
+                  f"stream ({cfg}) {cb}: synthesis max-abs {err_i} > "
+                  f"{tol_i}")
+            out[f"{cfg}/{cb}"] = dict(
+                blocks=blocks, launches=dict(analysis=steps, synthesis=steps),
+                analysis_max_abs=err_f, synthesis_max_abs=err_i,
+                bit_equal=err_f == 0.0 and err_i == 0.0)
+            print(f"stream == batch ({cfg}) {tier}, 1 x 2 ch x {blocks} "
+                  f"blocks in chunks of {cb}: launches fold_matmul "
+                  f"{fwd_counts['fold_matmul']}, matmul_scatter "
+                  f"{inv_counts['matmul_scatter']}; max-abs analysis "
+                  f"{err_f:.3g} (tolerance {tol_f:.3g}), synthesis "
+                  f"{err_i:.3g} ({tol_i:.3g}) [{card}]")
+        del mdct
+    return out
+
+
+def stream_chunks(sc, path, levels=False):
+    """The codes of every chunk of a stream, on the host; with ``levels``
+    also the sidecar's grid levels."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import scq
+
+    with sc.StreamReader(path) as r:
+        chunks = [r.read_chunk(i) for i in range(r.n_chunks)]
+        k2 = r.meta.get("scq", 0)
+    codes = np.concatenate([c.codes for c in chunks], axis=0)
+    if not levels:
+        return codes
+    return codes, np.concatenate(
+        [scq.levels_from_bark16(c.bark, k2) for c in chunks], axis=0)
+
+
+def stream_throughput(torch, dev, codec, seconds, workdir, card):
+    """18b. ``encode_stream`` and ``decode_stream`` of ``seconds`` of
+    stereo in (r), default features: audio-s/s each way, the launches (one
+    analysis a chunk and the flush; one synthesis a chunk, the flush chunk
+    and the tail), codes against the all-plain stream's, the decode
+    against the plain synthesis's decode of the same file (an all-plain
+    stream's SNR differs from it by the codes that a rounding flipped,
+    which add up with the stream's length: it is printed, not held);
+    seeks from chunk 1 and the middle equal the full
+    decode bit for bit (time to the first chunk); a traced encode and
+    decode of STREAM_TRACE_CHUNKS chunks: device busy, idle share and the
+    ``stream.*`` host spans (the decoder's read runs in its worker thread,
+    which the trace does not record: it is timed alone)."""
+    import numpy as np
+
+    from audiocodec_tpu_torch.io import stream_container as sc
+
+    x = stream_signal(torch, "cpu", seconds)
+    s = x.shape[1]
+    n_body = s // (STREAM_CB * FILTERS_N)
+    audio_s = s / STREAM_SR
+    path, plain_path = (str(workdir / f) for f in ("long.acs", "plain.acs"))
+
+    def decode(p):
+        out = torch.cat(list(sc.decode_stream(codec, p)), dim=1)
+        torch.cuda.synchronize()
+        return out
+
+    # a short stream first: the first call's allocations and the native
+    # library's load are not the path's steady state
+    warm = str(workdir / "warm.acs")
+    sc.encode_stream(codec, x[:, :2 * STREAM_CB * FILTERS_N], warm,
+                     chunk_blocks=STREAM_CB)
+    decode(warm)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    n_chunks = sc.encode_stream(codec, x, path, chunk_blocks=STREAM_CB)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_counts = all_launch_counts()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    y = decode(path)
+    dec_s = time.perf_counter() - t0
+    dec_counts = all_launch_counts()
+    check(n_chunks == n_body + 1, f"stream: {n_chunks} chunks")
+    check(enc_counts == stream_counts(fold_matmul=n_body + 1),
+          f"stream: encode launches {enc_counts}")
+    check(dec_counts == stream_counts(matmul_scatter=n_body + 2),
+          f"stream: decode launches {dec_counts}")
+    n = FILTERS_N
+    check(y.shape == (1, s + 2 * n, 2) and bool(torch.isfinite(y).all()),
+          f"stream: decode {tuple(y.shape)}")
+    xd = x.to(dev)
+    snr = snr_db(xd, y)
+    # seeks: from chunk 1 and from the middle, bit for bit
+    seeks = {}
+    for k in (1, n_body // 2):
+        t0 = time.perf_counter()
+        gen = sc.decode_stream(codec, path, start_chunk=k)
+        first = next(gen)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        rest = torch.cat([first] + list(gen), dim=1)
+        check(torch.equal(rest, y[:, k * STREAM_CB * n:]),
+              f"stream: seek from chunk {k} differs from the full decode")
+        seeks[k] = first_ms
+    with plain_kernels():
+        plain_dec = decode(path)
+        sc.encode_stream(codec, x, plain_path, chunk_blocks=STREAM_CB)
+        plain_y = decode(plain_path)
+    dec_err = float((y - plain_dec).abs().max())
+    dec_tol = tolerance(torch, plain_dec, "matmul_scatter",
+                        codec.mdct.kernel_precision, codec.mdct.compute_dtype)
+    plain_dec_snr = snr_db(xd, plain_dec)
+    plain_snr = snr_db(xd, plain_y)
+    t0 = time.perf_counter()
+    codes = stream_chunks(sc, path)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    codes, lv = stream_chunks(sc, path, levels=True)
+    plain_codes, plain_lv = stream_chunks(sc, plain_path, levels=True)
+    diff = np.abs(codes.astype(np.int64) - plain_codes)
+    same = float((diff == 0).mean())
+    lv_diff = np.abs(lv - plain_lv)
+    lv_same = float((lv_diff == 0).mean())
+    # a sidecar level one grid step away (0.75 dB) moves every step size of
+    # its band, and a large code by more than one: codes are held within
+    # one step on the frames whose sidecar is equal
+    frames_same = (lv_diff == 0).all(axis=(1, 2))
+    max_diff = int(diff[frames_same].max(initial=0))
+    del codes, plain_codes, lv, plain_lv
+    del xd, y, plain_dec, plain_y
+
+    # a traced window of a few chunks, after a first trace that starts the
+    # profiler
+    trace_search(torch, lambda: decode(warm), prefix="stream.")
+    short = x[:, :STREAM_TRACE_CHUNKS * STREAM_CB * n]
+    tpath = str(workdir / "trace.acs")
+    _, enc_trace = trace_search(torch, lambda: sc.encode_stream(
+        codec, short, tpath, chunk_blocks=STREAM_CB), prefix="stream.")
+    _, dec_trace = trace_search(torch, lambda: decode(tpath),
+                                prefix="stream.")
+    size = Path(path).stat().st_size
+    out = dict(seconds=audio_s, chunks=n_chunks, bytes=size,
+               kbps=size * 8 / audio_s / 1e3,
+               encode_s=enc_s, decode_s=dec_s,
+               encode_audio_s_per_s=audio_s / enc_s,
+               decode_audio_s_per_s=audio_s / dec_s,
+               launches=dict(encode=launched(enc_counts),
+                             decode=launched(dec_counts)),
+               read_ms_per_chunk=read_ms / n_chunks,
+               codes_equal_to_plain=same, sidecar_equal_to_plain=lv_same,
+               frames_of_unequal_sidecar=int((~frames_same).sum()),
+               max_code_diff_on_equal_sidecar=max_diff,
+               decode_max_abs_to_plain=dec_err, decode_tolerance=dec_tol,
+               snr_db=snr, plain_decode_snr_db=plain_dec_snr,
+               plain_snr_db=plain_snr,
+               seek_first_chunk_ms=seeks, traced_encode=enc_trace,
+               traced_decode=dec_trace)
+
+    def spans(t):
+        return ", ".join(f"{k} {v:.1f} ms" for k, v in
+                         sorted(t["host_ms"].items()))
+
+    print(f"stream (r) 1 x 2 ch x {audio_s:.1f} s at {STREAM_SR} Hz, "
+          f"{n_chunks} chunks of {STREAM_CB} blocks: {size} bytes "
+          f"({out['kbps']:.1f} kbps); encode {enc_s:.3f} s = "
+          f"{out['encode_audio_s_per_s']:.1f} audio-s/s, decode "
+          f"{dec_s:.3f} s = {out['decode_audio_s_per_s']:.1f} audio-s/s "
+          f"(a chunk's read, CRC and Rice decode on the host alone "
+          f"{out['read_ms_per_chunk']:.2f} ms); "
+          f"launches encode {launched(enc_counts)}, decode "
+          f"{launched(dec_counts)}; codes equal to the all-plain stream "
+          f"{same} (sidecar levels {lv_same}, "
+          f"{out['frames_of_unequal_sidecar']} frames with a level apart, "
+          f"elsewhere codes within {max_diff}); decode vs the plain "
+          f"synthesis's max-abs {dec_err:.3g} (tolerance {dec_tol:.3g}); "
+          f"SNR {snr:.9f} dB (plain synthesis {plain_dec_snr:.9f}, all-plain "
+          f"stream {plain_snr:.9f}); seek to "
+          f"first chunk " + ", ".join(f"from {k} {v:.1f} ms" for k, v in
+                                      seeks.items()) + f" [{card}]")
+    for name, t in (("encode", enc_trace), ("decode", dec_trace)):
+        print(f"stream traced {name} of {STREAM_TRACE_CHUNKS} chunks: wall "
+              f"{t['wall_ms']:.1f} ms, device busy {t['device_busy_ms']:.1f} "
+              f"ms of a {t['device_span_ms']:.1f} ms span (idle share "
+              f"{t['idle_share']:.3f}), host {spans(t)} [{card}]")
+    # the numbers are printed first: a run that misses a bound still
+    # reports what it measured
+    check(same >= LADDER_EQUAL and lv_same >= LADDER_EQUAL
+          and int(lv_diff.max()) <= 1 and max_diff <= 1,
+          f"stream: codes {same} and sidecar levels {lv_same} equal to "
+          f"all-plain, level diff {lv_diff.max()}, code diff {max_diff} on "
+          "frames of equal sidecars")
+    check(dec_err <= dec_tol,
+          f"stream: decode max-abs {dec_err} > {dec_tol} from the plain "
+          "synthesis's")
+    return out
+
+
+def corrupt_chunk(sc, src, dst, chunk):
+    """A copy of the stream ``src`` with one byte of a chunk's codes
+    flipped."""
+    data = bytearray(Path(src).read_bytes())
+    with sc.StreamReader(src) as r:
+        off = r._index[chunk] + 12
+    data[off] ^= 0xFF
+    Path(dst).write_bytes(bytes(data))
+
+
+def stream_window(torch, sc, codec, path, start, chunks, **kw):
+    """``chunks`` chunks of a decode from chunk ``start``, on the host."""
+    import itertools
+
+    gen = sc.decode_stream(codec, path, start_chunk=start, **kw)
+    out = torch.cat(list(itertools.islice(gen, chunks)), dim=1)
+    gen.close()
+    return out.float().cpu()
+
+
+def stream_features(torch, dev, codec, workdir, card):
+    """18c. The feature ladder (STREAM_LADDER) on 60 s of stereo: one chunk
+    corrupted, decoded with concealment on the card (the FEC rebuild; with
+    ``fec=0`` the interpolating concealment, whose signs equal the CPU's
+    threefry draw) against the CPU's decode of the same chunks; a DTX
+    stream over silent spans; a CBR stream at STREAM_CBR_KBPS with the bit
+    reservoir, each chunk within its excursion bound; the golden vector
+    cbr_stream.acs."""
+    import hashlib
+
+    import numpy as np
+
+    from audiocodec_tpu_torch.io import stream_container as sc
+
+    n = FILTERS_N
+    chunk = STREAM_CB * n
+    cpu = stream_codec(torch, "cpu", "r")
+    x = stream_signal(torch, "cpu", STREAM_EQUAL_SECONDS)
+    n_body = x.shape[1] // chunk
+    lost = n_body // 2
+    out = {}
+    for fec in (STREAM_LADDER_FEC, 0.0):
+        src, bad = (str(workdir / f"ladder{fec}{s}.acs") for s in ("", "b"))
+        reset_all_launch_counts()
+        with torch.no_grad():
+            sc.encode_stream(codec, x, src, chunk_blocks=STREAM_CB, fec=fec,
+                             **STREAM_LADDER)
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        check(counts == stream_counts(fold_matmul=n_body + 1),
+              f"stream ladder fec={fec}: launches {counts}")
+        corrupt_chunk(sc, src, bad, lost)
+        try:
+            stream_window(torch, sc, codec, bad, lost, 1)
+            check(False, "stream ladder: a corrupt chunk decoded")
+        except ValueError:
+            pass
+        got = stream_window(torch, sc, codec, bad, lost - 1, 3, conceal=True)
+        want = stream_window(torch, sc, cpu, bad, lost - 1, 3, conceal=True)
+        tol = tolerance(torch, want, "matmul_scatter", "highest",
+                        torch.float32)
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape == (1, 3 * chunk, 2) and err <= tol,
+              f"stream ladder fec={fec}: card vs CPU {err} > {tol}")
+        span = got[:, chunk:2 * chunk]
+        check(float(span.abs().max()) > 1e-3,
+              f"stream ladder fec={fec}: the concealed chunk is silent")
+        entry = dict(bytes=Path(src).stat().st_size, max_abs_vs_cpu=err,
+                     tolerance=tol)
+        if not fec:
+            like = torch.zeros(1, 1, n, 2, device=dev)
+            signs = {}
+            for key in (sc._CONCEAL_KEY, sc._INTERP_KEY):
+                card_signs = sc._signs(key, lost, like, STREAM_CB).cpu()
+                cpu_signs = sc._signs(key, lost, like.cpu(), STREAM_CB)
+                check(torch.equal(card_signs, cpu_signs),
+                      f"stream: concealment signs {key:#x} differ")
+                signs[f"{key:#x}"] = float((card_signs > 0).float().mean())
+            entry["signs_positive_share"] = signs
+        out[f"fec={fec}"] = entry
+        print(f"stream ladder (r) {STREAM_LADDER} fec={fec}, 60 s stereo: "
+              f"{entry['bytes']} bytes; chunk {lost} corrupted: decode "
+              f"raises without conceal; with conceal ("
+              f"{'FEC rebuild' if fec else 'interpolation'}) card vs CPU "
+              f"max-abs {err:.3g} (tolerance {tol:.3g})"
+              + (f"; signs equal to the CPU's threefry draw "
+                 f"{entry['signs_positive_share']}" if not fec else "")
+              + f" [{card}]")
+
+    # DTX over digital silence and a -100 dBFS noise floor
+    xd = x.clone()
+    xd[:, 3 * chunk:6 * chunk] = 0.0
+    xd[:, 5 * chunk:6 * chunk] += 1e-5 * torch.randn(
+        chunk, 2, generator=torch.Generator().manual_seed(2))
+    dtx_path = str(workdir / "dtx.acs")
+    with torch.no_grad():
+        sc.encode_stream(codec, xd, dtx_path, chunk_blocks=STREAM_CB,
+                         dtx=STREAM_DTX)
+    with sc.StreamReader(dtx_path) as r:
+        silent = [i for i in range(r.n_chunks)
+                  if r.read_chunk(i).silent is not None]
+    check(silent == [4, 5], f"stream dtx: silent records {silent}")
+    got = stream_window(torch, sc, codec, dtx_path, 3, 3)
+    want = stream_window(torch, sc, cpu, dtx_path, 3, 3)
+    err = float((got - want).abs().max())
+    tol = tolerance(torch, want, "matmul_scatter", "highest", torch.float32)
+    check(err <= tol and float(got[:, chunk:2 * chunk].abs().max()) == 0.0
+          and 0 < float(got[:, 2 * chunk:].abs().max()) < 1e-3,
+          f"stream dtx: card vs CPU {err}, silence or comfort noise wrong")
+    dtx_bytes = Path(dtx_path).stat().st_size
+    out["dtx"] = dict(silent_chunks=silent, bytes=dtx_bytes,
+                      max_abs_vs_cpu=err)
+    print(f"stream dtx {STREAM_DTX} dBFS: silent records {silent}, "
+          f"{dtx_bytes} bytes; chunks 3-5 card vs CPU max-abs {err:.3g} "
+          f"[{card}]")
+
+    # CBR with the bit reservoir
+    cbr_path = str(workdir / "cbr.acs")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        n_chunks, scales, kbps = sc.encode_stream_cbr(
+            codec, x, cbr_path, chunk_blocks=STREAM_CB,
+            target_kbps=STREAM_CBR_KBPS,
+            reservoir_kbits=STREAM_RESERVOIR_KBITS)
+    torch.cuda.synchronize()
+    cbr_s = time.perf_counter() - t0
+    with sc.StreamReader(cbr_path) as r:
+        check(r.meta.get("cbr") == 1, "stream cbr: no cbr flag")
+        sizes = np.array([r.chunk_bytes(i) for i in range(n_body)])
+    dev_kbit = (np.cumsum(sizes) - sizes.mean() * np.arange(1, n_body + 1)
+                ) * 8e-3
+    # tests/test_stream_container.py's bound: the reservoir plus the
+    # per-chunk search tolerance (5%) accumulated over the prefix
+    bound = STREAM_RESERVOIR_KBITS + 0.05 * sizes.mean() * 8e-3 * n_body
+    check(np.abs(dev_kbit).max() <= bound
+          and abs(kbps - STREAM_CBR_KBPS) <= 0.15 * STREAM_CBR_KBPS,
+          f"stream cbr: excursion {np.abs(dev_kbit).max()} > {bound} or "
+          f"{kbps} kbps")
+    y = torch.cat(list(sc.decode_stream(codec, cbr_path)), dim=1)
+    check(bool(torch.isfinite(y).all()), "stream cbr: non-finite decode")
+    out["cbr"] = dict(kbps=kbps, scales=scales, search_s=cbr_s,
+                      max_excursion_kbit=float(np.abs(dev_kbit).max()),
+                      bound_kbit=bound)
+    print(f"stream cbr {STREAM_CBR_KBPS} kbps, reservoir "
+          f"{STREAM_RESERVOIR_KBITS} kbit: {kbps:.2f} kbps, {n_chunks} "
+          f"chunks, max excursion {np.abs(dev_kbit).max():.2f} kbit "
+          f"(bound {bound:.2f}), {cbr_s:.1f} s [{card}]")
+
+    # the golden vector, on the card
+    vec = Path(__file__).resolve().parent / "tests" / "vectors"
+    manifest = json.loads((vec / "manifest.json").read_text())
+    want = manifest["cbr_stream.acs"]
+    path = str(vec / "cbr_stream.acs")
+    with sc.StreamReader(path) as r:
+        meta = r.meta
+    codes = stream_chunks(sc, path)
+    check(hashlib.sha256(np.ascontiguousarray(codes, np.int32).tobytes())
+          .hexdigest() == want["codes_sha256"],
+          "vector cbr_stream.acs: codes' sha256")
+    from audiocodec_tpu_torch import Codec
+
+    vcodec = Codec.create(meta["sample_rate"], filters_n=meta["filters_n"],
+                          bark_bands_n=meta["bark_bands_n"], device=dev)
+    wave = torch.cat(list(sc.decode_stream(vcodec, path)), dim=1)
+    wave = wave[0, :meta["nsamp"]].double().cpu().numpy()
+    pcm = np.load(vec / "cbr_stream.acs.pcm.npy").astype(np.int64)
+    got = np.round(np.clip(wave, -1, 1) * 32767.0).astype(np.int64)
+    check(got.shape == pcm.shape, f"vector cbr_stream.acs: {got.shape}")
+    lsb = int(np.abs(got - pcm).max())
+    check(lsb <= ACZ_VECTOR_LSB, f"vector cbr_stream.acs: PCM {lsb} LSB away")
+    out["vector_max_lsb"] = lsb
+    print(f"stream vector cbr_stream.acs on the card: codes' sha256 equal, "
+          f"PCM within {lsb} LSB [{card}]")
+    return out
+
+
+def stream_phase(torch, dev, seconds, card):
+    """18. The .acs stream path (BASELINE.md config 5) on the card."""
+    import tempfile
+
+    from audiocodec_tpu_torch import native
+
+    check(native.available(), f"native library: {native.build_error()}")
+    codec = stream_codec(torch, dev, "r")
+    check(codec.mdct.use_kernel is True,
+          "stream: kernels off in configuration (r)")
+    out = dict(equal=stream_equal(torch, dev, card))
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        out["throughput"] = stream_throughput(torch, dev, codec, seconds,
+                                              Path(tmp), card)
+        out["features"] = stream_features(torch, dev, codec, Path(tmp), card)
+    return out
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -2371,9 +2873,17 @@ def noise_phases(torch, dev, entries):
                 **design_phase(torch, dev, entries))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--stream-seconds", type=float,
+                        default=STREAM_SECONDS,
+                        help="length of phase 18's stream, rounded up to "
+                             "whole chunks (default %(default)s)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2527,17 +3037,22 @@ def main() -> int:
     # 17. the .acz path
     t17 = time.monotonic()
     acz = acz_phase(torch, dev)
+
+    # 18. the .acs stream path
+    t18 = time.monotonic()
+    stream = stream_phase(torch, dev, args.stream_seconds, smi)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
           f"15 {t16 - t15:.1f} s, 16 {t17 - t16:.1f} s, 17 "
-          f"{time.monotonic() - t17:.1f} s")
+          f"{t18 - t17:.1f} s, 18 {time.monotonic() - t18:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
                       "tensor_core": tensor_core, **noise,
                       "training": training,
                       "waveform_grads": waveform_grads, "probe": probe,
-                      "rvq": rvq, "ladder": ladder, "acz": acz}))
+                      "rvq": rvq, "ladder": ladder, "acz": acz,
+                      "stream": stream}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))
