@@ -5,8 +5,11 @@ The quantized codec path, the bitstream path with its feature ladder
 the scq sidecar grid, TNS, block switching, noise fill, bandwidth extension
 and intensity stereo), long-form streaming (``streaming``: the chunked
 MDCT with carried state; ``io.stream_container``: the seekable ``.acs``
-container with seek, FEC, DTX, concealment and ABR/CBR rate control), the
-noise-injection codec (MDCT, psychoacoustic model in parity and calibrated
+container with seek, FEC, DTX, concealment and ABR/CBR rate control),
+lossless archival (``lossless``), quality metrics and BS.1770 loudness
+(``metrics``), polyphase resampling (``resample``), the command line
+(``python -m audiocodec_tpu_torch``: encode, decode, roundtrip, eval,
+resample, info), the noise-injection codec (MDCT, psychoacoustic model in parity and calibrated
 modes, temporal masking, quantizer, masked noise), training through the codec (``quantize.quantize_ste``,
 ``parallel.train``, ``models``), the discrete RVQ codec (``models.rvq``) and
 the int8 probe (``probes.int8_probe``), with hand-written Hopper kernels for

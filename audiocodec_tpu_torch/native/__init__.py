@@ -524,6 +524,201 @@ def rrice_decode(data: bytes, n: int, group: int = RICE_GROUP,
     return _rrice_decode_py(buf, n, group, start_bit)
 
 
+def _lpc_call(fn_name, data, qcoef, shift):
+    """Shared wrapper of the exact integer LPC filters (lossless.py
+    level-2 tier). The int64 accumulators run in C++; pure-Python
+    fallbacks would be minutes per file, so this pair is native-only like
+    rice_encode.
+
+    :param data: int32 [frames, n, channels] (samples or residuals)
+    :param qcoef: int32 [frames, p, channels] quantized coefficients
+    :param shift: right-shift of the prediction accumulator (0..31)
+    :return: int32 [frames, n, channels]
+    """
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"{fn_name} needs the native library: {_build_error}"
+        )
+    data = np.ascontiguousarray(data, dtype=np.int32)
+    qcoef = np.ascontiguousarray(qcoef, dtype=np.int32)
+    frames, n, channels = data.shape
+    if qcoef.shape[0] != frames or qcoef.shape[2] != channels:
+        raise ValueError(
+            f"qcoef {qcoef.shape} does not match data {data.shape}"
+        )
+    p = qcoef.shape[1]
+    out = np.empty_like(data)
+    rc = getattr(lib, fn_name)(
+        data.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        frames,
+        n,
+        channels,
+        qcoef.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        p,
+        int(shift),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if rc != 0:
+        raise ValueError(
+            f"invalid LPC parameters (order {p}, shift {shift})"
+        )
+    return out
+
+
+def lossless_score(x, stereo4=False):
+    """Exact fixed-ladder scores for every candidate channel per frame.
+
+    Unlike the device selector's sampled-chunk estimates, these are
+    full-frame zigzag sums through the shared min_p n(p+1)+sum/2^p
+    model — the level-2 path trades the device program for exact,
+    host-bound analysis.
+
+    :param x: int32 [F, n, C] raw frames (l/r when stereo4)
+    :param stereo4: score the four stereo candidates l/r/mid/side
+        (requires C == 2) instead of the raw channels
+    :return: (orders int32 [F, Cc], bits float64 [F, Cc]) with
+        Cc = 4 when stereo4 else C
+    """
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"lossless_score needs the native library: {_build_error}"
+        )
+    x = np.ascontiguousarray(x, dtype=np.int32)
+    frames, n, channels = x.shape
+    cc = 4 if stereo4 else channels
+    orders = np.zeros((frames, cc), dtype=np.int32)
+    bits = np.zeros((frames, cc), dtype=np.float64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    rc = lib.acx_lossless_score(
+        x.ctypes.data_as(i32p), frames, n, channels, int(bool(stereo4)),
+        orders.ctypes.data_as(i32p),
+        bits.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    if rc != 0:
+        raise ValueError(
+            f"invalid lossless_score input (shape {x.shape}, "
+            f"stereo4={stereo4})"
+        )
+    return orders, bits
+
+
+def l2_encode(x, idx, fixed_orders, do_lpc=True, max_order=26,
+              precision=15, n_windows=2, margin=64.0):
+    """Level-2 lossless frame encode: fixed-ladder build + LPC search.
+
+    Builds each stored slot's fixed-predictor residual at its chosen
+    order directly into the wire layout, then (when do_lpc) runs the
+    full LPC candidate per (frame, slot) — Hann+Tukey windowed
+    autocorrelation, Levinson-Durbin order search to `max_order`
+    (every order's prediction error is a recursion by-product),
+    adaptive-shift quantization at `precision` magnitude bits, exact
+    integer residual — and keeps whichever side's exact estimated bits
+    win by `margin`.
+
+    :param x: int32 [F, n, C] raw frames
+    :param idx: int32 [F, 2] stereo candidate picks (0 l, 1 r, 2 mid,
+        3 side) or None for the channels-as-slots layout
+    :param fixed_orders: int32 [F, P] chosen fixed-ladder order per slot
+    :return: (wire int32 [F*P*n], lorders int32 [F, P] — 0 where the
+              fixed ladder was kept, lshifts int32 [F, P],
+              qcoef int32 [F, max_order, P], savings float)
+    """
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"l2_encode needs the native library: {_build_error}"
+        )
+    x = np.ascontiguousarray(x, dtype=np.int32)
+    frames, n, channels = x.shape
+    stereo4 = idx is not None
+    slots = 2 if stereo4 else channels
+    fixed_orders = np.ascontiguousarray(fixed_orders, dtype=np.int32)
+    if fixed_orders.shape != (frames, slots):
+        raise ValueError(
+            f"fixed_orders {fixed_orders.shape} != ({frames}, {slots})"
+        )
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    if stereo4:
+        idx = np.ascontiguousarray(idx, dtype=np.int32)
+        if idx.shape != (frames, 2):
+            raise ValueError(f"idx {idx.shape} != ({frames}, 2)")
+        idx_p = idx.ctypes.data_as(i32p)
+    else:
+        idx_p = None
+    wire = np.empty(frames * slots * n, dtype=np.int32)
+    lorders = np.zeros((frames, slots), dtype=np.int32)
+    lshifts = np.zeros((frames, slots), dtype=np.int32)
+    qcoef = np.zeros((frames, max_order, slots), dtype=np.int32)
+    savings = np.zeros(1, dtype=np.float64)
+    rc = lib.acx_l2_encode(
+        x.ctypes.data_as(i32p), frames, n, channels, int(stereo4),
+        idx_p, fixed_orders.ctypes.data_as(i32p), int(bool(do_lpc)),
+        int(max_order), int(precision), int(n_windows), float(margin),
+        wire.ctypes.data_as(i32p),
+        lorders.ctypes.data_as(i32p), lshifts.ctypes.data_as(i32p),
+        qcoef.ctypes.data_as(i32p),
+        savings.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    if rc != 0:
+        raise ValueError(
+            f"invalid l2_encode parameters (max_order {max_order}, "
+            f"precision {precision}, frame {n})"
+        )
+    return wire, lorders, lshifts, qcoef, float(savings[0])
+
+
+def lpc_reconstruct_wire(wire, orders, shifts, qcoef):
+    """Variable-order LPC decode over the wire layout.
+
+    :param wire: int32 [F*C*n] residual runs (contiguous per (f, c))
+    :param orders: int32 [F, C]; 0 = skip that run (already decoded)
+    :param shifts: int32 [F, C]
+    :param qcoef: int32 [F, max_order, C]
+    :return: int32 [F*n, C] with only the order>0 runs written (zeros
+        elsewhere) — callers merge into the device integrator's output
+    """
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"lpc_reconstruct_wire needs the native library: {_build_error}"
+        )
+    orders = np.ascontiguousarray(orders, dtype=np.int32)
+    shifts = np.ascontiguousarray(shifts, dtype=np.int32)
+    qcoef = np.ascontiguousarray(qcoef, dtype=np.int32)
+    wire = np.ascontiguousarray(wire, dtype=np.int32)
+    frames, channels = orders.shape
+    max_order = qcoef.shape[1]
+    if qcoef.shape[0] != frames or qcoef.shape[2] != channels:
+        raise ValueError(f"qcoef {qcoef.shape} does not match orders")
+    if wire.size % (frames * channels) != 0:
+        raise ValueError("wire size is not a multiple of frames*channels")
+    n = wire.size // (frames * channels)
+    out = np.zeros((frames * n, channels), dtype=np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    rc = lib.acx_lpc_reconstruct_wire(
+        wire.ctypes.data_as(i32p), frames, n, channels,
+        orders.ctypes.data_as(i32p), shifts.ctypes.data_as(i32p),
+        qcoef.ctypes.data_as(i32p), max_order,
+        out.ctypes.data_as(i32p),
+    )
+    if rc != 0:
+        raise ValueError("invalid LPC order/shift in container")
+    return out
+
+
+def lpc_residual(x, qcoef, shift):
+    """Quantized-LPC residuals per frame (exact, FLAC-style)."""
+    return _lpc_call("acx_lpc_residual", x, qcoef, shift)
+
+
+def lpc_reconstruct(res, qcoef, shift):
+    """Exact inverse of :func:`lpc_residual`."""
+    return _lpc_call("acx_lpc_reconstruct", res, qcoef, shift)
+
+
+
 def _rrice_decode_py(buf: np.ndarray, n: int, group: int,
                      start_bit: int = 0) -> np.ndarray:
     """Pure-Python run-length Rice decoder (portability fallback).

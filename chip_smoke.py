@@ -171,7 +171,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the golden vector cbr_stream.acs (codes' sha256, PCM within 4 LSB).
    Printed, each with the card's name and power limit: audio-s/s each way,
    the time to a seek's first chunk, and a traced encode and decode of 4
-   chunks (device busy, idle share, host spans ``stream.*``).
+   chunks (device busy, idle share, host spans ``stream.*``);
+19. the command line (``python -m audiocodec_tpu_torch``) through
+   ``main([...])`` in-process at its defaults ((r), sidecar grid 4) on a
+   60 s 44.1 kHz stereo PCM16 file and 10 s of 24-bit stereo, written
+   from a numpy seed: ``encode --preset music`` to ``.acz`` and ``decode``
+   launch one ``fold_matmul`` and one ``matmul_scatter``, the output has
+   the input's length, the codes are at least 99.9% equal to the same
+   commands' with every kernel plain (within one step where the sidecar
+   levels are equal, the levels within one grid step), the decode is
+   within 4 LSB of the plain synthesis's decode of the same file and its
+   SNR within 0.05 dB of the all-plain CLI's; a ``.acs`` stream's
+   ``--start 20 --duration 10`` window equals the full decode's samples;
+   ``--lossless`` at levels 1 and 2 and a window of it decode bit for
+   bit, and so do the golden vectors lossless_v2/v3 on the card;
+   ``resample --rate 48000`` (the resampler within 1e-5 of the peak of
+   its plain CPU run) and ``encode --resample-to 48000``; ``eval --json``
+   launches two ``fold_matmul`` and is within 1e-3 dB (SNRs, NMR) and
+   0.01 LU (loudness) of the same command on the CPU; the
+   ``--tag-loudness`` tag equals the CPU's loudness and
+   ``--normalize-lufs`` reads it; ``python -m audiocodec_tpu_torch info``
+   runs in a subprocess. Printed, with the card's name and power limit:
+   each command's wall ms and audio-s/s (the second of two calls) and
+   the loudness pass alone (ms, kernel launches).
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -358,6 +380,22 @@ STREAM_LADDER_FEC = 4.0
 STREAM_DTX = -60.0
 STREAM_CBR_KBPS = 64.0
 STREAM_RESERVOIR_KBITS = 64.0
+
+# The command line of phase 19 (audiocodec_tpu_torch/__main__.py) at its
+# defaults: a 60 s 44.1 kHz stereo PCM16 file, the "music" preset to .acz,
+# .acs chunks of 256 blocks and a window of it, 10 s of 24-bit stereo for
+# lossless levels 1 and 2 (and a window of 3 s from 2 s), a resample to
+# 48 kHz (within 1e-5 of the peak of the CPU's), eval within 1e-3 dB and
+# loudness within 0.01 LU of the CPU's
+CLI_SECONDS = 60
+CLI_CHUNK_BLOCKS = 256
+CLI_WINDOW = (20, 10)
+CLI_LOSSLESS_SECONDS = 10
+CLI_LOSSLESS_WINDOW = (2, 3)
+CLI_RESAMPLE_RATE = 48000
+CLI_RESAMPLE_TOL = 1e-5
+CLI_EVAL_DB = 1e-3
+CLI_LUFS = 0.01
 
 
 class PhaseError(RuntimeError):
@@ -2048,32 +2086,12 @@ def ladder_phase(torch, dev):
 
 
 def container_decode(torch, codec, codes, bark, meta):
-    """Decode a loaded container on the codec's device, with the keywords
-    the CLI's cmd_decode takes from its meta dict (the recorded band starts
-    and crossovers verbatim)."""
-    dev = codec.mdct.wa_r.device
+    """Decode a loaded container on the codec's device through the command
+    line's ``decode_container`` (the meta -> keywords mapping of its
+    ``decode``: the recorded band starts and crossovers verbatim)."""
+    from audiocodec_tpu_torch.__main__ import decode_container
 
-    def t(a):
-        return torch.from_numpy(a).to(dev)
-
-    kw = dict(threshold_scale=meta["threshold_scale"],
-              dz_recon=meta["dz_recon"])
-    if meta["tns_idx"] is not None:
-        kw.update(tns_idx=t(meta["tns_idx"]),
-                  tns_band_start=meta["tns_band_start"] or None)
-    if meta["nf_levels"] is not None:
-        kw.update(nf_levels=t(meta["nf_levels"]),
-                  nf_band_start=meta["nf_band_start"],
-                  nf_seed=meta["nf_seed"])
-    if meta["bs_flags"] is not None:
-        kw["bs_flags"] = t(meta["bs_flags"])
-    if meta["bwe_gains"] is not None:
-        kw.update(bwe_gains=t(meta["bwe_gains"]),
-                  bwe_start=meta["bwe_start"])
-    if meta["ms"] and meta["is_gains"] is not None:
-        kw.update(is_gains=t(meta["is_gains"]), is_start=meta["is_start"])
-    fn = codec.decode_bitstream_ms if meta["ms"] else codec.decode_bitstream
-    return fn(t(codes), bark.to(dev), **kw)
+    return decode_container(codec, codes, bark, meta)
 
 
 def launched(counts):
@@ -2856,6 +2874,347 @@ def stream_phase(torch, dev, seconds, card):
     return out
 
 
+def cli_signal(seconds, rate, channels=2, seed=SEED, noise=0.03):
+    """Music-like float64 [samples, channels] in [-1, 1] from a numpy seed:
+    three tones over a noise floor of ``noise`` RMS, an attack after a gap
+    every half second, the second channel the first at 0.8 plus its own
+    noise at a third of the floor."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = int(seconds * rate)
+    t = np.arange(s) / rate
+    x = (0.3 * np.sin(2 * np.pi * 440 * t)
+         + 0.1 * np.sin(2 * np.pi * 1320 * t)
+         + 0.02 * np.sin(2 * np.pi * 7000 * t)
+         + noise * rng.standard_normal(s))
+    half = rate // 2
+    for start in range(half, s - half, half):
+        x[start:start + 512] *= 0.01
+        x[start + 512:start + 768] += 0.5 * rng.standard_normal(256)
+    x = np.clip(x, -1.0, 1.0)
+    x = np.stack([x, 0.8 * x + noise / 3 * rng.standard_normal(s)], axis=1)
+    return x[:, :channels]
+
+
+def kernel_launches(torch, fn):
+    """The device kernels that one call of ``fn`` launches (a trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def cli_call(torch, argv, device="cuda"):
+    """``audiocodec_tpu_torch.__main__.main(argv)`` in-process, the launch
+    counters set to 0 just before it: (wall ms, the counts, stdout). Fails
+    unless it exits 0."""
+    import contextlib
+    import io
+
+    from audiocodec_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    card = torch.device(device).type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv, device=device)
+    if card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_launch_counts()
+    check(rc == 0, f"cli {' '.join(argv)}: exit {rc}; {out.getvalue()}")
+    return ms, counts, out.getvalue()
+
+
+def pcm16(path):
+    """A 16-bit WAV's samples as int64 [1, samples, channels]."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import native
+
+    x, rate = native.decode_wav(str(path))
+    return np.round(x.astype(np.float64) * 32768.0).astype(np.int64), rate
+
+
+def cli_lossless(torch, dev, work, card):
+    """19c. ``encode --lossless`` at levels 1 and 2 of a 24-bit stereo file
+    and ``decode``, bit for bit, a ``--start/--duration`` window equal to
+    the slice, and the golden v2/v3 vectors decoded on the card."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import lossless
+    from audiocodec_tpu_torch.io import wav
+
+    src = work / "pcm24.wav"
+    # a noise floor near -80 dBFS: ~10 of the 24 bits are noise
+    x24 = np.round(cli_signal(CLI_LOSSLESS_SECONDS, SAMPLE_RATE, seed=SEED + 1,
+                              noise=1e-4) * ((1 << 23) - 1)).astype(np.int32)
+    wav.write_wav_int(str(src), x24, SAMPLE_RATE, 24)
+    out = {}
+    for level in ("1", "2"):
+        blob, dst = work / f"l{level}.acz", work / f"l{level}.wav"
+        enc = ["encode", str(src), str(blob), "--lossless",
+               "--lossless-level", level]
+        dec = ["decode", str(blob), str(dst)]
+        # the second of two calls each, as phase 19's ``timed``
+        cli_call(torch, enc, dev)
+        enc_ms, enc_counts, _ = cli_call(torch, enc, dev)
+        cli_call(torch, dec, dev)
+        dec_ms, _, _ = cli_call(torch, dec, dev)
+        y, rate, bits = wav.read_wav_int(str(dst))
+        check((rate, bits) == (SAMPLE_RATE, 24) and np.array_equal(y, x24),
+              f"cli lossless level {level}: decode differs from the input")
+        start, dur = CLI_LOSSLESS_WINDOW
+        win = work / f"l{level}-w.wav"
+        cli_call(torch, ["decode", str(blob), str(win), "--start", str(start),
+                         "--duration", str(dur)], dev)
+        s0 = start * SAMPLE_RATE
+        check(np.array_equal(wav.read_wav_int(str(win))[0],
+                             x24[s0:s0 + dur * SAMPLE_RATE]),
+              f"cli lossless level {level}: window differs from the slice")
+        size = blob.stat().st_size
+        out[f"level{level}"] = dict(
+            bytes=size, share_of_pcm=size / x24.nbytes * 4 / 3,
+            encode_ms=enc_ms, decode_ms=dec_ms,
+            encode_audio_s_per_s=CLI_LOSSLESS_SECONDS / enc_ms * 1e3,
+            decode_audio_s_per_s=CLI_LOSSLESS_SECONDS / dec_ms * 1e3,
+            describe=lossless.describe(blob.read_bytes()))
+        check(not launched(enc_counts), f"cli lossless: {enc_counts}")
+    vec = Path(__file__).resolve().parent / "tests" / "vectors"
+    for name in ("lossless_v2", "lossless_v3"):
+        y, _, _ = lossless.decode_lossless((vec / f"{name}.bin").read_bytes(),
+                                           device=dev)
+        check(np.array_equal(y, np.load(vec / f"{name}.pcm.npy")),
+              f"cli lossless: vector {name} differs on the card")
+    for level in ("1", "2"):
+        r = out[f"level{level}"]
+        print(f"cli lossless level {level} ({CLI_LOSSLESS_SECONDS} s, 2 ch "
+              f"24-bit): {r['bytes']} bytes ({100 * r['share_of_pcm']:.1f}% "
+              f"of PCM, {r['describe']['entropy']}), encode "
+              f"{r['encode_ms']:.1f} ms = {r['encode_audio_s_per_s']:.1f} "
+              f"audio-s/s, decode {r['decode_ms']:.1f} ms = "
+              f"{r['decode_audio_s_per_s']:.1f} audio-s/s; bit for bit, "
+              f"window equal [{card}]")
+    print(f"cli lossless: vectors lossless_v2, lossless_v3 bit for bit on "
+          f"the card [{card}]")
+    return out
+
+
+def cli_phase(torch, dev, card):
+    """19. The command line (``audiocodec_tpu_torch.__main__``) on the card
+    at its defaults (N=1024, 64 Bark bands, f32 ``highest``, sidecar grid
+    4), in-process through ``main([...])``, on a 60 s 44.1 kHz stereo
+    PCM16 file and a 10 s 24-bit stereo one; one ``python -m
+    audiocodec_tpu_torch info`` in a subprocess."""
+    import tempfile
+
+    import numpy as np
+
+    from audiocodec_tpu_torch import metrics, native, scq
+    from audiocodec_tpu_torch.io import bitstream
+    from audiocodec_tpu_torch.resample import Resampler
+
+    check(native.available(), f"native library: {native.build_error()}")
+    work_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work_root.mkdir(parents=True, exist_ok=True)
+    audio_s = CLI_SECONDS
+    out = {}
+    with tempfile.TemporaryDirectory(dir=work_root) as tmp:
+        work = Path(tmp)
+        src = work / "music.wav"
+        native.write_wav(str(src), cli_signal(CLI_SECONDS, SAMPLE_RATE),
+                         SAMPLE_RATE)
+        x, _ = native.decode_wav(str(src))
+        times = {}
+
+        def timed(name, argv, seconds=audio_s):
+            """The second of two calls: the first warms the path (the
+            native library, the kernels' first loads, the allocator)."""
+            cli_call(torch, argv, dev)
+            ms, counts, text = cli_call(torch, argv, dev)
+            times[name] = dict(ms=ms, audio_s_per_s=seconds / ms * 1e3)
+            return counts, text
+
+        # 19a. encode --preset music -> .acz, decode
+        acz, dst = work / "music.acz", work / "music_out.wav"
+        enc = ["encode", str(src), str(acz), "--preset", "music"]
+        enc_counts, _ = timed("encode .acz", enc)
+        dec_counts, _ = timed("decode .acz", ["decode", str(acz), str(dst)])
+        check(enc_counts == expected_counts(fold_matmul=1)
+              and dec_counts == expected_counts(matmul_scatter=1),
+              f"cli: launches encode {enc_counts}, decode {dec_counts}")
+        y, rate = pcm16(dst)
+        check(rate == SAMPLE_RATE and y.shape == (1, x.shape[1], 2),
+              f"cli: decoded {y.shape} @ {rate} vs input {x.shape}")
+        plain_acz = work / "plain.acz"
+        with plain_kernels():
+            cli_call(torch, ["encode", str(src), str(plain_acz),
+                             "--preset", "music"], dev)
+            cli_call(torch, ["decode", str(acz), str(work / "pdec.wav")],
+                     dev)
+            cli_call(torch, ["decode", str(plain_acz),
+                             str(work / "plain_out.wav")], dev)
+        codes, bark, meta = bitstream.load(str(acz))
+        pcodes, pbark, _ = bitstream.load(str(plain_acz))
+        check(container_entropy(str(acz)) in ("rice", "rrice"),
+              "cli: the container is not Rice-coded")
+        lv, plv = (scq.levels_from_bark16(b, meta["sidecar_grid"])
+                   for b in (bark, pbark))
+        lv_diff = np.abs(lv - plv)
+        check(lv_diff.max() <= 1, f"cli: sidecar levels {lv_diff.max()} "
+              "grid steps from the all-plain container")
+        diff = np.abs(codes.astype(np.int64) - pcodes)
+        same = float((diff == 0).mean())
+        frames_same = (lv_diff == 0).all(axis=(2, 3))[..., None, None]
+        max_diff = int(np.where(frames_same, diff, 0).max())
+        check(same >= LADDER_EQUAL and max_diff <= 1,
+              f"cli: codes {same} equal to the all-plain container's, "
+              f"{max_diff} steps apart where the sidecar is equal")
+        lsb = int(np.abs(y - pcm16(work / "pdec.wav")[0]).max())
+        check(lsb <= ACZ_VECTOR_LSB,
+              f"cli: decode {lsb} LSB from the plain synthesis's")
+
+        def snr(path):
+            ref = np.round(x.astype(np.float64) * 32768.0)
+            err = ((ref - pcm16(path)[0]) ** 2).sum()
+            return float(10 * math.log10((ref ** 2).sum() / max(err, 1e-300)))
+
+        got_snr, plain_snr = snr(dst), snr(work / "plain_out.wav")
+        check(abs(got_snr - plain_snr) <= SNR_MARGIN_DB,
+              f"cli: SNR {got_snr} vs all-plain {plain_snr}")
+        out["acz"] = dict(bytes=acz.stat().st_size, frames=codes.shape[1],
+                          launches=dict(encode=launched(enc_counts),
+                                        decode=launched(dec_counts)),
+                          codes_equal_to_plain=same,
+                          sidecar_equal_to_plain=float((lv_diff == 0).mean()),
+                          decode_lsb_to_plain_synthesis=lsb,
+                          snr_db=got_snr, plain_snr_db=plain_snr)
+
+        # 19b. .acs: the full decode and a window of it
+        acs = work / "music.acs"
+        acs_counts, _ = timed("encode .acs", [
+            "encode", str(src), str(acs), "--chunk-blocks",
+            str(CLI_CHUNK_BLOCKS)])
+        timed("decode .acs", ["decode", str(acs), str(work / "full.wav")])
+        start, dur = CLI_WINDOW
+        timed("decode .acs window", [
+            "decode", str(acs), str(work / "win.wav"), "--start", str(start),
+            "--duration", str(dur)], seconds=dur)
+        full, _ = pcm16(work / "full.wav")
+        win, _ = pcm16(work / "win.wav")
+        s0 = start * SAMPLE_RATE
+        check(full.shape == y.shape
+              and np.array_equal(win, full[:, s0:s0 + dur * SAMPLE_RATE]),
+              "cli: the .acs window differs from the full decode")
+        out["acs"] = dict(bytes=acs.stat().st_size,
+                          launches=launched(acs_counts))
+
+        # 19c. lossless
+        out["lossless"] = cli_lossless(torch, dev, work, card)
+
+        # 19d. resample, against the plain CPU run of the same Resampler
+        r48 = work / "r48.wav"
+        res_counts, _ = timed("resample", ["resample", str(src), str(r48),
+                                           "--rate", str(CLI_RESAMPLE_RATE)])
+        xr = torch.from_numpy(x)
+        want = Resampler.create(SAMPLE_RATE, CLI_RESAMPLE_RATE,
+                                device="cpu").resample(xr)
+        got = Resampler.create(SAMPLE_RATE, CLI_RESAMPLE_RATE,
+                               device=dev).resample(xr.to(dev)).cpu()
+        rs_err = float((got - want).abs().max() / want.abs().max())
+        check(rs_err <= CLI_RESAMPLE_TOL,
+              f"cli: resample {rs_err} of the peak from the CPU's")
+        r, rate = pcm16(r48)
+        check(rate == CLI_RESAMPLE_RATE and r.shape[1] == want.shape[1],
+              f"cli: resampled {r.shape} @ {rate}")
+        cli_call(torch, ["encode", str(src), str(work / "r.acz"),
+                         "--resample-to", str(CLI_RESAMPLE_RATE)], dev)
+        _, _, rmeta = bitstream.load(str(work / "r.acz"))
+        check(rmeta["sample_rate"] == CLI_RESAMPLE_RATE
+              and rmeta["orig_samples"] == want.shape[1],
+              f"cli: --resample-to container {rmeta['sample_rate']}, "
+              f"{rmeta['orig_samples']} samples")
+        out["resample"] = dict(max_err_to_cpu=rs_err,
+                               launches=launched(res_counts))
+
+        # 19e. eval --json against the same call on the CPU
+        ev = ["eval", str(src), str(dst), "--json"]
+        ev_counts, text = timed("eval", ev)
+        card_ev = json.loads(text.splitlines()[-1])
+        _, _, text = cli_call(torch, ev, device="cpu")
+        cpu_ev = json.loads(text.splitlines()[-1])
+        check(ev_counts == {k: 2 * int(k == "fold_matmul")
+                            for k in ev_counts},
+              f"cli: eval launches {ev_counts}")
+        for k in ("snr_db", "seg_snr_db", "nmr_db"):
+            check(abs(card_ev[k] - cpu_ev[k]) <= CLI_EVAL_DB,
+                  f"cli: eval {k} {card_ev[k]} vs the CPU's {cpu_ev[k]}")
+        for k in ("lufs_ref", "lufs_deg"):
+            check(abs(card_ev[k] - cpu_ev[k]) <= CLI_LUFS + 1e-9,
+                  f"cli: eval {k} {card_ev[k]} vs the CPU's {cpu_ev[k]}")
+        out["eval"] = dict(card=card_ev, cpu=cpu_ev,
+                           launches=launched(ev_counts))
+
+        # 19f. the loudness pass alone (CUDA events; its kernel launches from
+        # a trace) and the --tag-loudness tag against the CPU's
+        xd = torch.from_numpy(x).to(dev)
+        metrics.loudness_lufs(xd, SAMPLE_RATE)
+        lufs_ms = cuda_ms(torch, lambda: metrics.loudness_lufs(
+            xd, SAMPLE_RATE), iters=5, warmup=1)
+        lufs_kernels = kernel_launches(
+            torch, lambda: metrics.loudness_lufs(xd, SAMPLE_RATE))
+        tagged = work / "tagged.acz"
+        timed("encode --tag-loudness", ["encode", str(src), str(tagged),
+                                        "--tag-loudness"])
+        _, _, tmeta = bitstream.load(str(tagged))
+        cpu_tag = round(float(metrics.loudness_lufs(
+            torch.from_numpy(x), SAMPLE_RATE)), 2)
+        check(tmeta["lufs"] == cpu_tag,
+              f"cli: tag {tmeta['lufs']} vs the CPU's {cpu_tag}")
+        _, text = timed("decode --normalize-lufs", [
+            "decode", str(tagged), str(work / "norm.wav"),
+            "--normalize-lufs", "-16"])
+        check(text.startswith(f"loudness: {cpu_tag:.2f} LUFS"),
+              f"cli: normalize printed {text.splitlines()[0]}")
+        out["loudness"] = dict(ms=lufs_ms, kernel_launches=lufs_kernels,
+                               tag=tmeta["lufs"], cpu_tag=cpu_tag)
+
+        # 19g. the module entry point, in a subprocess
+        proc = subprocess.run(
+            [sys.executable, "-m", "audiocodec_tpu_torch", "info", str(acz)],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=300)
+        check(proc.returncode == 0 and "blocks:" in proc.stdout,
+              f"cli: python -m audiocodec_tpu_torch info: "
+              f"{proc.returncode} {proc.stderr[-500:]}")
+    out["times"] = times
+    print(f"cli music (--preset music, {CLI_SECONDS} s 2 ch, (r) defaults): "
+          f"{out['acz']['bytes']} bytes; launches encode "
+          f"{out['acz']['launches']['encode']}, decode "
+          f"{out['acz']['launches']['decode']}; gapless; codes equal to the "
+          f"all-plain CLI's {same}, sidecar {out['acz']['sidecar_equal_to_plain']}"
+          f"; decode {lsb} LSB from the plain synthesis's; SNR "
+          f"{got_snr:.4f} dB (all-plain {plain_snr:.4f}) [{card}]")
+    print(f"cli .acs window --start {start} --duration {dur} bit for bit; "
+          f"resample {rs_err:.3g} of the peak from the CPU; eval on the card "
+          f"{card_ev} vs CPU {cpu_ev}; launches eval "
+          f"{out['eval']['launches']} [{card}]")
+    print(f"cli loudness pass alone: {lufs_ms:.3f} ms on {CLI_SECONDS} s 2 "
+          f"ch, {lufs_kernels} kernel launches; tag {tmeta['lufs']} (CPU "
+          f"{cpu_tag}) [{card}]")
+    print("cli times: " + ", ".join(
+        f"{k} {v['ms']:.1f} ms = {v['audio_s_per_s']:.1f} audio-s/s"
+        for k, v in times.items()) + f" [{card}]")
+    return out
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -3041,10 +3400,15 @@ def main(argv=None) -> int:
     # 18. the .acs stream path
     t18 = time.monotonic()
     stream = stream_phase(torch, dev, args.stream_seconds, smi)
+
+    # 19. the command line
+    t19 = time.monotonic()
+    cli = cli_phase(torch, dev, smi)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
           f"15 {t16 - t15:.1f} s, 16 {t17 - t16:.1f} s, 17 "
-          f"{t18 - t17:.1f} s, 18 {time.monotonic() - t18:.1f} s")
+          f"{t18 - t17:.1f} s, 18 {t19 - t18:.1f} s, 19 "
+          f"{time.monotonic() - t19:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
@@ -3052,7 +3416,7 @@ def main(argv=None) -> int:
                       "training": training,
                       "waveform_grads": waveform_grads, "probe": probe,
                       "rvq": rvq, "ladder": ladder, "acz": acz,
-                      "stream": stream}))
+                      "stream": stream, "cli": cli}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

@@ -182,7 +182,9 @@ def test_import_loads_no_jax():
             "audiocodec_tpu_torch.intensity, audiocodec_tpu_torch.io.wav, "
             "audiocodec_tpu_torch.io.bitstream, audiocodec_tpu_torch.native, "
             "audiocodec_tpu_torch.rate, audiocodec_tpu_torch.streaming, "
-            "audiocodec_tpu_torch.io.stream_container; "
+            "audiocodec_tpu_torch.io.stream_container, "
+            "audiocodec_tpu_torch.lossless, audiocodec_tpu_torch.metrics, "
+            "audiocodec_tpu_torch.resample, audiocodec_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', 'audiocodec_tpu.')) or "
             "m == 'audiocodec_tpu']; "
