@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: encode / decode / roundtrip / eval /
-resample / info (counterpart of ``audiocodec_tpu/__main__.py``, with the
+resample / info / corpus / corpus-decode / serve (counterpart of ``audiocodec_tpu/__main__.py``, with the
 same flags, defaults, presets and printed lines for these commands):
 
   python -m audiocodec_tpu_torch encode  in.wav  out.acz  [--filters-n 1024] ...
@@ -9,12 +9,16 @@ same flags, defaults, presets and printed lines for these commands):
   python -m audiocodec_tpu_torch resample in.wav out.wav --rate 48000
   python -m audiocodec_tpu_torch info   out.acz
 
+  python -m audiocodec_tpu_torch corpus  wavs/ out/ --sample-rate 44100 [--cache c.npy]
+  python -m audiocodec_tpu_torch corpus-decode out/ rec/
+  python -m audiocodec_tpu_torch serve  --sample-rate 44100 --port 8477
+
 (also installed as ``audiocodec-tpu-torch``). Every command runs on the
 card: :func:`main` takes ``device="cuda"`` unless the caller passes
 another (the tests pass ``device="cpu"``), and without a card it fails
 with exit code 1. A WAV file is read on the host and moves to the device
-once; what is written comes back once. The bulk commands (``corpus``,
-``corpus-decode``) and ``serve`` are not part of the port yet.
+once; what is written comes back once. The bulk commands split each batch
+over every visible card (``parallel.mesh``) when ``device`` is "cuda".
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import sys
 
 import numpy as np
 import torch
+
+from audiocodec_tpu_torch.io.bitstream import decode_container
 
 
 def _build_codec(sample_rate, args, compute_dtype=None, bark_precision=None):
@@ -490,44 +496,6 @@ def _codec_from_container_meta(args, meta):
     )
 
 
-def decode_container(codec, codes, bark, meta):
-    """Decode a loaded ``.acz`` container (``io.bitstream.load``'s codes,
-    sidecar and meta) on the codec's device -> waveform [1, (blocks+1)*N,
-    C] in the codec's compute dtype: the meta's members become
-    ``decode_bitstream[_ms]``'s keywords, with the recorded band starts and
-    crossovers taken verbatim (0 is a legal wire value) and the noise seed
-    as its uint32 value."""
-    dev = codec.mdct.wa_r.device
-
-    def t(a):
-        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
-
-    nfl = meta.get("nf_levels")
-    kw = dict(
-        threshold_scale=meta.get("threshold_scale", 1.0),
-        dz_recon=meta.get("dz_recon", 0.0),
-        tns_idx=t(meta.get("tns_idx")),
-        tns_band_start=meta.get("tns_band_start") or None,
-        nf_levels=t(nfl),
-        nf_band_start=(None if nfl is None
-                       else int(meta.get("nf_band_start", 0))),
-        nf_seed=int(meta.get("nf_seed", 0)) & 0xFFFFFFFF,
-        bs_flags=t(meta.get("bs_flags")),
-        bwe_gains=t(meta.get("bwe_gains")),
-    )
-    if kw["bwe_gains"] is not None:
-        kw["bwe_start"] = int(meta.get("bwe_start", 0))
-    codes = t(codes)
-    bark = bark.to(dev, torch.bfloat16)
-    if meta.get("ms"):
-        isg = meta.get("is_gains")
-        if isg is not None:
-            kw["is_gains"] = t(isg)
-            kw["is_start"] = int(meta.get("is_start", 0))
-        return codec.decode_bitstream_ms(codes, bark, **kw)
-    return codec.decode_bitstream(codes, bark, **kw)
-
-
 def cmd_decode(args):
     from audiocodec_tpu_torch import lossless as _lossless
     from audiocodec_tpu_torch.io import bitstream
@@ -682,6 +650,498 @@ def _decode_stream(args):
     return 0
 
 
+def _corpus_mesh(device):
+    """The mesh of the bulk commands: every visible card for the card
+    (``device="cuda"``), else ``device`` alone."""
+    from audiocodec_tpu_torch.parallel import mesh as _mesh
+
+    if device.type == "cuda" and device.index is None:
+        return _mesh.make_mesh()
+    return _mesh.make_mesh(devices=[device])
+
+
+def _cmd_corpus_lossless(args, paths):
+    """Bulk lossless archival: one file a pool thread, each at its own rate
+    and depth (no batching: the mode is bound by the entropy coders, which
+    release the interpreter lock)."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audiocodec_tpu_torch import lossless
+    from audiocodec_tpu_torch.io import wav as _wav
+    from audiocodec_tpu_torch.utils.device import on_device
+
+    _refuse_lossy_flags(args, extra=[("--cache", "cache")])
+    os.makedirs(args.outdir, exist_ok=True)
+
+    def one(path):
+        x, rate, bits = _wav.read_wav_int(path)
+        with on_device(args.device):
+            blob = lossless.encode_lossless(
+                x, rate, bits=bits, level=getattr(args, "lossless_level", 1),
+                device=args.device,
+            )
+        base = os.path.splitext(os.path.basename(path))[0]
+        with open(os.path.join(args.outdir, base + ".acz"), "wb") as f:
+            f.write(blob)
+        return x.shape[0] / rate, x.size * bits // 8, len(blob)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        stats = list(ex.map(one, paths))
+    dt = time.perf_counter() - t0
+    audio_s = sum(s for s, _, _ in stats)
+    raw = sum(r for _, r, _ in stats)
+    out = sum(o for _, _, o in stats)
+    print(
+        f"{len(paths)} files lossless -> {args.outdir}: "
+        f"{out} / {raw} bytes ({100.0 * out / max(raw, 1):.1f}% of PCM), "
+        f"{audio_s:.1f} audio-s in {dt:.1f} s ({audio_s / dt:.0f} audio-s/s)"
+    )
+    return 0
+
+
+def _wav_paths(indir):
+    """The directory's WAVs, sorted; ``*.wav`` and ``*.WAV`` deduplicated by
+    normalized path (a case-insensitive file system matches both)."""
+    import glob as _glob
+
+    seen = set()
+    paths = []
+    for pat in ("*.wav", "*.WAV"):
+        for p in _glob.glob(os.path.join(indir, pat)):
+            key = os.path.normcase(os.path.abspath(p))
+            if key not in seen:
+                seen.add(key)
+                paths.append(p)
+    return sorted(paths)
+
+
+def cmd_corpus(args):
+    """Bulk-encode a directory of WAVs into one .acz a clip: the native
+    thread-pool decode straight to the int16 wire, prefetched copies to the
+    card (``parallel.pipeline``), the batch split over the mesh's dp rows
+    (``parallel.corpus.make_corpus_encoder``: one codec replica a device),
+    the payload back through pinned memory, and the packing in a thread
+    pool while the card encodes the next batch.
+    With --cache the decoded corpus persists as a raw PCM .npy, so repeat
+    runs skip WAV parsing (``pipeline.build_corpus_cache``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audiocodec_tpu_torch import codec as _codec_mod
+    from audiocodec_tpu_torch import quantize as _quantize
+    from audiocodec_tpu_torch.io import bitstream
+    from audiocodec_tpu_torch.io.stream_container import _to_host
+    from audiocodec_tpu_torch.parallel import corpus as _corpus
+    from audiocodec_tpu_torch.parallel import mesh as _mesh
+    from audiocodec_tpu_torch.parallel.pipeline import (
+        CachedCorpusLoader,
+        PrefetchingCorpusLoader,
+        build_corpus_cache,
+        validate_corpus_cache,
+    )
+    from audiocodec_tpu_torch.utils.device import dequant_wire
+
+    paths = _wav_paths(args.indir)
+    if not paths:
+        raise ValueError(f"no .wav files under {args.indir}")
+    if getattr(args, "lossless", False):
+        if args.sample_rate:
+            raise ValueError(
+                "--sample-rate does not apply with --lossless: each "
+                "file's own rate is preserved exactly"
+            )
+        return _cmd_corpus_lossless(args, paths)
+    if not args.sample_rate:
+        raise ValueError("--sample-rate is required for lossy corpus encode")
+    if args.chunk_blocks:
+        raise ValueError(
+            "--chunk-blocks streams a single file to .acs; the corpus "
+            "command writes per-clip .acz containers only"
+        )
+    if args.resample_to:
+        raise ValueError(
+            "--resample-to is a single-file option; preprocess the corpus "
+            "with the `resample` command (the bulk loaders decode at the "
+            "corpus's uniform --sample-rate)"
+        )
+    os.makedirs(args.outdir, exist_ok=True)
+
+    codec = _build_codec(args.sample_rate, args)
+    if args.ms and args.channels != 2:
+        raise ValueError("--ms (joint mid/side) needs --channels 2")
+    mesh = _corpus_mesh(args.device)
+    n = args.filters_n
+    dtype = codec.mdct.compute_dtype
+    # batches tile the mesh's dp rows (the size rounds up; the loaders pad
+    # a short final batch on the host); the cache holds the real paths
+    # only, so its identity does not depend on --batch or the devices
+    batch = _mesh.pad_batch_to(args.batch, mesh.shape["dp"])
+    dz = getattr(args, "deadzone", "auto")
+    fixed_dz = 0.5 if dz == "auto" else float(dz)
+    tag_loudness = getattr(args, "tag_loudness", False)
+    features = dict(ms=args.ms, tns=args.tns, nf=args.nf, tmask=args.tmask,
+                    bs=args.bs, bwe=args.bwe, intensity=args.intensity)
+
+    if args.cache:
+        if not os.path.exists(args.cache):
+            status = build_corpus_cache(
+                paths, args.cache, clip_seconds=args.clip_seconds,
+                sample_rate=args.sample_rate, channels=args.channels,
+                batch_size=batch,
+            )
+            print(
+                f"built PCM cache {args.cache} "
+                f"({int((status == 0).sum())}/{len(paths)} clips ok)"
+            )
+        # a stale cache must fail loudly, not pack one clip's audio under
+        # another clip's name (the cache is positional)
+        validate_corpus_cache(
+            args.cache, paths, clip_seconds=args.clip_seconds,
+            sample_rate=args.sample_rate, channels=args.channels,
+        )
+        loader = CachedCorpusLoader(args.cache, batch_size=batch, mesh=mesh,
+                                    pad_batches=True)
+    else:
+        loader = PrefetchingCorpusLoader(
+            paths, clip_seconds=args.clip_seconds,
+            sample_rate=args.sample_rate, channels=args.channels,
+            batch_size=batch, mesh=mesh, wire_dtype="int16",
+            pad_batches=True,
+        )
+
+    meta = dict(
+        sample_rate=args.sample_rate,
+        filters_n=n,
+        bark_bands_n=args.bark_bands_n,
+        alpha=args.alpha,
+        window_type=args.window if args.window != "none" else None,
+        compute_dtype=bitstream.dtype_name(dtype),
+        ms=args.ms,
+        bark_precision=codec.psycho.bark_precision,
+        sidecar_grid=codec.sidecar_grid,
+        dz_recon=(
+            _quantize.dz_recon_offset(fixed_dz) if fixed_dz != 0.5 else 0.0
+        ),
+        tns_band_start=codec.tns_band_start,
+        nf_band_start=codec.nf_band_start,
+        bwe_start=codec.bwe_start if args.bwe else 0,
+        is_start=codec.is_start if args.intensity else 0,
+    )
+
+    def out_path(idx):
+        stem = os.path.splitext(os.path.basename(paths[idx]))[0]
+        return os.path.join(args.outdir, stem + ".acz")
+
+    def member(a, j):
+        return None if a is None else a[j:j + 1]
+
+    def pack_one(idx, enc, j, lufs_j=None):
+        return bitstream.save(
+            out_path(idx), enc.codes[j:j + 1], enc.bark16[j:j + 1],
+            tns_idx=member(enc.tns_idx, j),
+            nf_levels=member(enc.nf_levels, j),
+            bs_flags=member(enc.bs_flags, j),
+            bwe_gains=member(enc.bwe_gains, j),
+            is_gains=member(enc.is_gains, j),
+            lufs=lufs_j,
+            **meta,
+        )
+
+    def write_packed(idx, data):
+        with open(out_path(idx), "wb") as f:
+            f.write(data)
+        return len(data)
+
+    def encode_shard(rep, shard):
+        """One dp row's encode of its int16 wire: the rate search's packed
+        containers (a list), or the EncodedFrames queued back to pinned
+        memory; beside them the clips' loudness (None untagged)."""
+        lufs = None
+        if tag_loudness:
+            from audiocodec_tpu_torch import metrics
+
+            # per-clip BS.1770 loudness of the wave the encoder sees
+            lufs = np.round(metrics.loudness_lufs_batch(
+                dequant_wire(shard, torch.float32), args.sample_rate), 2)
+        x = dequant_wire(shard, dtype)
+        usable = x.shape[1] - x.shape[1] % n
+        if args.kbps:
+            from audiocodec_tpu_torch import rate as _rate
+
+            # each clip converges to its own threshold scale; the search's
+            # final packed container IS the output file
+            return [r.packed for r in _rate.encode_with_target_bitrate_batch(
+                rep, x[:, :usable], args.kbps, drown=args.drown,
+                deadzone=dz, lufs=lufs, **features)], lufs
+        enc = rep.encode_frames(rep.mdct.transform(x[:, :usable]),
+                                args.drown, deadzone=fixed_dz, **features)
+        return _to_host(tuple(enc)), lufs
+
+    encoder = _corpus.make_corpus_encoder(codec, mesh, per_shard=encode_shard)
+
+    def gather(parts):
+        """The shards' host payloads -> one EncodedFrames, or one list of
+        containers."""
+        if args.kbps:
+            return [p for part in parts for p in part]
+        fields = []
+        for host, event in parts:
+            if event is not None:
+                event.synchronize()
+            fields.append(host)
+        return _codec_mod.EncodedFrames(*(
+            f[0] if f[0] is None or len(f) == 1 else torch.cat(f)
+            for f in zip(*fields)))
+
+    ok = failed = total_bytes = 0
+    base = 0
+    pending = []  # the previous batch's pack jobs
+    with ThreadPoolExecutor(max_workers=min(16, os.cpu_count() or 4)) as ex:
+        with torch.no_grad():
+            for shards, status in loader:
+                rows = encoder(shards)
+                lufs_b = [v for _, lufs in rows if lufs is not None
+                          for v in lufs]
+                # the card works on this batch while the host finishes
+                # packing the previous one
+                for f in pending:
+                    total_bytes += f.result()
+                    ok += 1
+                pending = []
+                enc_h = gather([part for part, _ in rows])
+                for j in range(len(status)):
+                    idx = base + j
+                    if idx >= len(paths):
+                        break
+                    if status[j] != 0:
+                        failed += 1
+                        print(f"skip {paths[idx]}: decode error "
+                              f"{int(status[j])}", file=sys.stderr)
+                        continue
+                    if args.kbps:
+                        pending.append(ex.submit(write_packed, idx,
+                                                 enc_h[j]))
+                    else:
+                        pending.append(ex.submit(
+                            pack_one, idx, enc_h, j,
+                            float(lufs_b[j]) if tag_loudness else None))
+                base += len(status)
+        for f in pending:
+            total_bytes += f.result()
+            ok += 1
+    seconds = ok * args.clip_seconds
+    kbps = total_bytes * 8 / max(seconds, 1e-9) / 1000
+    print(
+        f"encoded {ok}/{len(paths)} clips -> {args.outdir} "
+        f"({total_bytes} bytes, ~{kbps:.0f} kbit/s avg)"
+        + (f"; {failed} failed" if failed else "")
+    )
+    return 0 if ok else 1
+
+
+def cmd_corpus_decode(args):
+    """Bulk-decode a directory of .acz files to WAVs in batches: the
+    mirror of ``corpus``.
+
+    Containers unpack in a thread pool and group by what shapes or
+    parameterizes the decode (channels, mid/side, dead zone, TNS order and
+    band start, member presence, the noise fill's band start and seed, the
+    bwe and intensity crossovers); within a group the clips sort by length
+    and each batch pads with zero frames to its longest clip (a frame
+    beyond a clip's end decodes to samples the trim drops: MDCT frame
+    locality). Each batch carries its clips' threshold scales as a
+    [B, 1, 1, 1] tensor, so rate-controlled corpora batch too. Noise-filled
+    clips decode one at a time: the fill is keyed by batch position.
+    Batches of at least dp clips split over the mesh's dp rows. The output
+    matches a solo ``decode`` within one 16-bit LSB."""
+    import glob as _glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audiocodec_tpu_torch import lossless as _lossless
+    from audiocodec_tpu_torch import native
+    from audiocodec_tpu_torch.io import bitstream
+    from audiocodec_tpu_torch.io import wav as _wavmod
+    from audiocodec_tpu_torch.io.stream_container import _to_host
+    from audiocodec_tpu_torch.parallel import corpus as _corpus
+    from audiocodec_tpu_torch.utils.device import on_device
+
+    paths = sorted(_glob.glob(os.path.join(args.indir, "*.acz")))
+    if not paths:
+        raise ValueError(f"no .acz files under {args.indir}")
+    os.makedirs(args.outdir, exist_ok=True)
+
+    def wav_path(p):
+        base = os.path.splitext(os.path.basename(p))[0]
+        return os.path.join(args.outdir, base + ".wav")
+
+    # lossless containers (corpus --lossless) mix freely with lossy ones;
+    # they decode to exact PCM at each file's own rate and depth
+    ll_paths = [p for p in paths if _lossless.is_lossless_file(p)]
+    if ll_paths:
+        def dec_ll(p):
+            with open(p, "rb") as f:
+                blob = f.read()
+            with on_device(args.device):
+                x, rate, bits = _lossless.decode_lossless(
+                    blob, device=args.device)
+            _wavmod.write_wav_int(wav_path(p), x, rate, bits)
+
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+            list(ex.map(dec_ll, ll_paths))
+        print(f"{len(ll_paths)} lossless containers -> exact PCM wavs")
+        skip = set(ll_paths)
+        paths = [p for p in paths if p not in skip]
+        if not paths:
+            return 0
+
+    with ThreadPoolExecutor(max_workers=min(16, os.cpu_count() or 4)) as ex:
+        loaded = list(ex.map(bitstream.load, paths))
+
+    ref = loaded[0][2]
+    keys = ("sample_rate", "filters_n", "bark_bands_n", "alpha",
+            "window_type", "compute_dtype", "bark_precision")
+    for path, (_, _, meta) in zip(paths, loaded):
+        if tuple(meta[k] for k in keys) != tuple(ref[k] for k in keys):
+            raise ValueError(
+                f"{path} was encoded with a different codec config than "
+                f"{paths[0]}; decode mixed corpora separately"
+            )
+    codec = _codec_from_container_meta(args, ref)
+    n = ref["filters_n"]
+    sr = ref["sample_rate"]
+    mesh = _corpus_mesh(args.device)
+    replicas = list(zip(_corpus.replicas(codec, mesh), mesh.dp_devices))
+    dp = len(replicas)
+
+    groups: dict = {}
+    for idx, (codes, _, meta) in enumerate(loaded):
+        ti = meta["tns_idx"]
+        key = (
+            codes.shape[-1], bool(meta["ms"]), float(meta["dz_recon"]),
+            None if ti is None else ti.shape[2], meta["tns_band_start"],
+            meta["nf_levels"] is not None, meta["nf_band_start"],
+            int(meta["nf_seed"]), meta["bs_flags"] is not None,
+            meta["bwe_start"] if meta["bwe_gains"] is not None else 0,
+            meta["is_start"] if meta["is_gains"] is not None else 0,
+        )
+        groups.setdefault(key, []).append(idx)
+
+    members = ("tns_idx", "nf_levels", "bs_flags", "bwe_gains", "is_gains")
+
+    def stacked(sub, rows):
+        """The clips of ``sub`` as one batch of ``rows`` (>= len(sub))
+        rows, zero-padded to the longest clip: codes, sidecar bits, a meta
+        with the members stacked, and the scales [rows, 1, 1, 1] (1 on the
+        pad rows)."""
+        frames = max(loaded[i][0].shape[1] for i in sub)
+
+        def stack(arrs):
+            out = np.zeros((rows, frames) + arrs[0].shape[2:],
+                           arrs[0].dtype)
+            for j, a in enumerate(arrs):
+                out[j, :a.shape[1]] = a[0]
+            return out
+
+        codes = stack([loaded[i][0] for i in sub])
+        bark = stack([bitstream.bf16_bits(loaded[i][1]) for i in sub])
+        ts = np.ones((rows, 1, 1, 1), np.float64)
+        for j, i in enumerate(sub):
+            ts[j] = loaded[i][2]["threshold_scale"]
+        meta = dict(loaded[sub[0]][2])
+        for name in members:
+            if meta[name] is not None:
+                meta[name] = stack([loaded[i][2][name] for i in sub])
+        return codes, bark, ts, meta
+
+    def decode_rows(sub):
+        """Queue one batch's decode, split over the dp rows when it holds
+        at least dp clips -> [(host float32 waves, event)] a row."""
+        split = dp if len(sub) >= dp else 1
+        rows = -(-len(sub) // split) * split
+        codes, bark, ts, meta = stacked(sub, rows)
+        step = rows // split
+        out = []
+        for (rep, dev), r in zip(replicas, range(0, rows, step)):
+            part = dict(meta, threshold_scale=torch.from_numpy(
+                ts[r:r + step]))
+            for name in members:
+                if part[name] is not None:
+                    part[name] = part[name][r:r + step]
+            with on_device(dev):
+                wave = bitstream.decode_container(
+                    rep, codes[r:r + step],
+                    bitstream.bf16_from_bits(bark[r:r + step]), part)
+                out.append(_to_host((wave.to(torch.float32),)))
+        return out
+
+    def write_one(idx, wave):
+        frames = loaded[idx][0].shape[1]
+        out = wave[None, n:n + (frames - 1) * n]
+        nsamp = loaded[idx][2].get("orig_samples", 0)
+        if nsamp:
+            out = out[:, :nsamp]
+        native.write_wav(wav_path(paths[idx]), out, sr)
+
+    done = 0
+    with ThreadPoolExecutor(max_workers=min(16, os.cpu_count() or 4)) as ex:
+        jobs = []
+        with torch.no_grad():
+            for key, idxs in groups.items():
+                has_nf = key[5]
+                # longest first, so a batch's clips are of like length
+                idxs = sorted(idxs, key=lambda i: -loaded[i][0].shape[1])
+                # noise-filled clips: batch position keys the fill
+                subs = ([[i] for i in idxs] if has_nf
+                        else [idxs[j:j + args.batch]
+                              for j in range(0, len(idxs), args.batch)])
+                for sub in subs:
+                    waves = []
+                    for host, event in decode_rows(sub):
+                        if event is not None:
+                            event.synchronize()
+                        waves.append(host[0].numpy())
+                    waves = np.concatenate(waves)
+                    for j, idx in enumerate(sub):
+                        jobs.append(ex.submit(write_one, idx, waves[j]))
+        for job in jobs:
+            job.result()
+            done += 1
+    print(
+        f"{args.indir}: decoded {done}/{len(paths)} containers -> "
+        f"{args.outdir} ({len(groups)} program groups)"
+    )
+    return 0
+
+
+def cmd_serve(args):
+    """Run the dynamic-batching codec server (serve.py) until stopped
+    (Ctrl-C, SIGINT)."""
+    from audiocodec_tpu_torch import serve as _serve
+
+    codec = _build_codec(args.sample_rate, args)
+    server = _serve.CodecServer(
+        codec, args.sample_rate,
+        host=args.host, port=args.port, unix_path=args.unix_socket,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+    ).start()
+    where = args.unix_socket or f"{args.host}:{server.port}"
+    # flushed: a parent process reads the port from this line
+    print(
+        f"serving {args.sample_rate} Hz / N={args.filters_n} codec on "
+        f"{where} (max batch {args.max_batch}, "
+        f"wait {args.max_wait_ms} ms); Ctrl-C to stop", flush=True
+    )
+    try:
+        while not server.wait(1.0):
+            pass
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
 def cmd_info(args):
     from audiocodec_tpu_torch.io import bitstream
 
@@ -791,10 +1251,12 @@ _PRESET_DEFAULTS = {
 
 
 def _apply_preset(args, parser) -> None:
-    if getattr(args, "tag_loudness", False) and args.fn is not cmd_encode:
+    if getattr(args, "tag_loudness", False) and args.fn not in (
+        cmd_encode, cmd_corpus
+    ):
         raise SystemExit(
             "--tag-loudness only applies to commands that write "
-            "containers (encode)"
+            "containers (encode, corpus)"
         )
     preset = getattr(args, "preset", None)
     if not preset:
@@ -1037,6 +1499,62 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("output")
     add_model_args(p)
     p.set_defaults(fn=cmd_roundtrip)
+
+    p = sub.add_parser(
+        "corpus", help="bulk-encode a directory of WAVs to .acz files"
+    )
+    p.add_argument("indir")
+    p.add_argument("outdir")
+    p.add_argument("--sample-rate", type=int, default=0,
+                   help="corpus sample rate (no resampling is performed); "
+                        "required for lossy encodes, not applicable with "
+                        "--lossless (each file keeps its own rate)")
+    p.add_argument("--clip-seconds", type=float, default=10.0,
+                   help="uniform framing: clips truncate/zero-pad to this")
+    p.add_argument("--channels", type=int, default=1)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--cache", default="",
+                   help="raw-PCM cache .npy path: built on first run, "
+                        "memmapped on repeat runs (skips WAV decoding)")
+    p.add_argument(
+        "--lossless", action="store_true",
+        help="exact PCM archival of the whole directory (thread-pooled "
+             "FLAC-class coding; 16/24-bit integer WAV, per-file rates)",
+    )
+    p.add_argument(
+        "--lossless-level", type=int, default=1, choices=(1, 2),
+        help="1 = fixed predictors; 2 = + order-searched per-frame "
+             "quantized LPC (smaller at comparable encode speed)",
+    )
+    add_model_args(p)
+    p.set_defaults(fn=cmd_corpus)
+
+    p = sub.add_parser(
+        "corpus-decode",
+        help="bulk-decode a directory of .acz files to WAVs (batched "
+             "device passes, each batch padded to its longest clip)",
+    )
+    p.add_argument("indir")
+    p.add_argument("outdir")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--bf16", action="store_true",
+                   help=argparse.SUPPRESS)  # dtype comes from the files
+    p.set_defaults(fn=cmd_corpus_decode)
+
+    p = sub.add_parser(
+        "serve",
+        help="serve the codec over TCP/Unix socket with dynamic batching",
+    )
+    p.add_argument("--sample-rate", type=int, required=True,
+                   help="rate this server encodes at (clients must match)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8477)
+    p.add_argument("--unix-socket", default="",
+                   help="serve a Unix domain socket instead of TCP")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-wait-ms", type=float, default=5.0)
+    add_model_args(p)
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser(
         "eval",

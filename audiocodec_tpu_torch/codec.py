@@ -201,8 +201,12 @@ class Codec(nn.Module):
 
     def _scaled(self, threshold: torch.Tensor, scale) -> torch.Tensor:
         """``threshold`` times the rate-control scale rounded to the
-        compute dtype."""
-        return threshold * _dtypes.rounded(scale, self.mdct.compute_dtype)
+        compute dtype: a number, or a tensor that broadcasts against the
+        threshold (one scale a clip, [B, 1, 1, 1])."""
+        dtype = self.mdct.compute_dtype
+        if isinstance(scale, torch.Tensor):
+            return threshold * scale.to(threshold.device, dtype)
+        return threshold * _dtypes.rounded(scale, dtype)
 
     def _snap(self, bark: torch.Tensor) -> torch.Tensor:
         """The bfloat16 sidecar of Bark intensities: on the scq grid, or raw

@@ -794,3 +794,44 @@ def load(path: str):
     """Read and :func:`unpack` an ``.acz`` file."""
     with open(path, "rb") as f:
         return unpack(f.read())
+
+
+def decode_container(codec, codes, bark, meta):
+    """Decode a loaded ``.acz`` container (:func:`load`'s codes, sidecar
+    and meta) on the codec's device -> waveform [B, (blocks+1)*N, C] in the
+    codec's compute dtype: the meta's members become
+    ``decode_bitstream[_ms]``'s keywords, with the recorded band starts and
+    crossovers taken verbatim (0 is a legal wire value) and the noise seed
+    as its uint32 value. A batch of B containers of one configuration
+    decodes in one call: their codes, sidecars and members stacked, and
+    ``meta["threshold_scale"]`` a tensor of one scale a clip [B, 1, 1, 1].
+    """
+    dev = codec.mdct.wa_r.device
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+
+    nfl = meta.get("nf_levels")
+    kw = dict(
+        threshold_scale=meta.get("threshold_scale", 1.0),
+        dz_recon=meta.get("dz_recon", 0.0),
+        tns_idx=t(meta.get("tns_idx")),
+        tns_band_start=meta.get("tns_band_start") or None,
+        nf_levels=t(nfl),
+        nf_band_start=(None if nfl is None
+                       else int(meta.get("nf_band_start", 0))),
+        nf_seed=int(meta.get("nf_seed", 0)) & 0xFFFFFFFF,
+        bs_flags=t(meta.get("bs_flags")),
+        bwe_gains=t(meta.get("bwe_gains")),
+    )
+    if kw["bwe_gains"] is not None:
+        kw["bwe_start"] = int(meta.get("bwe_start", 0))
+    codes = t(codes)
+    bark = bark.to(dev, torch.bfloat16)
+    if meta.get("ms"):
+        isg = meta.get("is_gains")
+        if isg is not None:
+            kw["is_gains"] = t(isg)
+            kw["is_start"] = int(meta.get("is_start", 0))
+        return codec.decode_bitstream_ms(codes, bark, **kw)
+    return codec.decode_bitstream(codes, bark, **kw)

@@ -1009,17 +1009,19 @@ def _to_host(tensors):
     """Queue a copy of every CUDA tensor of ``tensors`` into pinned host
     memory without waiting for it -> (the host tensors, the event that
     marks the copies done, or None when nothing was on the card)."""
-    out, queued = [], False
+    out, dev = [], None
     for t in tensors:
         if isinstance(t, torch.Tensor) and t.is_cuda:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
-            t, queued = h, True
+            t, dev = h, t.device
         out.append(t)
-    if not queued:
+    if dev is None:
         return out, None
+    # on the tensors' device's stream, whatever the calling thread's
+    # current device
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(dev))
     return out, event
 
 

@@ -13,8 +13,9 @@ package is imported.
 
 Without a compiler everything degrades as in the JAX package: WAV I/O falls
 back to ``io/wav.py``, the decoders to pure Python, and ``bitstream.pack``'s
-``entropy="auto"`` to zlib; the encoders raise (``available()`` says which
-path is live, ``build_error()`` why).
+``entropy="auto"`` to zlib; the encoders and the bulk loader
+``load_corpus`` raise (``available()`` says which path is live,
+``build_error()`` why).
 """
 
 from __future__ import annotations
@@ -317,6 +318,42 @@ def decode_wav(path: str):
     n, c = int(frames.value), int(channels.value)
     data = out[: n * c].reshape(1, n, c).copy()
     return data, int(rate.value)
+
+
+def load_corpus(paths, clip_seconds: float, sample_rate: int,
+                channels: int = 1, n_threads: int = 0,
+                dtype: str = "float32"):
+    """Bulk-decode WAV files into [n, frames, channels], frames =
+    int(clip_seconds * sample_rate): each clip truncated or zero-padded to
+    that length, in C++ threads (n_threads=0: all cores). The files' own
+    rates are not checked (the corpus is uniform by contract).
+
+    :param dtype: "float32" (normalized [-1, 1]) or "int16", the wire to
+        the device: PCM16-scale integers decoded in C++ (a copy for PCM16
+        sources), dequantized on the device by 1/32768, exactly.
+    :return: (array [n, frames, channels], status int32 [n]: 0 ok, -1
+        unreadable, -2 not a WAV, -3 malformed, -4 unsupported encoding,
+        -5 channel count mismatch; a failed clip's row is zeros).
+    :raises RuntimeError: without the native library (no Python decoder
+        stands in for it).
+    """
+    if dtype not in ("float32", "int16"):
+        raise ValueError(f"dtype must be 'float32' or 'int16', got {dtype!r}")
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"load_corpus needs the native library: {_build_error}"
+        )
+    frames = int(clip_seconds * sample_rate)
+    n = len(paths)
+    out = np.zeros((n, frames, channels), dtype=np.dtype(dtype))
+    status = np.zeros(n, dtype=np.int32)
+    arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    fn, ptr = ((lib.acx_load_corpus_i16, ctypes.c_int16) if dtype == "int16"
+               else (lib.acx_load_corpus, ctypes.c_float))
+    fn(arr, n, out.ctypes.data_as(ctypes.POINTER(ptr)), frames, channels,
+       n_threads, status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return out, status
 
 
 def write_wav(path: str, data, sample_rate: int, width: int = 2) -> None:

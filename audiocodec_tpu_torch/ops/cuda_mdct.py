@@ -43,6 +43,8 @@ transposed fold; see "The VJPs" below). The plain versions
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -362,7 +364,7 @@ def fold_matmul(x, wa_r, wb, wc, ffr, mat, precision="highest",
                                      mat_scale)
     out = _launch_fold_matmul(x, wa_r, wb, wc, ffr, mat, precision,
                               mat_scale, operand)
-    fold_matmul.launches += 1
+    _count(fold_matmul)
     return out
 
 
@@ -403,7 +405,7 @@ def matmul_scatter(y, p, q, r, s_r, mat, precision="highest", mat_scale=1.0,
                                         mat_scale)
     out = _launch_matmul_scatter(y, p, q, r, s_r, mat, precision, mat_scale,
                                  operand)
-    matmul_scatter.launches += 1
+    _count(matmul_scatter)
     return out
 
 
@@ -463,7 +465,7 @@ def radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats, precision="highest",
                                            precision)
     out = _launch_radix_fold_matmul(x, wa_r, wb, wc, ffr, rot, mats,
                                     precision, operand)
-    radix_fold_matmul.launches += 1
+    _count(radix_fold_matmul)
     return out
 
 
@@ -486,7 +488,7 @@ def radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision="highest",
                                               precision)
     out = _launch_radix_matmul_scatter(y, p, q, r, s_r, rot, mats, precision,
                                        operand)
-    radix_matmul_scatter.launches += 1
+    _count(radix_matmul_scatter)
     return out
 
 
@@ -636,7 +638,7 @@ def fold_matmul_vjp(g, p, q, r, s_r, mat, precision="highest",
     if g.device.type == "cpu":
         return fold_matmul_vjp_reference(g, p, q, r, s_r, mat, precision)
     out = _launch_matmul_scatter_t(g, p, q, r, s_r, mat, precision, operand)
-    fold_matmul_vjp.launches += 1
+    _count(fold_matmul_vjp)
     return out
 
 
@@ -684,7 +686,7 @@ def matmul_scatter_vjp(g, wa_r, wb, wc, ffr, mat, precision="highest",
                                             precision)
     out = _launch_fold_matmul_t(g, wa_r, wb, wc, ffr, mat, precision,
                                 operand)
-    matmul_scatter_vjp.launches += 1
+    _count(matmul_scatter_vjp)
     return out
 
 
@@ -711,7 +713,7 @@ def radix_fold_matmul_vjp(g, p, q, r, s_r, rot, mats, precision="highest",
     t = g.shape[1]
     out = _launch_radix("acx_radix_matmul_scatter_t", g, (p, q, r, s_r),
                         rot, mats, precision, operand, t, t - 1)
-    radix_fold_matmul_vjp.launches += 1
+    _count(radix_fold_matmul_vjp)
     return out
 
 
@@ -739,7 +741,7 @@ def radix_matmul_scatter_vjp(g, wa_r, wb, wc, ffr, rot, mats,
     t = g.shape[1]
     out = _launch_radix("acx_radix_fold_matmul_t", g, (wa_r, wb, wc, ffr),
                         rot, mats, precision, operand, t - 1, t - 1)
-    radix_matmul_scatter_vjp.launches += 1
+    _count(radix_matmul_scatter_vjp)
     return out
 
 
@@ -778,6 +780,16 @@ KERNELS = (fold_matmul, matmul_scatter, radix_fold_matmul,
 VJPS = (fold_matmul_vjp, matmul_scatter_vjp, radix_fold_matmul_vjp,
         radix_matmul_scatter_vjp)
 FUNCTIONS = {k.__name__: _function(k.__name__) for k in KERNELS}
+
+
+_count_lock = threading.Lock()
+
+
+def _count(kernel) -> None:
+    """One more launch of ``kernel``, under a lock: a server's threads
+    launch kernels at once."""
+    with _count_lock:
+        kernel.launches += 1
 
 
 def reset_launch_counts() -> None:

@@ -193,7 +193,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``--normalize-lufs`` reads it; ``python -m audiocodec_tpu_torch info``
    runs in a subprocess. Printed, with the card's name and power limit:
    each command's wall ms and audio-s/s (the second of two calls) and
-   the loudness pass alone (ms, kernel launches).
+   the loudness pass alone (ms, kernel launches);
+20. serving: ``python -m audiocodec_tpu_torch serve --port 0`` at its
+   defaults in two subprocesses, at 44.1 kHz and 48 kHz (the port read
+   from each one's first line; SIGINT, exit code 0). 8 client threads
+   (``serve.Client``) send 8 encode requests each of 2 s 44.1 kHz mono
+   PCM16 (after a warm-up round), then a 'D' of each response: codes at
+   least 99.99% equal to the solo encode on the card, each decode within
+   1 LSB of the offline decode; a 'B'/'C'/'F' session of 60 s of 48 kHz
+   stereo in chunks of 256 blocks equals offline ``encode_stream`` on the
+   card byte for byte, and a 'J'/'K'/'L' session of its bytes equals
+   ``decode_stream`` bit for bit. The servers' 'Q' stats count their MDCT
+   launches: one ``fold_matmul`` a batch group and one ``matmul_scatter``
+   a 'D'; chunks + 1 of each in the sessions (the flush; the tail). An
+   in-process server's batch cycle of 8 requests is traced. Printed:
+   audio-s/s of the requests and the sessions, the 'Q' line, the batch
+   count, the traced device busy time and idle share;
+21. the bulk corpus, BASELINE.md's configuration 4 (``--corpus-clips``,
+   default 1,000 clips of 10 s 44.1 kHz mono PCM16, written under
+   ``build/chip_smoke/`` and removed after), through ``main([...])``:
+   ``corpus --batch 64`` (one ``fold_matmul`` a batch),
+   ``corpus-decode`` (one ``matmul_scatter`` a batch), ``corpus --cache``
+   building the PCM cache and once more from it (traced); 16 sampled
+   clips' codes at least 99.99% equal to their solo encode and their
+   decoded WAVs within 1 LSB of the solo decode, the cached run's
+   containers equal to the uncached run's member for member; ``--kbps
+   64`` on 64 clips (one ``fold_matmul``, every clip within 15%);
+   ``corpus --lossless`` of four 24-bit stereo files and its
+   ``corpus-decode`` bit for bit. Printed: each command's wall s,
+   audio-s/s and launches, the traced device busy time and idle share.
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -212,6 +240,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
@@ -396,6 +425,27 @@ CLI_RESAMPLE_RATE = 48000
 CLI_RESAMPLE_TOL = 1e-5
 CLI_EVAL_DB = 1e-3
 CLI_LUFS = 0.01
+# Serving (phase 20): README's serving row, 8 concurrent clients of 2 s
+# 44.1 kHz mono PCM16, 8 requests each, at the serve command's defaults;
+# one session of phase 18's 48 kHz stereo in chunks of 256 blocks
+SERVE_SECONDS = 2
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 8
+SERVE_START_S = 120
+SERVE_CODES_EQUAL = 0.9999
+SERVE_STREAM_SECONDS = 60
+SERVE_TRACE_CYCLES = 3
+# The bulk corpus (phase 21): BASELINE.md configuration 4, 1,000 clips of
+# 10 s 44.1 kHz mono PCM16 in batches of 64 (``--corpus-clips`` cuts the
+# count); --kbps on 64 of them; lossless on four 24-bit stereo files
+CORPUS_CLIPS = 1000
+CORPUS_SECONDS = 10
+CORPUS_BATCH = 64
+CORPUS_SAMPLED = 16
+CORPUS_CODES_EQUAL = 0.9999
+CORPUS_KBPS = 64.0
+CORPUS_KBPS_TOLERANCE = 0.15
+CORPUS_LOSSLESS_SECONDS = 10
 
 
 class PhaseError(RuntimeError):
@@ -3215,6 +3265,685 @@ def cli_phase(torch, dev, card):
     return out
 
 
+def cli_codec(torch, dev, argv):
+    """The codec the command line builds for ``argv`` (its defaults: N=1024,
+    64 Bark bands, f32 ``highest``, sidecar grid 4) on ``dev``."""
+    from audiocodec_tpu_torch import __main__ as cli
+
+    args = cli._parser().parse_args(argv)
+    args.device = torch.device(dev)
+    rate = args.sample_rate
+    return cli._build_codec(rate, args)
+
+
+def serve_clips(count, seconds=SERVE_SECONDS, rate=SAMPLE_RATE):
+    """``count`` PCM16 WAV blobs of ``seconds`` mono, from a numpy seed:
+    windows of one ``cli_signal`` at their own offsets and gains."""
+    import numpy as np
+
+    from audiocodec_tpu_torch.io import wav
+
+    s = int(seconds * rate)
+    base = cli_signal(2 * seconds, rate, channels=1)[:, 0]
+    rng = np.random.default_rng(SEED + 20)
+    offsets = rng.integers(0, s, count)
+    gains = rng.uniform(0.4, 1.0, count)
+    return [wav.write_wav_bytes((base[o:o + s] * g)[:, None], rate)
+            for o, g in zip(offsets, gains)]
+
+
+def serve_port(line):
+    """The TCP port in the serve command's first line ("serving ... on
+    host:port (max batch ...")."""
+    import re
+
+    m = re.search(r" on [^ ]+:(\d+) \(", line)
+    if m is None:
+        raise PhaseError(f"serve: no port in {line!r}")
+    return int(m.group(1))
+
+
+def spawn_server(rate, work):
+    """``python -m audiocodec_tpu_torch serve --sample-rate rate --port 0``
+    in a subprocess, its standard error to a file of ``work``."""
+    with open(work / f"serve{rate}.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "audiocodec_tpu_torch", "serve",
+             "--sample-rate", str(rate), "--port", "0"],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+
+
+def server_port(proc, rate, work):
+    """The port of a spawned server, from its first line."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], SERVE_START_S)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        raise PhaseError(f"serve {rate}: no first line in {SERVE_START_S} s: "
+                         + (work / f"serve{rate}.err").read_text()[-2000:])
+    print(f"serve: {line.strip()}")
+    return serve_port(line)
+
+
+def stop_server(proc, rate, work):
+    """Wait for a server sent SIGINT: its exit code must be 0."""
+    try:
+        rc = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise PhaseError(f"serve {rate}: no exit 30 s after SIGINT")
+    finally:
+        proc.stdout.close()
+    check(rc == 0, f"serve {rate}: exit {rc} after SIGINT: "
+          + (work / f"serve{rate}.err").read_text()[-2000:])
+
+
+def launch_delta(before, after):
+    """The server's MDCT kernel launches between two 'Q' stats lines."""
+    a, b = before["kernel_launches"], after["kernel_launches"]
+    return {k: b[k] - a[k] for k in b if b[k] - a[k]}
+
+
+def hold_plain_codes(label, pairs):
+    """Codes and sidecar levels made by the kernels against the all-plain
+    encode of the same audio, held as phase 19 holds them: levels within
+    one grid step, codes equal in LADDER_EQUAL of positions and within one
+    step on the frames whose levels are all equal.
+
+    :param pairs: ((codes, levels), (plain codes, plain levels)) a clip,
+        numpy [1, frames, N, C] and [1, frames, bands, C].
+    :return: (share of codes equal, share of levels equal, largest code
+        step on frames of equal levels)."""
+    import numpy as np
+
+    same = total = lv_same = lv_total = max_diff = lv_max = 0
+    for (codes, lv), (plain_codes, plain_lv) in pairs:
+        lv_diff = np.abs(lv.astype(np.int64) - plain_lv)
+        diff = np.abs(codes.astype(np.int64) - plain_codes)
+        frames_same = (lv_diff == 0).all(axis=(2, 3))[..., None, None]
+        same += int((diff == 0).sum())
+        total += diff.size
+        lv_same += int((lv_diff == 0).sum())
+        lv_total += lv_diff.size
+        max_diff = max(max_diff, int(np.where(frames_same, diff, 0).max()))
+        lv_max = max(lv_max, int(lv_diff.max()))
+    share, lv_share = same / total, lv_same / lv_total
+    check(lv_max <= 1 and share >= LADDER_EQUAL and max_diff <= 1,
+          f"{label}: codes {share} equal to the all-plain encode's, sidecar "
+          f"levels {lv_share} ({lv_max} grid steps apart at most), codes "
+          f"{max_diff} steps apart where the levels are equal")
+    return share, lv_share, max_diff
+
+
+def pcm16_of(wave, rate):
+    """A float wave [samples, channels] as the 16-bit integers the WAV
+    writer stores."""
+    from audiocodec_tpu_torch.io import wav
+
+    return pcm16_bytes(wav.write_wav_bytes(wave, rate))
+
+
+def pcm16_bytes(blob):
+    """A PCM16 WAV blob's samples as integers [1, samples, channels]."""
+    import numpy as np
+
+    from audiocodec_tpu_torch.io import wav
+
+    x, _ = wav.read_wav_bytes(blob)
+    return np.round(x.astype(np.float64) * 32768).astype(np.int64)
+
+
+def serve_encode(torch, dev, port, codec, card):
+    """20a. 8 client threads x 8 encode requests of 2 s 44.1 kHz mono
+    PCM16 (README's serving row), then a 'D' of each response; each held
+    against the solo offline encode and decode on the card, and against
+    the all-plain encode and the plain synthesis's decode (the served
+    groups [g, 87, 1024] and the 'D's reach the kernels at shapes no other
+    phase holds)."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from audiocodec_tpu_torch import scq, serve
+    from audiocodec_tpu_torch.io import bitstream, wav
+
+    clips = serve_clips(SERVE_CLIENTS * SERVE_REQUESTS)
+
+    def client(requests):
+        with serve.Client(port=port) as c:
+            return [(i, c.encode(clips[i])) for i in requests]
+
+    def round_of(ids):
+        with cf.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            return dict(r for part in ex.map(client, ids) for r in part)
+
+    # a warm-up round: the server's first loads, allocator, native library
+    round_of([[k] for k in range(SERVE_CLIENTS)])
+    with serve.Client(port=port) as c:
+        before = c.stats()
+    t0 = time.perf_counter()
+    got = round_of([list(range(k, len(clips), SERVE_CLIENTS))
+                    for k in range(SERVE_CLIENTS)])
+    wall = time.perf_counter() - t0
+    responses = [got[i] for i in range(len(clips))]
+    with serve.Client(port=port) as c:
+        mid = c.stats()
+        decoded = [c.decode(r) for r in responses]
+        after = c.stats()
+    enc_launches = launch_delta(before, mid)
+    dec_launches = launch_delta(mid, after)
+    batches = mid["encode_batches"] - before["encode_batches"]
+    check(enc_launches == {"fold_matmul": batches} and batches > 0,
+          f"serve: encode launches {enc_launches} for {batches} batches")
+    check(dec_launches == {"matmul_scatter": len(clips)},
+          f"serve: decode launches {dec_launches} for {len(clips)} decodes")
+    n = codec.mdct.filters_n
+    grid = codec.sidecar_grid
+    same = total = 0
+    members_equal = True
+    lsb = plain_lsb = 0
+    plain_pairs = []
+    for blob, acz, out in zip(clips, responses, decoded):
+        codes, bark, meta = bitstream.unpack(acz)
+        x, _ = wav.read_wav_bytes(blob)
+        s = x.shape[1]
+        xt = torch.nn.functional.pad(torch.from_numpy(x),
+                                     (0, 0, 0, (-s) % n)).to(dev)
+        with torch.no_grad():
+            solo_codes, solo_bark = codec.quantize_frames(
+                codec.mdct.transform(xt))
+            solo = bitstream.decode_container(codec, codes, bark, meta)
+            with plain_kernels():
+                plain_codes, plain_bark = codec.quantize_frames(
+                    codec.mdct.transform(xt))
+                plain = bitstream.decode_container(codec, codes, bark, meta)
+        solo_codes = solo_codes.cpu().numpy()
+        same += int((solo_codes == codes).sum())
+        total += codes.size
+        members_equal &= (np.array_equal(solo_codes, codes) and np.array_equal(
+            bitstream.bf16_bits(solo_bark), bitstream.bf16_bits(bark)))
+        plain_pairs.append((
+            (codes, scq.levels_from_bark16(bark, grid)),
+            (plain_codes.cpu().numpy(),
+             scq.levels_from_bark16(plain_bark, grid))))
+        frames = codes.shape[1]
+        got = pcm16_bytes(out)
+        check(got.shape == (1, s, 1), f"serve: decoded {got.shape} of {s}")
+        for wave, name in ((solo, "offline"), (plain, "plain")):
+            ref = pcm16_of(wave[0, n:n + (frames - 1) * n].float().cpu()
+                           .numpy()[:s], SAMPLE_RATE)
+            apart = int(np.abs(got - ref).max())
+            if name == "offline":
+                lsb = max(lsb, apart)
+            else:
+                plain_lsb = max(plain_lsb, apart)
+    share = same / total
+    plain_share, plain_lv, plain_step = hold_plain_codes("serve", plain_pairs)
+    check(share >= SERVE_CODES_EQUAL, f"serve: codes {share} equal to solo")
+    check(lsb <= 1, f"serve: 'D' {lsb} LSB from the offline decode")
+    check(plain_lsb <= ACZ_VECTOR_LSB,
+          f"serve: 'D' {plain_lsb} LSB from the plain synthesis's decode")
+    audio = len(clips) * SERVE_SECONDS
+    # the stage seconds of the timed round alone, the EMAs as they stand
+    stats = {k: v for k, v in mid.items() if k.endswith("_ema_ms")}
+    stats.update({k: round(v - before.get(k, 0.0), 4)
+                  for k, v in mid.items() if k.startswith("t_")})
+    out = dict(requests=len(clips), clients=SERVE_CLIENTS, wall_s=wall,
+               audio_s_per_s=audio / wall, batches=batches,
+               codes_equal_to_solo=share, members_equal_to_solo=members_equal,
+               decode_max_lsb=lsb, codes_equal_to_plain=plain_share,
+               sidecar_equal_to_plain=plain_lv,
+               max_code_step_to_plain=plain_step,
+               decode_max_lsb_to_plain=plain_lsb, launches_encode=enc_launches,
+               launches_decode=dec_launches, stats=stats)
+    print(f"serve encode: {len(clips)} requests of {SERVE_SECONDS} s from "
+          f"{SERVE_CLIENTS} clients in {wall:.3f} s = "
+          f"{out['audio_s_per_s']:.1f} audio-s/s, {batches} batches, "
+          f"launches {enc_launches}; codes equal to the solo card encode "
+          f"{share!r} (containers' codes and sidecars equal: "
+          f"{members_equal}), to the all-plain encode {plain_share!r} "
+          f"(sidecar levels {plain_lv!r}, codes within {plain_step} where "
+          f"they are equal); 'D' launches {dec_launches}, within {lsb} LSB "
+          f"of the offline decode and {plain_lsb} of the plain synthesis's "
+          f"[{card}]")
+    print(f"serve Q (stage seconds of the timed round): "
+          f"{json.dumps(out['stats'])}")
+    return out
+
+
+def serve_sessions(torch, dev, port, card, work):
+    """20b. One 'B'/'C'/'F' session of 60 s of 48 kHz stereo in chunks of
+    256 blocks and one 'J'/'K'/'L' session of the bytes it returned,
+    against offline ``encode_stream`` / ``decode_stream`` on the card, and
+    against the all-plain ``encode_stream`` and the plain synthesis's
+    ``decode_stream`` of the same bytes."""
+    import struct
+
+    import numpy as np
+
+    from audiocodec_tpu_torch import serve
+    from audiocodec_tpu_torch.io import stream_container as sc
+
+    codec = cli_codec(torch, dev, ["serve", "--sample-rate", str(STREAM_SR)])
+    x = stream_signal(torch, "cpu", SERVE_STREAM_SECONDS)
+    pcm = x[0].numpy()
+    chunk = STREAM_CB * FILTERS_N
+    chunks = pcm.shape[0] // chunk
+    with serve.Client(port=port) as c:
+        # a warm-up session and its decode: the process's first loads
+        warm = [c.begin_stream(channels=2, chunk_blocks=STREAM_CB),
+                c.feed(pcm[:chunk]), c.finish_stream()]
+        c.begin_decode_stream(warm[0])
+        c.feed_chunk(warm[1])
+        c.finish_decode_stream()
+        before = c.stats()
+        t0 = time.perf_counter()
+        parts = [c.begin_stream(channels=2, chunk_blocks=STREAM_CB)]
+        for k in range(chunks):
+            parts.append(c.feed(pcm[k * chunk:(k + 1) * chunk]))
+        parts.append(c.finish_stream())
+        enc_wall = time.perf_counter() - t0
+        mid = c.stats()
+        streamed = b"".join(parts)
+        path = work / "session.acs"
+        path.write_bytes(streamed)
+        _, index_off = struct.unpack("<QQ", streamed[-16:])
+        with sc.StreamReader(str(path)) as r:
+            offs = list(r._index)
+        t0 = time.perf_counter()
+        c.begin_decode_stream(streamed[:offs[0]])
+        live = [c.feed_chunk(streamed[o:e])
+                for o, e in zip(offs, offs[1:] + [index_off])]
+        live.append(c.finish_decode_stream())
+        dec_wall = time.perf_counter() - t0
+        after = c.stats()
+    offline, plain_path = work / "offline.acs", work / "plain.acs"
+    with torch.no_grad():
+        sc.encode_stream(codec, x.to(dev), str(offline),
+                         chunk_blocks=STREAM_CB)
+        want = torch.cat(list(sc.decode_stream(codec, str(offline))),
+                         dim=1)[0].cpu().numpy()
+        with plain_kernels():
+            sc.encode_stream(codec, x.to(dev), str(plain_path),
+                             chunk_blocks=STREAM_CB)
+            plain_dec = torch.cat(list(sc.decode_stream(codec, str(path))),
+                                  dim=1)[0]
+    plain_share, plain_lv, plain_step = hold_plain_codes(
+        "serve session", [tuple(tuple(a[None] for a in stream_chunks(
+            sc, str(p), levels=True)) for p in (path, plain_path))])
+    dec_tol = tolerance(torch, plain_dec, "matmul_scatter",
+                        codec.mdct.kernel_precision, codec.mdct.compute_dtype)
+    same_bytes = streamed == offline.read_bytes()
+    check(same_bytes, f"serve session: {len(streamed)} bytes differ from "
+          f"offline encode_stream's {offline.stat().st_size}")
+    got = np.concatenate(live)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          "serve decode session: PCM differs from decode_stream's")
+    dec_err = float(np.abs(got - plain_dec.cpu().numpy()).max())
+    check(dec_err <= dec_tol, f"serve decode session: max-abs {dec_err} > "
+          f"{dec_tol} from the plain synthesis's decode_stream")
+    enc_launches = launch_delta(before, mid)
+    dec_launches = launch_delta(mid, after)
+    check(enc_launches == {"fold_matmul": chunks + 1},
+          f"serve session: launches {enc_launches} for {chunks} chunks + "
+          "the flush")
+    check(dec_launches == {"matmul_scatter": len(offs) + 1},
+          f"serve decode session: launches {dec_launches} for {len(offs)} "
+          "chunks + the tail")
+    seconds = pcm.shape[0] / STREAM_SR
+    out = dict(seconds=seconds, chunks=chunks, bytes=len(streamed),
+               encode_s=enc_wall, encode_audio_s_per_s=seconds / enc_wall,
+               decode_s=dec_wall, decode_audio_s_per_s=seconds / dec_wall,
+               codes_equal_to_plain=plain_share,
+               sidecar_equal_to_plain=plain_lv,
+               max_code_step_to_plain=plain_step,
+               decode_max_abs_to_plain=dec_err, decode_tolerance=dec_tol,
+               launches_encode=enc_launches, launches_decode=dec_launches)
+    print(f"serve session: {seconds:.2f} s of {STREAM_SR} Hz stereo in "
+          f"{chunks} chunks + flush, {len(streamed)} bytes equal to offline "
+          f"encode_stream's: {same_bytes}; encode {enc_wall:.3f} s = "
+          f"{out['encode_audio_s_per_s']:.1f} audio-s/s, launches "
+          f"{enc_launches}; codes equal to the all-plain stream "
+          f"{plain_share!r} (sidecar levels {plain_lv!r}, codes within "
+          f"{plain_step} where they are equal); decode session equal to "
+          f"decode_stream bit for bit, max-abs {dec_err:.3g} from the plain "
+          f"synthesis's (tolerance {dec_tol:.3g}), {dec_wall:.3f} s = "
+          f"{out['decode_audio_s_per_s']:.1f} audio-s/s, launches "
+          f"{dec_launches} [{card}]")
+    return out
+
+
+def serve_trace(torch, dev, codec, card):
+    """20c. Batch cycles of an in-process server at the serve command's
+    defaults (max batch 8, max wait 5 ms): 8 concurrent 2 s requests, the
+    wall ms of SERVE_TRACE_CYCLES cycles untraced, then one cycle under
+    torch.profiler (after a cycle that starts the profiler) inside a
+    ``serve.cycle`` label: the device's busy ms within that label's span,
+    its idle share of the cycle, and the device's own span (first kernel
+    to last)."""
+    import concurrent.futures as cf
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from audiocodec_tpu_torch import serve
+
+    clips = serve_clips(SERVE_CLIENTS)
+    with serve.CodecServer(codec, SAMPLE_RATE, port=0) as s:
+        def cycle():
+            with cf.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+                return list(ex.map(
+                    lambda b: serve.request("E", b, port=s.port), clips))
+
+        cycle()  # warm
+        walls = []
+        for _ in range(SERVE_TRACE_CYCLES):
+            t0 = time.perf_counter()
+            cycle()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cycle()
+            batches = s.stats["encode_batches"]
+            with record_function("serve.cycle"):
+                cycle()
+                torch.cuda.synchronize()
+            batches = s.stats["encode_batches"] - batches
+    label = [e.time_range for e in prof.events() if e.name == "serve.cycle"
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    check(len(label) == 1, f"serve trace: {len(label)} serve.cycle spans")
+    lo, hi = label[0].start, label[0].end
+    spans = [(max(e.time_range.start, lo), min(e.time_range.end, hi))
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.end > lo and e.time_range.start < hi]
+    check(spans, "serve trace: no kernel in the traced cycle")
+    busy, span = covered(spans)
+    out = dict(batches=batches, cycle_ms_untraced=walls,
+               cycle_ms_traced=(hi - lo) / 1e3, device_busy_ms=busy / 1e3,
+               device_span_ms=span / 1e3,
+               idle_share=1.0 - busy / (hi - lo),
+               idle_share_of_device_span=1.0 - busy / span)
+    print(f"serve traced batch cycle at the serve command's defaults "
+          f"({SERVE_CLIENTS} x {SERVE_SECONDS} s, {batches} batches): "
+          f"untraced cycles " + ", ".join(f"{w:.2f}" for w in walls)
+          + f" ms; the traced cycle {out['cycle_ms_traced']:.2f} ms, device "
+          f"busy {out['device_busy_ms']:.3f} ms of it, idle share "
+          f"{out['idle_share']:.5f} (of the device's own "
+          f"{out['device_span_ms']:.2f} ms span, first kernel to last: "
+          f"{out['idle_share_of_device_span']:.4f}) [{card}]")
+    return out
+
+
+def serve_phase(torch, dev, card):
+    """20. The serve command (``python -m audiocodec_tpu_torch serve``) in
+    subprocesses at 44.1 kHz (encode and decode requests) and at 48 kHz
+    (the sessions), at the command line's defaults; each stopped with
+    SIGINT and exit code 0."""
+    import tempfile
+
+    work_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work_root.mkdir(parents=True, exist_ok=True)
+    codec = cli_codec(torch, dev, ["serve", "--sample-rate",
+                                   str(SAMPLE_RATE)])
+    out = {}
+    with tempfile.TemporaryDirectory(dir=work_root) as tmp:
+        work = Path(tmp)
+        # both start at once: a process takes seconds to reach the card
+        procs = {rate: spawn_server(rate, work)
+                 for rate in (SAMPLE_RATE, STREAM_SR)}
+        try:
+            ports = {rate: server_port(p, rate, work)
+                     for rate, p in procs.items()}
+            out["encode"] = serve_encode(torch, dev, ports[SAMPLE_RATE],
+                                         codec, card)
+            out["sessions"] = serve_sessions(torch, dev, ports[STREAM_SR],
+                                             card, work)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.send_signal(signal.SIGINT)
+            for rate, p in procs.items():
+                stop_server(p, rate, work)
+        out["traced_cycle"] = serve_trace(torch, dev, codec, card)
+    return out
+
+
+def corpus_signal(count, seconds, rate, channels=1, seed=SEED + 21):
+    """``count`` clips of ``seconds``: windows of one ``cli_signal`` at
+    their own offsets and gains, float64 [count][samples, channels]."""
+    import numpy as np
+
+    s = int(seconds * rate)
+    base = cli_signal(2 * seconds, rate, channels=channels, seed=seed)
+    rng = np.random.default_rng(seed)
+    offsets = rng.integers(0, s, count)
+    gains = rng.uniform(0.4, 1.0, count)
+    for o, g in zip(offsets, gains):
+        yield base[o:o + s] * g
+
+
+def write_corpus(directory, count, seconds=CORPUS_SECONDS, rate=SAMPLE_RATE):
+    """BASELINE.md configuration 4's corpus: ``count`` PCM16 mono WAVs of
+    ``seconds`` in ``directory`` -> their paths."""
+    from audiocodec_tpu_torch import native
+
+    directory.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, x in enumerate(corpus_signal(count, seconds, rate)):
+        paths.append(directory / f"clip{i:04d}.wav")
+        native.write_wav(str(paths[-1]), x.astype("float32"), rate)
+    return paths
+
+
+def corpus_call(torch, argv, audio_s, trace=False):
+    """One ``main(argv)`` of the bulk commands, the counters set to 0 just
+    before: its numbers (wall s, audio-s/s, launches; traced busy and idle
+    share)."""
+    fn = lambda: cli_call(torch, argv)  # noqa: E731
+    if trace:
+        (ms, counts, text), traced = trace_search(torch, fn, prefix="corpus.")
+    else:
+        ms, counts, text = fn()
+        traced = None
+    out = dict(wall_s=ms / 1e3, audio_s_per_s=audio_s / ms * 1e3,
+               launches=launched(counts), printed=text.strip())
+    if traced:
+        out.update(device_busy_ms=traced["device_busy_ms"],
+                   device_span_ms=traced["device_span_ms"],
+                   idle_share=traced["idle_share"])
+    return out
+
+
+def corpus_phase(torch, dev, card, clips):
+    """21. BASELINE.md configuration 4 through the command line, in-process
+    (``main([...])`` at its defaults, (r)): ``corpus`` of ``clips`` 10 s
+    44.1 kHz mono PCM16 clips in batches of 64, ``corpus-decode`` of its
+    containers, ``corpus --cache`` (building the PCM cache) and once more
+    from the cache (traced); ``--kbps 64`` on 64 of the clips; ``corpus
+    --lossless`` of four 24-bit stereo files and its ``corpus-decode``."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from audiocodec_tpu_torch import native, scq
+    from audiocodec_tpu_torch.io import bitstream, wav
+    from audiocodec_tpu_torch.utils.device import dequant_wire
+
+    check(native.available(), f"native library: {native.build_error()}")
+    work_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work_root.mkdir(parents=True, exist_ok=True)
+    codec = cli_codec(torch, dev, ["corpus", "a", "b", "--sample-rate",
+                                   str(SAMPLE_RATE)])
+    n = codec.mdct.filters_n
+    audio = clips * CORPUS_SECONDS
+    batches = -(-clips // CORPUS_BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=work_root) as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        paths = write_corpus(work / "in", clips)
+        out["write_s"] = time.perf_counter() - t0
+        enc = ["corpus", str(work / "in"), str(work / "acz"),
+               "--sample-rate", str(SAMPLE_RATE), "--clip-seconds",
+               str(CORPUS_SECONDS), "--batch", str(CORPUS_BATCH)]
+        out["corpus"] = corpus_call(torch, enc, audio)
+        out["corpus_decode"] = corpus_call(
+            torch, ["corpus-decode", str(work / "acz"), str(work / "dec")],
+            audio)
+        check(out["corpus"]["launches"] == {"fold_matmul": batches}
+              and out["corpus_decode"]["launches"]
+              == {"matmul_scatter": batches},
+              f"corpus: launches {out['corpus']['launches']}, decode "
+              f"{out['corpus_decode']['launches']} for {batches} batches")
+        # 16 sampled clips against their solo encode and decode on the
+        # card, and against the all-plain encode and the plain synthesis's
+        # decode (the batches [64, 431, 1024] reach the kernels at a shape
+        # no other phase holds)
+        picks = np.unique(np.linspace(0, clips - 1, CORPUS_SAMPLED).round()
+                          .astype(int))
+        wire, _ = native.load_corpus([str(paths[i]) for i in picks],
+                                     CORPUS_SECONDS, SAMPLE_RATE,
+                                     dtype="int16")
+        grid = codec.sidecar_grid
+        same = total = lsb = plain_lsb = 0
+        plain_pairs = []
+        for j, i in enumerate(picks):
+            codes, bark, meta = bitstream.load(
+                str(work / "acz" / f"{paths[i].stem}.acz"))
+            x = dequant_wire(torch.from_numpy(wire[j:j + 1]).to(dev),
+                             codec.mdct.compute_dtype)
+            usable = x.shape[1] - x.shape[1] % n
+            with torch.no_grad():
+                solo = codec.encode_frames(codec.mdct.transform(
+                    x[:, :usable])).codes.cpu().numpy()
+                wave = bitstream.decode_container(codec, codes, bark, meta)
+                with plain_kernels():
+                    plain = codec.encode_frames(codec.mdct.transform(
+                        x[:, :usable]))
+                    plain_wave = bitstream.decode_container(codec, codes,
+                                                            bark, meta)
+            same += int((solo == codes).sum())
+            total += codes.size
+            plain_pairs.append((
+                (codes, scq.levels_from_bark16(bark, grid)),
+                (plain.codes.cpu().numpy(),
+                 scq.levels_from_bark16(plain.bark16, grid))))
+            frames = codes.shape[1]
+            got, _ = pcm16(work / "dec" / f"{paths[i].stem}.wav")
+            for ref_wave, name in ((wave, "solo"), (plain_wave, "plain")):
+                ref_wav = work / f"{name}{i}.wav"
+                native.write_wav(str(ref_wav),
+                                 ref_wave[0, n:n + (frames - 1) * n]
+                                 .float().cpu().numpy(), SAMPLE_RATE)
+                ref, _ = pcm16(ref_wav)
+                check(got.shape == ref.shape, f"corpus-decode {got.shape} "
+                      f"vs {name} {ref.shape}")
+                apart = int(np.abs(got - ref).max())
+                if name == "solo":
+                    lsb = max(lsb, apart)
+                else:
+                    plain_lsb = max(plain_lsb, apart)
+        share = same / total
+        plain_share, plain_lv, plain_step = hold_plain_codes("corpus",
+                                                             plain_pairs)
+        check(share >= CORPUS_CODES_EQUAL,
+              f"corpus: codes {share} equal to the solo encode")
+        check(lsb <= 1, f"corpus-decode: {lsb} LSB from the solo decode")
+        check(plain_lsb <= ACZ_VECTOR_LSB, f"corpus-decode: {plain_lsb} LSB "
+              "from the plain synthesis's decode")
+        out.update(codes_equal_to_solo=share, decode_max_lsb=lsb,
+                   codes_equal_to_plain=plain_share,
+                   sidecar_equal_to_plain=plain_lv,
+                   max_code_step_to_plain=plain_step,
+                   decode_max_lsb_to_plain=plain_lsb)
+        shutil.rmtree(work / "dec")
+        # the PCM cache: built on the first run, memmapped on the next
+        cached = enc[:2] + [str(work / "cached")] + enc[3:] + [
+            "--cache", str(work / "pcm.npy")]
+        out["corpus_cache_build"] = corpus_call(torch, cached, audio)
+        out["corpus_cached"] = corpus_call(torch, cached, audio, trace=True)
+        stamps_only = 0
+        for p in paths:
+            a = (work / "acz" / f"{p.stem}.acz").read_bytes()
+            b = (work / "cached" / f"{p.stem}.acz").read_bytes()
+            if a != b:
+                ma, mb = (np.load(io.BytesIO(v)) for v in (a, b))
+                check(sorted(ma.files) == sorted(mb.files) and all(
+                    np.array_equal(ma[k], mb[k]) for k in ma.files),
+                    f"corpus --cache: {p.stem}.acz differs")
+                stamps_only += 1
+        out["cached_differ_in_zip_time_stamps_only"] = stamps_only
+        for d in ("cached", "acz"):
+            shutil.rmtree(work / d)
+        (work / "pcm.npy").unlink()
+        # --kbps on 64 clips: one search, every clip within 15%
+        kin = work / "kin"
+        kin.mkdir()
+        for p in paths[:CORPUS_BATCH]:
+            shutil.copy(p, kin)
+        kbps_n = min(CORPUS_BATCH, clips)
+        out["corpus_kbps"] = corpus_call(
+            torch, ["corpus", str(kin), str(work / "kacz"), "--sample-rate",
+                    str(SAMPLE_RATE), "--clip-seconds", str(CORPUS_SECONDS),
+                    "--kbps", str(CORPUS_KBPS)],
+            kbps_n * CORPUS_SECONDS)
+        check(out["corpus_kbps"]["launches"] == {"fold_matmul": 1},
+              f"corpus --kbps: launches {out['corpus_kbps']['launches']}")
+        rates = np.array([p.stat().st_size * 8 / CORPUS_SECONDS / 1000
+                          for p in sorted((work / "kacz").glob("*.acz"))])
+        check(len(rates) == kbps_n and np.all(
+            np.abs(rates / CORPUS_KBPS - 1) <= CORPUS_KBPS_TOLERANCE),
+            f"corpus --kbps: rates {rates.min()}..{rates.max()}")
+        out["kbps_range"] = [float(rates.min()), float(rates.max())]
+        # --lossless: four 24-bit stereo files, bit for bit
+        lin = work / "lin"
+        lin.mkdir()
+        srcs = []
+        for i, x in enumerate(corpus_signal(4, CORPUS_LOSSLESS_SECONDS,
+                                            SAMPLE_RATE, channels=2)):
+            srcs.append(np.round(x * ((1 << 23) - 1)).astype(np.int32))
+            wav.write_wav_int(str(lin / f"h{i}.wav"), srcs[-1], SAMPLE_RATE,
+                              24)
+        ll_audio = 4 * CORPUS_LOSSLESS_SECONDS
+        out["corpus_lossless"] = corpus_call(
+            torch, ["corpus", str(lin), str(work / "lacz"), "--lossless"],
+            ll_audio)
+        out["corpus_decode_lossless"] = corpus_call(
+            torch, ["corpus-decode", str(work / "lacz"), str(work / "ldec")],
+            ll_audio)
+        for i, src in enumerate(srcs):
+            y, rate, bits = wav.read_wav_int(str(work / "ldec" / f"h{i}.wav"))
+            check((rate, bits) == (SAMPLE_RATE, 24) and np.array_equal(y, src),
+                  f"corpus --lossless: h{i} differs after corpus-decode")
+    for name in ("corpus", "corpus_decode", "corpus_cache_build",
+                 "corpus_cached", "corpus_kbps", "corpus_lossless",
+                 "corpus_decode_lossless"):
+        r = out[name]
+        traced = (f"; traced device busy {r['device_busy_ms']:.1f} ms of "
+                  f"{r['device_span_ms']:.1f}, idle share "
+                  f"{r['idle_share']:.4f}" if "idle_share" in r else "")
+        print(f"{name}: {r['wall_s']:.3f} s = {r['audio_s_per_s']:.1f} "
+              f"audio-s/s, launches {r['launches']}{traced} [{card}]")
+    print(f"corpus ({clips} x {CORPUS_SECONDS} s, written in "
+          f"{out['write_s']:.1f} s): codes of {len(picks)} clips equal to "
+          f"their solo encode {out['codes_equal_to_solo']!r} and to the "
+          f"all-plain encode {plain_share!r} (sidecar levels {plain_lv!r}, "
+          f"codes within {plain_step} where they are equal), corpus-decode "
+          f"within {out['decode_max_lsb']} LSB of the solo decode and "
+          f"{plain_lsb} of the plain synthesis's; cached "
+          f"containers equal member for member "
+          f"({out['cached_differ_in_zip_time_stamps_only']} differ in the "
+          f"zip's time stamps only); --kbps {CORPUS_KBPS:g}: "
+          f"{out['kbps_range'][0]:.1f}..{out['kbps_range'][1]:.1f} kbit/s; "
+          f"lossless bit for bit [{card}]")
+    return out
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -3242,6 +3971,9 @@ def main(argv=None) -> int:
                         default=STREAM_SECONDS,
                         help="length of phase 18's stream, rounded up to "
                              "whole chunks (default %(default)s)")
+    parser.add_argument("--corpus-clips", type=int, default=CORPUS_CLIPS,
+                        help="clips of phase 21's corpus (default "
+                             "%(default)s)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3404,11 +4136,18 @@ def main(argv=None) -> int:
     # 19. the command line
     t19 = time.monotonic()
     cli = cli_phase(torch, dev, smi)
+
+    # 20-21. serving and the bulk corpus
+    t20 = time.monotonic()
+    served = serve_phase(torch, dev, smi)
+    t21 = time.monotonic()
+    corpus = corpus_phase(torch, dev, smi, args.corpus_clips)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
           f"15 {t16 - t15:.1f} s, 16 {t17 - t16:.1f} s, 17 "
           f"{t18 - t17:.1f} s, 18 {t19 - t18:.1f} s, 19 "
-          f"{time.monotonic() - t19:.1f} s")
+          f"{t20 - t19:.1f} s, 20 {t21 - t20:.1f} s, 21 "
+          f"{time.monotonic() - t21:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
@@ -3416,7 +4155,8 @@ def main(argv=None) -> int:
                       "training": training,
                       "waveform_grads": waveform_grads, "probe": probe,
                       "rvq": rvq, "ladder": ladder, "acz": acz,
-                      "stream": stream, "cli": cli}))
+                      "stream": stream, "cli": cli, "serve": served,
+                      "corpus": corpus}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

@@ -14,8 +14,8 @@ the CPU: ``main([...], device="cpu")`` beside the JAX CLI's ``main([...])``
   CLI decodes the other's file bit for bit, and a window is the slice.
 - ``roundtrip``, ``resample``, ``eval --json``, ``info``,
   ``--tag-loudness`` (the tag equal) and ``--normalize-lufs``.
-- The refusals exit as the JAX CLI's do; the commands the port does not
-  have yet are not registered; without CUDA the default device fails with
+- The refusals exit as the JAX CLI's do (the bulk commands and serve on
+  arguments they refuse too); without CUDA the default device fails with
   exit code 1.
 """
 
@@ -300,8 +300,15 @@ def test_refusals_exit_as_jax(work, case):
 
 @pytest.mark.parametrize("command", ["corpus", "corpus-decode", "serve"])
 def test_bulk_and_serve_not_registered(command):
+    """The bulk commands and serve are registered now (tests/
+    test_torch_corpus.py holds them to the JAX CLI): on arguments they
+    refuse, they exit as the JAX CLI does, with its message."""
     rc, _, err = run("port", [command, "a", "b"])
-    assert rc == 2 and "invalid choice" in err
+    jrc, _, jerr = run("jax", [command, "a", "b"])
+    assert "invalid choice" not in err
+    # argparse names its program: compare from "error:" on
+    assert rc == jrc != 0 and (err.splitlines()[-1].split("error:")[-1]
+                               == jerr.splitlines()[-1].split("error:")[-1])
 
 
 def test_default_device_needs_cuda(work):
@@ -317,5 +324,5 @@ def test_module_entry_point():
         [sys.executable, "-m", "audiocodec_tpu_torch", "--help"],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
     for command in ("encode", "decode", "roundtrip", "eval", "resample",
-                    "info"):
+                    "info", "corpus", "corpus-decode", "serve"):
         assert command in proc.stdout

@@ -184,7 +184,11 @@ def test_import_loads_no_jax():
             "audiocodec_tpu_torch.rate, audiocodec_tpu_torch.streaming, "
             "audiocodec_tpu_torch.io.stream_container, "
             "audiocodec_tpu_torch.lossless, audiocodec_tpu_torch.metrics, "
-            "audiocodec_tpu_torch.resample, audiocodec_tpu_torch.__main__; "
+            "audiocodec_tpu_torch.resample, audiocodec_tpu_torch.__main__, "
+            "audiocodec_tpu_torch.serve, audiocodec_tpu_torch.parallel.mesh, "
+            "audiocodec_tpu_torch.parallel.corpus, "
+            "audiocodec_tpu_torch.parallel.pipeline, "
+            "audiocodec_tpu_torch.utils.device; "
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', 'audiocodec_tpu.')) or "
             "m == 'audiocodec_tpu']; "
