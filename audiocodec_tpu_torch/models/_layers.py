@@ -37,13 +37,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def make_step(loss_fn, remat: bool):
+def make_step(loss_fn, remat: bool, mesh=None):
     """A train step ``(params, optimizer, x, generator=None) -> loss`` over
     ``loss_fn(params, x, generator)``: one backward and one optimizer step,
     updating ``params`` and the optimizer's state in place where the JAX
     step returns new ones. With ``remat`` the forward is recomputed in the
     backward (``torch.utils.checkpoint``); the generator's state is set
-    back before each of the two forwards, so both draw the same noise."""
+    back before each of the two forwards, so both draw the same noise.
+    Under a ``mesh`` of several processes the gradients and the loss are
+    averaged over its group before the optimizer steps."""
     if remat:
         plain = loss_fn
 
@@ -61,7 +63,11 @@ def make_step(loss_fn, remat: bool):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, x, generator)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.all_mean([p.grad for p in params.values()
+                           if p.grad is not None] + [loss])
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return train_step

@@ -1,5 +1,5 @@
 """Residual vector quantization over the spectral autoencoder's latent
-(counterpart of ``audiocodec_tpu/models/rvq.py``), on one device.
+(counterpart of ``audiocodec_tpu/models/rvq.py``).
 
 The whole latent vector of a frame and channel is matched against a learned
 codebook, and the match repeats on the residual over a few stages: four
@@ -20,6 +20,12 @@ tensors (``codebooks`` [S, K, D] in the compute dtype, ``ema_count`` [S, K]
 and ``ema_sum`` [S, K, D] in float32) that no gradient reaches; the train
 step updates it in place.
 
+Under a mesh the train step runs each dp row's loss on its devices, the
+blocks split sp (``parallel.sequence``), and the EMA statistics are summed
+over every shard and every process; the reseed's picks are drawn on rank 0
+and broadcast, and the picked vectors gathered from the ranks that hold
+them, so every process applies the same update, the single-device one.
+
 Codes pack host-side at exactly S * log2(K) bits a frame and channel.
 """
 
@@ -35,6 +41,7 @@ from torch.utils import checkpoint as _checkpoint
 from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.models import spectral_ae as _sae
 from audiocodec_tpu_torch.ops import dct as _dct
+from audiocodec_tpu_torch.parallel import sequence as _seq
 from audiocodec_tpu_torch.parallel.train import default_optimizer
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
 
@@ -126,6 +133,23 @@ def _nearest(residual: torch.Tensor, codebook: torch.Tensor):
     return idx, codebook[idx].to(residual.dtype)
 
 
+def _quantize(cfg: RVQ, codebooks: torch.Tensor, z: torch.Tensor):
+    """:func:`quantize` with the commitment's squared errors (flat - q)^2
+    [M, D] in place of their weighted mean."""
+    flat = _flatten_latents(z, cfg.dim)
+    residual = flat.detach()
+    codes = []
+    for codebook in codebooks:
+        idx, q = _nearest(residual, codebook)
+        residual = residual - q
+        codes.append(idx)
+    quant = flat.detach() - residual  # the sum of the stages
+    z_q = _unflatten_latents(flat + (quant - flat).detach(), z.shape)
+    b, t, _, c = z.shape
+    codes = torch.stack(codes, dim=-1).reshape(b, t, c, cfg.stages)
+    return z_q, codes.to(torch.int32), (flat - quant) ** 2
+
+
 def quantize(cfg: RVQ, state: dict, z: torch.Tensor):
     """RVQ the latent with a straight-through estimator.
 
@@ -134,49 +158,81 @@ def quantize(cfg: RVQ, state: dict, z: torch.Tensor):
         the identity gradient; ``codes`` is int32 [B, blocks, C, S];
         ``commitment`` is the scalar beta-weighted commitment loss.
     """
-    flat = _flatten_latents(z, cfg.dim)
-    residual = flat.detach()
-    codes = []
-    for codebook in state["codebooks"]:
-        idx, q = _nearest(residual, codebook)
-        residual = residual - q
-        codes.append(idx)
-    quant = flat.detach() - residual  # the sum of the stages
-    z_q = _unflatten_latents(flat + (quant - flat).detach(), z.shape)
-    b, t, _, c = z.shape
-    codes = torch.stack(codes, dim=-1).reshape(b, t, c, cfg.stages)
-    commitment = cfg.commitment_weight * torch.mean((flat - quant) ** 2)
-    return z_q, codes.to(torch.int32), commitment
+    z_q, codes, sq = _quantize(cfg, state["codebooks"], z)
+    return z_q, codes, cfg.commitment_weight * torch.mean(sq)
 
 
-def ema_update(cfg: RVQ, state: dict, z: torch.Tensor,
-               generator: torch.Generator | None = None) -> dict:
-    """One EMA k-means step of every stage's codebook from the batch ``z``;
-    returns the new state. Dead codewords (EMA count below
-    ``reseed_threshold``) reseed from batch vectors picked by
-    ``torch.randint`` from ``generator`` (on its device; the default
-    generator of the latents' device when None)."""
-    flat = _flatten_latents(z, cfg.dim).detach().float()
-    m, k, decay = flat.shape[0], cfg.codebook_size, cfg.ema_decay
+def _ema_stats(cfg: RVQ, codebooks: torch.Tensor, flat: torch.Tensor):
+    """Each stage's assignment counts [S, K] and residual sums [S, K, D]
+    (float32) of the float32 latents ``flat`` [M, D]."""
+    k = cfg.codebook_size
     residual, counts, sums = flat, [], []
-    for codebook in state["codebooks"]:
+    for codebook in codebooks:
         idx, q = _nearest(residual.to(codebook.dtype), codebook)
         counts.append(torch.bincount(idx, minlength=k).float())
         sums.append(torch.zeros(k, cfg.dim, device=flat.device)
                     .index_add_(0, idx, residual))
         residual = residual - q.float()
-    new_count = decay * state["ema_count"] + (1 - decay) * torch.stack(counts)
-    new_sum = decay * state["ema_sum"] + (1 - decay) * torch.stack(sums)
+    return torch.stack(counts), torch.stack(sums)
+
+
+def ema_update(cfg: RVQ, state: dict, z, generator=None, mesh=None) -> dict:
+    """One EMA k-means step of every stage's codebook from the batch ``z``;
+    returns the new state. Dead codewords (EMA count below
+    ``reseed_threshold``) reseed from batch vectors picked by
+    ``torch.randint`` from ``generator`` (on its device; the default
+    generator of the state's device when None).
+
+    :param z: the latents [B, blocks, latent_n, C], or the list of a mesh's
+        dp rows, each the list of its sp shards (blocks on axis 1).
+    :param mesh: the ``parallel.mesh.Mesh`` of a step over several
+        processes: the statistics are summed over its group, rank 0 draws
+        the picks, and each pick's vector comes from the rank that holds it.
+    """
+    rows = [[z]] if isinstance(z, torch.Tensor) else z
+    codebooks = state["codebooks"]
+    home = codebooks.device
+    counts = sums = None
+    for shard in (s for row in rows for s in row):
+        flat = _flatten_latents(shard, cfg.dim).detach().float()
+        c, v = _ema_stats(cfg, codebooks.to(flat.device), flat)
+        c, v = c.to(home), v.to(home)
+        counts, sums = (c, v) if counts is None else (counts + c, sums + v)
+    group = None if mesh is None else mesh.group
+    if group is not None:
+        mesh.all_sum([counts, sums])
+    k, decay = cfg.codebook_size, cfg.ema_decay
+    new_count = decay * state["ema_count"] + (1 - decay) * counts
+    new_sum = decay * state["ema_sum"] + (1 - decay) * sums
     # Laplace-smoothed means: a near-empty codeword does not blow up
     n_total = torch.sum(new_count, dim=-1, keepdim=True)
     smoothed = (new_count + 1e-5) / (n_total + k * 1e-5) * n_total
     means = new_sum / smoothed[..., None]
-    device = flat.device if generator is None else generator.device
-    pick = torch.randint(0, m, (cfg.stages, k), generator=generator,
-                         device=device).to(flat.device)
+    if len(rows) == 1 and len(rows[0]) == 1:
+        local = rows[0][0]
+    else:  # this process's batch, blocks and rows in order
+        local = torch.cat([torch.cat([s.to(home) for s in row], dim=1)
+                           for row in rows])
+    flat = _flatten_latents(local, cfg.dim).detach().float()
+    m = flat.shape[0]
+    device = home if generator is None else generator.device
+    if group is None:
+        pick = torch.randint(0, m, (cfg.stages, k), generator=generator,
+                             device=device).to(home)
+        fresh = flat[pick]
+    else:
+        # rank r holds rows [r * m, (r + 1) * m) of the batch's latents
+        pick = (torch.randint(0, m * mesh.world, (cfg.stages, k),
+                              generator=generator, device=device).to(home)
+                if mesh.rank == 0 else
+                torch.empty(cfg.stages, k, dtype=torch.int64, device=home))
+        mesh.broadcast(pick)
+        owned = (pick // m == mesh.rank)[..., None]
+        fresh = torch.where(owned, flat[pick % m], 0.0)
+        mesh.all_sum([fresh])
     dead = (new_count < cfg.reseed_threshold)[..., None]
-    reseeded = torch.where(dead, flat[pick], means)
-    return {"codebooks": reseeded.to(state["codebooks"].dtype),
+    reseeded = torch.where(dead, fresh, means)
+    return {"codebooks": reseeded.to(codebooks.dtype),
             "ema_count": new_count, "ema_sum": new_sum}
 
 
@@ -223,6 +279,32 @@ def unpack_codes(cfg: RVQ, data: bytes, shape) -> np.ndarray:
     return flat.reshape(shape).astype(np.int32)
 
 
+def _loss(codecs, rvq_cfg, params, rvq_state, x, nmr_weight, nmr_floor,
+          gate, zs):
+    """:func:`perceptual_loss` of one dp row, its blocks split over the
+    devices of ``codecs`` (one codec a shard); each shard's latents are
+    appended to ``zs``."""
+    def frames(specs, thresholds):
+        recons, nmr, commitment = [], [], []
+        for spec, threshold in zip(specs, thresholds):
+            p = {k: v.to(spec.device) for k, v in params.items()}
+            z = _sae.encode_frames(p, spec)
+            z_q, _codes, sq = _quantize(
+                rvq_cfg, rvq_state["codebooks"].to(spec.device), z)
+            g = torch.tensor(gate, dtype=z.dtype)  # on the host
+            z_q = z + g * (z_q - z)  # the STE already carries z's gradient
+            recon = _sae.decode_frames(p, z_q)
+            recons.append(recon)
+            zs.append(z)
+            thr_f = torch.clamp(threshold, min=nmr_floor)
+            nmr.append(((recon - spec) / thr_f) ** 2)
+            commitment.append(sq)
+        return recons, [nmr, commitment]
+
+    return _seq.codec_loss(codecs, x, frames,
+                           [nmr_weight, gate * rvq_cfg.commitment_weight])
+
+
 def perceptual_loss(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
                     params: dict, rvq_state: dict, x: torch.Tensor,
                     nmr_weight: float = 0.1, nmr_floor: float = 1e-3,
@@ -237,27 +319,16 @@ def perceptual_loss(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
         toward the near-zero random codebooks faster than the EMA follows
         the latents.
     """
-    spec = codec.mdct.transform(x)
-    tonality = codec.psycho.tonality(spec)
-    threshold = codec.psycho.global_masking_threshold(spec, tonality)
-    z = _sae.encode_frames(params, spec)
-    z_q, _codes, commitment = quantize(rvq_cfg, rvq_state, z)
-    gate = torch.tensor(quantizer_gate, dtype=z.dtype)  # on the host
-    z_q = z + gate * (z_q - z)  # the STE already carries z's gradient
-    commitment = gate * commitment
-    recon = _sae.decode_frames(params, z_q)
-    decoded = codec.mdct.inverse_transform(recon)
-    n = codec.mdct.filters_n
-    wave_mse = torch.mean((decoded[:, n:-n] - x) ** 2)
-    thr_f = torch.clamp(threshold, min=nmr_floor)
-    nmr = torch.mean(((recon - spec) / thr_f) ** 2)
-    return wave_mse + nmr_weight * nmr + commitment, z
+    zs = []
+    loss = _loss([codec], rvq_cfg, params, rvq_state, x, nmr_weight,
+                 nmr_floor, quantizer_gate, zs)
+    return loss, zs[0]
 
 
 def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
                     optimizer=None, remat: bool = False,
                     nmr_weight: float = 0.1, nmr_floor: float = 1e-3,
-                    warmup_steps: int = 0):
+                    warmup_steps: int = 0, mesh=None):
     """Joint step ``(params, rvq_state, opt, x, generator, step) -> loss``,
     with ``opt = optimizer(list(params.values()))``; returns (train_step,
     optimizer). The autoencoder's parameters take one optimizer step on the
@@ -272,10 +343,24 @@ def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
     :param warmup_steps: for ``step < warmup_steps`` the decoder trains on
         the continuous latent while the EMA fits the codebooks to it; the
         quantizer then engages on codebooks already on the data.
+    :param mesh: a ``parallel.mesh.Mesh``: ``x`` (this process's batch)
+        splits dp x sp over it; the EMA step sums its statistics over the
+        shards and the mesh's processes (:func:`ema_update`).
     """
-    def loss_fn(params, rvq_state, x, gate):
-        return perceptual_loss(codec, ae_cfg, rvq_cfg, params, rvq_state, x,
-                               nmr_weight, nmr_floor, quantizer_gate=gate)
+    if mesh is None:
+        def loss_fn(params, rvq_state, x, gate):
+            return perceptual_loss(codec, ae_cfg, rvq_cfg, params, rvq_state,
+                                   x, nmr_weight, nmr_floor,
+                                   quantizer_gate=gate)
+    else:
+        rows = _seq.mesh_rows(codec, mesh)
+
+        def loss_fn(params, rvq_state, x, gate):
+            zs = [[] for _ in rows]
+            loss = _seq.mesh_loss(mesh, rows, x, lambda codecs, xr, r: _loss(
+                codecs, rvq_cfg, params, rvq_state, xr, nmr_weight,
+                nmr_floor, gate, zs[r]))
+            return loss, zs
 
     if remat:
         plain = loss_fn
@@ -290,9 +375,13 @@ def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
         optimizer.zero_grad(set_to_none=True)
         loss, z = loss_fn(params, rvq_state, x, gate)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.all_mean([p.grad for p in params.values()
+                           if p.grad is not None] + [loss])
         optimizer.step()
-        rvq_state.update(ema_update(rvq_cfg, rvq_state, z, generator))
-        return loss.detach()
+        rvq_state.update(ema_update(rvq_cfg, rvq_state, z, generator, mesh))
+        return loss
 
     return train_step, optimizer or default_optimizer
 

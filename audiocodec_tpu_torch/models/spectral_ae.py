@@ -10,7 +10,9 @@ uniform noise of one latent step is added to the latent (from a
 latent is rounded to that grid, a code of ``latent_n * log2(2 /
 latent_step)`` bits a frame and channel. Parameters are a dict of tensors
 with the JAX package's names and ``[fan_in, fan_out]`` layout, in the
-compute dtype.
+compute dtype. Under a mesh the train step runs each dp row's loss on its
+devices, the blocks split sp with the MDCT's halo (``parallel.sequence``);
+the per-frame layers need no halo of their own.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.models import _layers
+from audiocodec_tpu_torch.parallel import sequence as _seq
 from audiocodec_tpu_torch.parallel.train import default_optimizer
 
 
@@ -108,12 +111,48 @@ def apply(cfg: SpectralAE, params: dict, frames: torch.Tensor, *,
         )
     z = encode_frames(params, frames)
     if generator is not None:
-        u = torch.rand(z.shape, generator=generator, dtype=torch.float32,
-                       device=generator.device)
-        z = z + ((u - 0.5) * cfg.latent_step).to(z.device, z.dtype)
+        z = _noisy(cfg, z, _uniforms(generator, z.shape))
     elif quantized:
         z = quantize_latents(cfg, z)
     return decode_frames(params, z)
+
+
+def _uniforms(generator: torch.Generator, shape) -> torch.Tensor:
+    """Float32 U(0, 1) of ``shape`` from ``generator``, on its device."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device)
+
+
+def _noisy(cfg: SpectralAE, z: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``z`` + U(-step/2, step/2) noise from the uniforms ``u``."""
+    return z + ((u - 0.5) * cfg.latent_step).to(z.device, z.dtype)
+
+
+def _latent_shape(codec: Codec, cfg: SpectralAE, x: torch.Tensor) -> tuple:
+    """The latent's [B, S/N + 1, latent_n, C] of a waveform [B, S, C]."""
+    b, s, c = x.shape
+    return (b, s // codec.mdct.filters_n + 1, cfg.latent_n, c)
+
+
+def _loss(codecs, cfg, params, x, u, nmr_weight, nmr_floor):
+    """:func:`perceptual_loss` of one dp row, its blocks split over the
+    devices of ``codecs`` (one codec a shard); ``u`` the row's latent
+    uniforms (:func:`_uniforms`) or None."""
+    def frames(specs, thresholds):
+        recons, nmr, start = [], [], 0
+        for spec, threshold in zip(specs, thresholds):
+            p = {k: v.to(spec.device) for k, v in params.items()}
+            z = encode_frames(p, spec)
+            if u is not None:
+                z = _noisy(cfg, z, u[:, start:start + z.shape[1]])
+            start += z.shape[1]
+            recon = decode_frames(p, z)
+            recons.append(recon)
+            thr_f = torch.clamp(threshold, min=nmr_floor)
+            nmr.append(((recon - spec) / thr_f) ** 2)
+        return recons, [nmr]
+
+    return _seq.codec_loss(codecs, x, frames, [nmr_weight])
 
 
 def perceptual_loss(codec: Codec, cfg: SpectralAE, params: dict,
@@ -131,21 +170,14 @@ def perceptual_loss(codec: Codec, cfg: SpectralAE, params: dict,
         outputs zeros is the optimum (the JAX package measured the
         collapse).
     """
-    spec = codec.mdct.transform(x)
-    tonality = codec.psycho.tonality(spec)
-    threshold = codec.psycho.global_masking_threshold(spec, tonality)
-    recon = apply(cfg, params, spec, generator=generator)
-    decoded = codec.mdct.inverse_transform(recon)
-    n = codec.mdct.filters_n
-    wave_mse = torch.mean((decoded[:, n:-n] - x) ** 2)
-    thr_f = torch.clamp(threshold, min=nmr_floor)
-    nmr = torch.mean(((recon - spec) / thr_f) ** 2)
-    return wave_mse + nmr_weight * nmr
+    u = (None if generator is None
+         else _uniforms(generator, _latent_shape(codec, cfg, x)))
+    return _loss([codec], cfg, params, x, u, nmr_weight, nmr_floor)
 
 
 def make_train_step(codec: Codec, cfg: SpectralAE, optimizer=None,
                     remat: bool = False, nmr_weight: float = 0.1,
-                    nmr_floor: float = 1e-3):
+                    nmr_floor: float = 1e-3, mesh=None):
     """Train step ``(params, opt, x, generator=None) -> loss``, with ``opt
     = optimizer(list(params.values()))``; returns (train_step, optimizer).
     The step updates the parameters and the optimizer's state in place.
@@ -154,10 +186,30 @@ def make_train_step(codec: Codec, cfg: SpectralAE, optimizer=None,
         ``torch.optim.Optimizer``; defaults to Adam at 1e-3.
     :param remat: recompute the forward in the backward
         (``torch.utils.checkpoint``).
+    :param mesh: a ``parallel.mesh.Mesh``: ``x`` (this process's batch)
+        splits dp x sp over it. The latent noise is drawn for the batch of
+        every process at once and each process takes its rows, so the
+        noise, like the step, does not depend on the mesh.
     """
-    def loss_fn(params, x, generator):
-        return perceptual_loss(codec, cfg, params, x, generator, nmr_weight,
-                               nmr_floor)
+    if mesh is None:
+        def loss_fn(params, x, generator):
+            return perceptual_loss(codec, cfg, params, x, generator,
+                                   nmr_weight, nmr_floor)
+    else:
+        rows = _seq.mesh_rows(codec, mesh)
 
-    return (_layers.make_step(loss_fn, remat),
+        def loss_fn(params, x, generator):
+            b = x.shape[0]
+            rb = b // mesh.shape["dp"]
+            u = None
+            if generator is not None:
+                shape = _latent_shape(codec, cfg, x)
+                u = _uniforms(generator, (b * mesh.world,) + shape[1:])
+                u = u[mesh.rank * b:(mesh.rank + 1) * b]
+            return _seq.mesh_loss(mesh, rows, x, lambda codecs, xr, r: _loss(
+                codecs, cfg, params, xr,
+                None if u is None else u[r * rb:(r + 1) * rb],
+                nmr_weight, nmr_floor))
+
+    return (_layers.make_step(loss_fn, remat, mesh),
             optimizer or default_optimizer)

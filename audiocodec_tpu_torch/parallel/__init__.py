@@ -1,14 +1,12 @@
-"""Scale-out on the devices of one process (counterpart of
-``audiocodec_tpu.parallel``): (dp, sp) meshes of ``torch.device``s, the
-corpus encode split data-parallel over them, the prefetching corpus
-loaders (``parallel.pipeline``), and the training step on one device.
-
-Not ported yet: ``multihost``, sequence parallelism (``sp`` > 1, refused by
-``make_mesh``), and the ``mesh`` argument of the training steps (sharded
-training on ``torch.distributed``).
+"""Scale-out (counterpart of ``audiocodec_tpu.parallel``): (dp, sp) meshes
+of ``torch.device``s, sequence parallelism over a row's devices
+(``parallel.sequence``), the corpus encode split over a mesh, the
+prefetching corpus loaders (``parallel.pipeline``), the training step
+(``mesh=`` shards it dp x sp and averages over a process group) and
+multi-process initialization (``parallel.multihost``).
 """
 
-from audiocodec_tpu_torch.parallel import train
+from audiocodec_tpu_torch.parallel import multihost, sequence, train
 from audiocodec_tpu_torch.parallel.corpus import (
     encode_corpus,
     make_corpus_encoder,
@@ -21,6 +19,6 @@ from audiocodec_tpu_torch.parallel.train import (
     perceptual_loss,
 )
 
-__all__ = ["train", "TrainState", "init_state", "make_train_step",
-           "perceptual_loss", "make_mesh", "pad_batch_to", "encode_corpus",
-           "make_corpus_encoder"]
+__all__ = ["train", "multihost", "sequence", "TrainState", "init_state",
+           "make_train_step", "perceptual_loss", "make_mesh", "pad_batch_to",
+           "encode_corpus", "make_corpus_encoder"]

@@ -332,8 +332,9 @@ def encode_corpus_streaming(codec, paths, mesh=None, cache_path=None,
                             **loader_kwargs):
     """Prefetched corpus encode: paths -> per-batch codes.
 
-    The background loader feeds the dp-split encoder
-    (``corpus.make_corpus_encoder``); the decode and copy of batch k+1
+    The background loader places each dp shard on its row's first device
+    and feeds the encoder (``corpus.make_corpus_encoder``), which splits it
+    over the row's sp devices; the decode and copy of batch k+1
     overlap the encode of batch k. With ``cache_path`` (a
     :func:`build_corpus_cache` artifact) batches come from the PCM memmap.
 

@@ -1,11 +1,15 @@
-"""Differentiable perceptual training step on one device (counterpart of
+"""Differentiable perceptual training step (counterpart of
 ``audiocodec_tpu/parallel/train.py``).
 
 Learns per-band spectral gains through the whole encode (quantize with a
 straight-through gradient) / decode chain against a waveform + noise-to-mask
 perceptual loss. The gradient reaches the gains through the synthesis
 kernel's VJP (``ops/cuda_mdct.py``) where the codec runs its kernels.
-Sharding over ``torch.distributed`` is not ported.
+Under a mesh the batch splits dp over its rows and each row's blocks sp
+over the row's devices (``parallel.sequence``); each row adds its share of
+the batch's mean, so the step equals the single-device step, and across
+processes the gradients and the loss are averaged over the mesh's group
+before the optimizer steps (JAX's GSPMD-inserted psum).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from torch.utils import checkpoint as _checkpoint
 
 from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch.codec import Codec
+from audiocodec_tpu_torch.parallel import sequence as _seq
 
 # optax.adam(1e-3): the same update rule (b1 0.9, b2 0.999, eps 1e-8)
 default_optimizer = functools.partial(torch.optim.Adam, lr=1e-3)
@@ -44,26 +49,34 @@ def init_state(codec: Codec, optimizer=default_optimizer) -> TrainState:
     return TrainState(gains=gains, optimizer=optimizer([gains]))
 
 
+def _loss(codecs, gains, x, nmr_weight=0.1):
+    """:func:`perceptual_loss` of one dp row, its blocks split over the
+    devices of ``codecs`` (one codec a shard)."""
+    def frames(specs, thresholds):
+        coded, nmr = [], []
+        for spec, threshold in zip(specs, thresholds):
+            shaped = spec * gains.to(spec.device)[None, None, :, None]
+            c = _quantize.quantize_ste(shaped, threshold)
+            coded.append(c)
+            # noise-to-mask ratio: quantization error relative to what is
+            # inaudible
+            nmr.append(((c - shaped) / threshold) ** 2)
+        return coded, [nmr]
+
+    return _seq.codec_loss(codecs, x, frames, [nmr_weight])
+
+
 def perceptual_loss(codec: Codec, gains, x, nmr_weight=0.1):
     """Waveform MSE + noise-to-mask ratio through the quantize-STE chain.
 
     The gains scale the spectrum before quantization; the STE lets the
     gradient flow through the rounding (see quantize.quantize_ste).
     """
-    spec = codec.mdct.transform(x)
-    tonality = codec.psycho.tonality(spec)
-    threshold = codec.psycho.global_masking_threshold(spec, tonality)
-    shaped = spec * gains[None, None, :, None]
-    coded = _quantize.quantize_ste(shaped, threshold)
-    decoded = codec.mdct.inverse_transform(coded)
-    n = codec.mdct.filters_n
-    wave_mse = torch.mean((decoded[:, n:-n] - x) ** 2)
-    # noise-to-mask ratio: quantization error relative to what is inaudible
-    nmr = torch.mean(((coded - shaped) / threshold) ** 2)
-    return wave_mse + nmr_weight * nmr
+    return _loss([codec], gains, x, nmr_weight)
 
 
-def make_train_step(codec: Codec, optimizer=None, remat: bool = False):
+def make_train_step(codec: Codec, optimizer=None, remat: bool = False,
+                    mesh=None):
     """Build a train step ``(state, x) -> loss``; returns (train_step,
     optimizer). The step updates ``state.gains`` and the optimizer's state
     in place, where the JAX step returns new ones.
@@ -73,12 +86,21 @@ def make_train_step(codec: Codec, optimizer=None, remat: bool = False):
     :param remat: recompute the forward pass in the backward
         (``torch.utils.checkpoint``), so the spectrum and threshold are not
         kept alive.
+    :param mesh: a ``parallel.mesh.Mesh``: ``x`` (this process's batch)
+        splits dp x sp over it; None runs on the gains' device.
     """
     if optimizer is None:
         optimizer = default_optimizer
 
-    def loss_fn(gains, x):
-        return perceptual_loss(codec, gains, x)
+    if mesh is None:
+        def loss_fn(gains, x):
+            return perceptual_loss(codec, gains, x)
+    else:
+        rows = _seq.mesh_rows(codec, mesh)
+
+        def loss_fn(gains, x):
+            return _seq.mesh_loss(mesh, rows, x, lambda codecs, xr, r: _loss(
+                codecs, gains, xr))
 
     if remat:
         plain = loss_fn
@@ -91,7 +113,10 @@ def make_train_step(codec: Codec, optimizer=None, remat: bool = False):
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.gains, x)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.all_mean([state.gains.grad, loss])
         state.optimizer.step()
-        return loss.detach()
+        return loss
 
     return train_step, optimizer

@@ -221,7 +221,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    64`` on 64 clips (one ``fold_matmul``, every clip within 15%);
    ``corpus --lossless`` of four 24-bit stereo files and its
    ``corpus-decode`` bit for bit. Printed: each command's wall s,
-   audio-s/s and launches, the traced device busy time and idle share.
+   audio-s/s and launches, the traced device busy time and idle share;
+22. scale-out and checkpoints, every mesh over repeated entries of the one
+   card (``parallel.sequence``, ``parallel.multihost``,
+   ``utils.serialization``): (a) ``transform``, ``inverse_transform`` and
+   ``encode_quantized`` with the 430 blocks split over sp=2 shards in (r)
+   and (b): one launch a shard, codes equal to the unsharded call's on
+   the card (frames and synthesis max-abs printed), and the all-plain
+   call's within the tier's tolerance; (b) the corpus encoder on a dp=2,
+   sp=2 mesh over 64 clips of 10 s: one ``fold_matmul`` a shard, the
+   unsharded codes, audio-s/s; (c) the gains (r2), SAE (r), post-filter
+   (c) and RVQ (r) trainers on a dp=2, sp=2 mesh: the analysis, synthesis
+   and synthesis VJP once a shard, the first step's loss, gradients and
+   parameters within ``TRAIN_TOL`` of the unsharded step's, five steps
+   finite, ms a step; (d) child processes of this script: a gloo group of
+   two ranks on the card (the gains and SAE steps on half the batch each)
+   and a one-rank NCCL group (``all_reduce``, an SAE step), each within
+   ``TRAIN_TOL`` of the one-process step on the whole batch, the gloo
+   ranks equal bit for bit, each child under a timeout; (e) two SAE steps,
+   ``save_pytree`` of the parameters and the optimizer, reloaded into a
+   fresh template: step 3 equals the uninterrupted run's bit for bit, and
+   ``load_codec`` of a ``save_codec`` file gives a bit-equal round trip.
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -1374,33 +1394,42 @@ def vjp_route(torch, mdct, direction, cot, got, rng, by_function):
         ragged=ragged)
 
 
-def trainer(torch, codec, model, x):
-    """(params, loss_fn(params, generator), step()) of phase 12's trainer
-    ``model`` on ``codec`` at full width, Adam 1e-3, from seeded weights."""
-    from audiocodec_tpu_torch.models import post_filter, spectral_ae
+def trainer(torch, codec, model, x, mesh=None):
+    """(params, loss_fn(params, generator), step(generator)) of phase 12's
+    trainer ``model`` on ``codec`` at full width, Adam 1e-3, from seeded
+    weights; "rvq" is phase 15's discrete codec (no warm-up), with its RVQ
+    state in place of ``loss_fn``. ``mesh`` shards the step (phase 22)."""
+    from audiocodec_tpu_torch.models import post_filter, rvq, spectral_ae
     from audiocodec_tpu_torch.parallel import train
 
     n, dtype = codec.mdct.filters_n, codec.mdct.compute_dtype
     init = torch.Generator(device="cpu").manual_seed(SEED)
     if model == "gains":
         state = train.init_state(codec)
-        step, _ = train.make_train_step(codec)
+        step, _ = train.make_train_step(codec, mesh=mesh)
         return ({"gains": state.gains},
                 lambda p, gen: train.perceptual_loss(codec, p["gains"], x),
                 lambda gen: step(state, x))
+    if model == "rvq":
+        ae, cfg = spectral_ae.SpectralAE(**RVQ_AE), rvq.RVQ(**RVQ_CFG)
+        params = spectral_ae.init_params(init, ae, dtype, device=x.device)
+        state = rvq.init_state(init, cfg, dtype, device=x.device)
+        step, make_opt = rvq.make_train_step(codec, ae, cfg, mesh=mesh)
+        opt = make_opt(list(params.values()))
+        return params, state, lambda gen: step(params, state, opt, x, gen)
     if model == "spectral_ae":
         cfg = spectral_ae.SpectralAE(filters_n=n, hidden_n=512, latent_n=64,
                                      latent_step=1 / 32)
         params = spectral_ae.init_params(init, cfg, dtype, device=x.device)
         loss = lambda p, gen: spectral_ae.perceptual_loss(  # noqa: E731
             codec, cfg, p, x, gen)
-        step, make_opt = spectral_ae.make_train_step(codec, cfg)
+        step, make_opt = spectral_ae.make_train_step(codec, cfg, mesh=mesh)
     else:
         cfg = post_filter.PostFilter(n, 512)
         params = post_filter.init_params(init, cfg, dtype, device=x.device)
         loss = lambda p, gen: post_filter.enhancement_loss(  # noqa: E731
             codec, cfg, p, x)
-        step, make_opt = post_filter.make_train_step(codec, cfg)
+        step, make_opt = post_filter.make_train_step(codec, cfg, mesh=mesh)
     opt = make_opt(list(params.values()))
     return params, loss, lambda gen: step(params, opt, x, gen)
 
@@ -3944,6 +3973,531 @@ def corpus_phase(torch, dev, card, clips):
     return out
 
 
+# 22. Scale-out on one card: every mesh repeats the card (as the CPU tests'
+# [cpu] * k), dp rows of sp shards; the two-process groups share it
+SCALE_SP = 2
+SCALE_DP = 2
+SCALE_CORPUS_CLIPS = 64
+SCALE_STEPS = 5
+# The trainers of phase 22c by the VJP case of their codec (phase 12's and
+# phase 15's: the gains at N=2048 through the radix kernels)
+SCALE_TRAIN = (("r2", "gains"), ("r", "spectral_ae"), ("c", "post_filter"),
+               ("r", "rvq"))
+# The steps of the process groups of phase 22d, on (r)
+SCALE_GROUP_MODELS = {"gloo": ("gains", "spectral_ae"),
+                      "nccl": ("spectral_ae",)}
+SCALE_CHILD_TIMEOUT_S = 300
+
+
+def counted(torch, fn):
+    """(fn(), every kernel's launches in it): the counts set to 0 just
+    before and read just after."""
+    reset_all_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, all_launch_counts()
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def scale_mdct(torch, dev, card):
+    """22a. ``MDCT.transform``/``inverse_transform`` and ``encode_quantized``
+    with the blocks split over SCALE_SP shards (215 blocks each), in (r)
+    and (b): one launch a shard, the same frames, synthesis and codes as
+    the unsharded call on the card, and the all-plain unsharded call's
+    within the tier's tolerance."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.parallel import sequence
+
+    out = {}
+    for k in ("r", "b"):
+        codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                             **NOISE_CONFIGS[k])
+        mdct = codec.mdct
+        tier, dtype = mdct.kernel_precision, mdct.compute_dtype
+        fwd, inv = (mdct.kernel_name(d) for d in ("forward", "inverse"))
+        codecs = sequence.replicas(codec, [dev] * SCALE_SP)
+        x = make_signal(torch, dev, dtype)
+
+        def encode():
+            shards = sequence.map_frames(
+                codecs, x, lambda c, p: c.encode_quantized(p)[:2])
+            return [torch.cat([s[i] for s in shards], 1) for i in (0, 1)]
+
+        with torch.no_grad():
+            shards, c_fwd = counted(
+                torch, lambda: sequence.transform(codecs, x))
+            outs, c_inv = counted(
+                torch, lambda: sequence.inverse_transform(codecs, shards))
+            (codes, delta), c_enc = counted(torch, encode)
+            for label, c, name in (("transform", c_fwd, fwd),
+                                   ("inverse_transform", c_inv, inv),
+                                   ("encode_quantized", c_enc, fwd)):
+                check(c == stream_counts(**{name: SCALE_SP}),
+                      f"sharded {label} ({k}): launch counts {c}")
+            frames = [b - a for a, b in sequence.block_bounds(
+                SAMPLES // mdct.filters_n, SCALE_SP)]
+            frames[-1] += 1  # the trailing frame
+            check([s.shape[1] for s in shards] == frames,
+                  f"sharded ({k}): frames {[s.shape[1] for s in shards]}")
+            spec, synth = torch.cat(shards, 1), torch.cat(outs, 1)
+            whole = mdct.transform(x)
+            whole_synth = mdct.inverse_transform(whole)
+            whole_codes, whole_delta, _ = codec.encode_quantized(x)
+            with plain_kernels():
+                plain_spec = mdct.transform(x)
+                plain_synth = mdct.inverse_transform(spec)
+                plain_codes = codec.encode_quantized(x)[0]
+            errs = dict(
+                transform_vs_unsharded=max_abs(spec, whole),
+                inverse_vs_unsharded=max_abs(synth, whole_synth),
+                delta_vs_unsharded=max_abs(delta, whole_delta),
+                transform_vs_plain=max_abs(spec, plain_spec),
+                inverse_vs_plain=max_abs(synth, plain_synth))
+            tols = dict(transform=tolerance(torch, plain_spec, fwd, tier,
+                                            dtype),
+                        inverse=tolerance(torch, plain_synth, inv, tier,
+                                          dtype))
+            check(torch.equal(codes, whole_codes),
+                  f"sharded encode ({k}): codes differ from the unsharded "
+                  f"encode's on the card ({errs})")
+            check(errs["transform_vs_plain"] <= tols["transform"]
+                  and errs["inverse_vs_plain"] <= tols["inverse"],
+                  f"sharded ({k}) vs all-plain: {errs} > {tols}")
+            diff = np.abs(codes.cpu().numpy().astype(np.int64)
+                          - plain_codes.cpu().numpy())
+            plain_share = float((diff == 0).mean())
+            check(plain_share >= LADDER_EQUAL and diff.max() <= 1,
+                  f"sharded encode ({k}): codes {plain_share} equal to the "
+                  f"all-plain encode's, {diff.max()} steps apart")
+            ms = {}
+            for label, sharded, unsharded in (
+                    ("transform", lambda: sequence.transform(codecs, x),
+                     lambda: mdct.transform(x)),
+                    ("inverse_transform",
+                     lambda: sequence.inverse_transform(codecs, shards),
+                     lambda: mdct.inverse_transform(whole)),
+                    ("encode_quantized", encode,
+                     lambda: codec.encode_quantized(x))):
+                ms[label] = dict(sharded=cuda_ms(torch, sharded, iters=10),
+                                 unsharded=cuda_ms(torch, unsharded,
+                                                   iters=10))
+        out[k] = dict(launches=dict(transform=c_fwd[fwd],
+                                    inverse_transform=c_inv[inv],
+                                    encode_quantized=c_enc[fwd]),
+                      bit_equal=dict(transform=errs[
+                          "transform_vs_unsharded"] == 0.0,
+                          inverse=errs["inverse_vs_unsharded"] == 0.0),
+                      max_abs_err=errs, tol=tols,
+                      codes_equal_to_plain=plain_share, ms=ms)
+        print(f"sharded MDCT ({k}) {NOISE_CONFIGS[k]} sp={SCALE_SP} "
+              f"[{BATCH},{SAMPLES // mdct.filters_n},{mdct.filters_n}]: "
+              f"launches {out[k]['launches']}; max-abs vs unsharded "
+              f"transform {errs['transform_vs_unsharded']:.3e}, inverse "
+              f"{errs['inverse_vs_unsharded']:.3e}, codes equal, step "
+              f"sizes {errs['delta_vs_unsharded']:.3e}; vs all-plain "
+              f"{errs['transform_vs_plain']:.3e} / "
+              f"{errs['inverse_vs_plain']:.3e} (tol {tols['transform']:.3e}"
+              f" / {tols['inverse']:.3e}), codes {100 * plain_share:.4f}% "
+              f"equal; ms sharded/unsharded " + ", ".join(
+                  f"{n} {t['sharded']:.3f}/{t['unsharded']:.3f}"
+                  for n, t in ms.items()) + f" [{card}]")
+        del codec, codecs, x, shards, outs, spec, synth, whole, whole_synth
+    return out
+
+
+def tie_flips(torch, label, codes, want_codes, spec, want_delta, rtol=1e-5):
+    """Codes of one spectrum quantized with two step-size tensors that
+    agree to ``rtol`` (JAX's gate on them): every code that differs must
+    be one step off and sit within ``rtol`` of a rounding tie of
+    spec / delta, the only place such a difference can flip a code.
+    Returns how many differ."""
+    flips = codes != want_codes
+    n = int(flips.sum())
+    if n:
+        u = (spec.double() / want_delta.double())[flips].abs()
+        off_tie = float(((u - u.floor() - 0.5).abs() - rtol * u).max())
+        step = int((codes.long() - want_codes.long()).abs().max())
+        check(step <= 1 and off_tie <= 1e-9,
+              f"{label}: {n} codes differ, {step} steps apart, "
+              f"{off_tie} past a rounding tie")
+    return n
+
+
+def scale_corpus(torch, dev, card):
+    """22b. The corpus encoder on a dp=2, sp=2 mesh over SCALE_CORPUS_CLIPS
+    clips of 10 s in (r): one ``fold_matmul`` a shard, the unsharded
+    frames bit for bit, step sizes within 1e-5 and codes equal to the
+    unsharded encode's but where those step sizes' last bits flip a
+    rounding tie; audio-s/s beside the unsharded encode's."""
+    import numpy as np
+
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.parallel import corpus, mesh, sequence
+
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    grid = mesh.make_mesh(devices=[dev] * (SCALE_DP * SCALE_SP), sp=SCALE_SP)
+    clips = np.stack(list(corpus_signal(SCALE_CORPUS_CLIPS, CORPUS_SECONDS,
+                                        SAMPLE_RATE)))[:, :SAMPLES]
+    x = torch.from_numpy(clips.astype(np.float32)).to(dev)
+    encoder = corpus.make_corpus_encoder(codec, grid)
+    with torch.no_grad():
+        (codes, delta), counts = counted(torch, lambda: encoder(x))
+        check(counts == stream_counts(fold_matmul=SCALE_DP * SCALE_SP),
+              f"sharded corpus: launch counts {counts}")
+        rows = sequence.mesh_rows(codec, grid)
+        frames = torch.cat([torch.cat(sequence.transform(r, xr), 1)
+                            for r, xr in zip(rows, grid.split(x))])
+        whole = codec.mdct.transform(x)
+        check(torch.equal(frames, whole),
+              "sharded corpus: frames differ from the unsharded analysis")
+        whole_codes, whole_delta, _ = codec.encode_quantized(x)
+        delta_rel = float(((delta.double() - whole_delta.double()).abs()
+                           / whole_delta.double()).max())
+        check(delta_rel <= 1e-5, f"sharded corpus: step sizes {delta_rel} "
+              "from the unsharded encode's")
+        flipped = tie_flips(torch, "sharded corpus", codes, whole_codes,
+                            whole, whole_delta)
+        audio_s = SCALE_CORPUS_CLIPS * SAMPLES / SAMPLE_RATE
+        walls = {}
+        for label, fn in (("sharded", lambda: encoder(x)),
+                          ("unsharded", lambda: codec.encode_quantized(x))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) / 3
+    out = dict(launches=counts["fold_matmul"], delta_max_rel_err=delta_rel,
+               codes_differing=flipped, codes=codes.numel(), wall_s=walls,
+               audio_s_per_s={k: audio_s / v for k, v in walls.items()})
+    print(f"sharded corpus dp={SCALE_DP} sp={SCALE_SP}, "
+          f"{SCALE_CORPUS_CLIPS} x {CORPUS_SECONDS} s (r): {out['launches']} "
+          f"fold_matmul, frames equal to the unsharded analysis, step sizes "
+          f"within {delta_rel:.3e} (relative), {flipped} of {codes.numel()} "
+          f"codes differ from the unsharded encode's, each one step at a "
+          f"rounding tie; " + ", ".join(
+              f"{k} {walls[k] * 1e3:.2f} ms = "
+              f"{out['audio_s_per_s'][k]:.1f} audio-s/s" for k in walls)
+          + f" [{card}]")
+    return out
+
+
+def step_report(params, loss):
+    """(loss, parameters, gradients) of a trainer after its step."""
+    return (float(loss), {k: p.detach().clone() for k, p in params.items()},
+            {k: p.grad.detach().clone() for k, p in params.items()
+             if p.grad is not None})
+
+
+# Adam's first step (the trainers' default, optax.adam(1e-3)'s rule) moves
+# each parameter by lr * g / (|g| + eps)
+ADAM_LR, ADAM_EPS = 1e-3, 1e-8
+
+
+def hold_step(label, got, want, dtype):
+    """A sharded first step's (loss, params, grads) against the unsharded
+    one's: the loss within TRAIN_TOL's rtol, each gradient within its share
+    (delta) of the peak, and each parameter within what that allows Adam's
+    first update: lr * min(2, 2 delta / (|g| + eps)) of the unsharded
+    gradient g (a gradient within delta of g moves lr * g / (|g| + eps) by
+    no more), plus 4 float32 ulps of the parameter. Returns the loss's
+    relative error and, by tensor, (max error, tolerance) of the gradients
+    and the largest share of its bound a parameter's error takes."""
+    loss_rtol, share = TRAIN_TOL[dtype]
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    check(loss_err <= loss_rtol, f"{label}: loss {got[0]} vs {want[0]}")
+    errs = {}
+    for name, w in want[2].items():
+        delta = share * float(w.float().abs().max())
+        err = max_abs(got[2][name], w)
+        errs[f"grad {name}"] = (err, delta)
+        check(err <= delta, f"{label}: gradient of {name} {err} > {delta}")
+        p_got, p_want = got[1][name].float(), want[1][name].float()
+        bound = (ADAM_LR * (2 * delta / (w.float().abs() + ADAM_EPS))
+                 .clamp(max=2.0) + 4 * 2.0**-23 * p_want.abs())
+        used = float(((p_got - p_want).abs() / bound.clamp(min=1e-30))
+                     .max())
+        errs[f"param {name}"] = (used, 1.0)
+        check(used <= 1.0, f"{label}: parameter {name} {used} of the bound "
+              "its gradient's tolerance allows Adam's first step")
+    return loss_err, errs
+
+
+def scale_train(torch, dev, card):
+    """22c. Each trainer at phase 12's widths on a dp=2, sp=2 mesh: the
+    first step's loss, gradients and parameters against the unsharded
+    step's (TRAIN_TOL), the analysis, synthesis and synthesis VJP once a
+    shard, SCALE_STEPS steps finite, ms a step beside the unsharded."""
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.parallel import mesh
+
+    grid = mesh.make_mesh(devices=[dev] * (SCALE_DP * SCALE_SP), sp=SCALE_SP)
+    shards = SCALE_DP * SCALE_SP
+    out = {}
+    for case, model in SCALE_TRAIN:
+        codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                             **VJP_CASES[case])
+        mdct = codec.mdct
+        dtype = str(mdct.compute_dtype).removeprefix("torch.")
+        x = make_signal(torch, dev, mdct.compute_dtype)
+        gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
+        runs, steps, counts, ema = {}, {}, None, {}
+        for label, m in (("unsharded", None), ("sharded", grid)):
+            params, extra, step = trainer(torch, codec, model, x, mesh=m)
+            loss, counts = counted(torch, lambda: step(gen()))
+            runs[label] = step_report(params, loss)
+            steps[label] = step
+            if model == "rvq":  # the RVQ state after the step
+                ema[label] = {k: v.clone() for k, v in extra.items()}
+        names = [mdct.kernel_name(d) for d in ("forward", "inverse")]
+        want = stream_counts(**{names[0]: shards, names[1]: shards,
+                                f"{names[1]}_vjp": shards})
+        check(counts == want,
+              f"sharded train ({case} {model}): launch counts {counts}")
+        loss_err, errs = hold_step(f"sharded train ({case} {model})",
+                                   runs["sharded"], runs["unsharded"], dtype)
+        ema = ema and {k: max_abs(ema["sharded"][k], ema["unsharded"][k])
+                       for k in ema["sharded"]}
+        losses = [runs["sharded"][0]] + [
+            float(steps["sharded"](gen())) for _ in range(SCALE_STEPS - 1)]
+        check(all(math.isfinite(v) for v in losses),
+              f"sharded train ({case} {model}): losses {losses}")
+        ms = {k: cuda_ms(torch, lambda: steps[k](gen()), iters=5, warmup=1)
+              for k in steps}
+        worst = max(errs.items(), key=lambda e: e[1][0] / max(e[1][1],
+                                                              1e-30))
+        out[f"{case} {model}"] = dict(
+            launches=counts, loss=runs["sharded"][0],
+            unsharded_loss=runs["unsharded"][0], loss_rel_err=loss_err,
+            err_tol=errs, rvq_state_max_abs_diff=ema, losses=losses, ms=ms)
+        print(f"sharded train ({case}) {model} dp={SCALE_DP} sp={SCALE_SP}: "
+              f"launches {launched(counts)}; loss "
+              f"{runs['sharded'][0]:.7g} vs unsharded "
+              f"{runs['unsharded'][0]:.7g} (rel {loss_err:.2e}); worst "
+              f"{worst[0]} {worst[1][0]:.2e}/{worst[1][1]:.2e}"
+              + (f"; RVQ state max-abs diff {ema}" if ema else "")
+              + f"; {SCALE_STEPS} losses {losses}; ms a step sharded "
+              f"{ms['sharded']:.3f} vs unsharded {ms['unsharded']:.3f} "
+              f"[{card}]")
+        del codec, x, runs, steps
+    return out
+
+
+def group_steps(torch, dev, x, mesh, models):
+    """The first step of each of ``models`` on (r) over ``mesh`` from phase
+    12's seeded weights: its loss, parameters and gradients, and ms a step
+    of three more."""
+    from audiocodec_tpu_torch import Codec
+
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    out = {}
+    for model in models:
+        params, _, step = trainer(torch, codec, model, x, mesh=mesh)
+        gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
+        loss, params, grads = step_report(params, step(gen()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(gen())
+        torch.cuda.synchronize()
+        out[model] = dict(loss=loss, params=params, grads=grads,
+                          ms=(time.perf_counter() - t0) / 3 * 1e3)
+    return out
+
+
+def scale_child(torch, argv):
+    """A rank of phase 22d's process groups: ``RANK WORLD PORT BACKEND
+    DEVICE OUT``. Joins the group at localhost:PORT, steps on its share of
+    the batch over a dp=1, sp=SCALE_SP mesh of DEVICE and writes what the
+    steps leave to OUT (``save_pytree``)."""
+    import torch.distributed as dist
+
+    from audiocodec_tpu_torch.parallel import multihost
+    from audiocodec_tpu_torch.utils import serialization
+
+    rank, world, port, backend, dev, path = argv
+    rank, world, dev = int(rank), int(world), torch.device(dev)
+    check(multihost.initialize(f"localhost:{port}", world, rank,
+                               device=dev, backend=backend),
+          "multihost.initialize did not join the group")
+    try:
+        out = {}
+        if backend == "nccl":
+            t = torch.arange(3.0, device=dev) + rank
+            dist.all_reduce(t)
+            out["all_reduce"] = t
+        grid = multihost.global_mesh(sp=SCALE_SP, devices=[dev] * SCALE_SP)
+        check((grid.rank, grid.world) == (rank, world),
+              f"global_mesh: rank {grid.rank} of {grid.world}")
+        local = multihost.process_local_batch(BATCH)
+        x = make_signal(torch, dev, torch.float32)[rank * local:
+                                                   (rank + 1) * local]
+        out.update(group_steps(torch, dev, x, grid,
+                               SCALE_GROUP_MODELS[backend]))
+        serialization.save_pytree(path, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def scale_groups(torch, dev, card, work):
+    """22d. Two ranks of a gloo group share the card (NCCL refuses two
+    ranks on one GPU), each stepping the gains and the SAE on half the
+    batch; a one-rank NCCL group runs ``all_reduce`` and an SAE step. Each
+    child has a timeout and fails the run if it fails; every rank must end
+    with the state of the one-process step on the whole batch."""
+    from audiocodec_tpu_torch.utils import serialization
+
+    jobs = [("gloo", 2, r) for r in range(2)] + [("nccl", 1, 0)]
+    ports = {"gloo": free_port(), "nccl": free_port()}
+    paths = {(b, r): str(work / f"{b}{r}.npz") for b, _, r in jobs}
+    t0 = time.perf_counter()
+    procs = {(b, r): subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--scale-child",
+         str(r), str(w), str(ports[b]), b, str(dev), paths[(b, r)]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for b, w, r in jobs}
+    logs = {}
+    try:
+        for key, p in procs.items():
+            logs[key] = p.communicate(timeout=SCALE_CHILD_TIMEOUT_S)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for key, p in procs.items():
+        check(p.returncode == 0, f"process group child {key}: exit "
+              f"{p.returncode}: {logs.get(key, '')[-2000:]}")
+    ranks = {key: serialization.load_pytree(path, device=dev)
+             for key, path in paths.items()}
+    x = make_signal(torch, dev, torch.float32)
+    want = group_steps(torch, dev, x, None, ("gains", "spectral_ae"))
+    def report(run):
+        return run["loss"], run["params"], run["grads"]
+
+    out = dict(wall_s=wall)
+    for key, got in ranks.items():
+        for model in SCALE_GROUP_MODELS[key[0]]:
+            loss_err, errs = hold_step(f"group {key} {model}",
+                                       report(got[model]),
+                                       report(want[model]), "float32")
+            out[f"{key[0]}{key[1]} {model}"] = dict(
+                loss=got[model]["loss"], loss_rel_err=loss_err,
+                worst=max(e / max(t, 1e-30) for e, t in errs.values()),
+                ms=got[model]["ms"], one_process_ms=want[model]["ms"])
+    for model in SCALE_GROUP_MODELS["gloo"]:
+        a, b = (ranks[("gloo", r)][model] for r in (0, 1))
+        check(a["loss"] == b["loss"] and all(
+            torch.equal(a[kind][k], b[kind][k])
+            for kind in ("params", "grads") for k in a[kind]),
+            f"gloo group: the ranks' {model} states differ")
+    reduced = ranks[("nccl", 0)]["all_reduce"]
+    check(torch.equal(reduced.cpu(), torch.arange(3.0)),
+          f"nccl group: all_reduce gave {reduced}")
+    gloo = ", ".join(SCALE_GROUP_MODELS["gloo"])
+    print(f"process groups: gloo 2 ranks on the card ({gloo}; ranks equal "
+          f"bit for bit) and nccl 1 rank (all_reduce, spectral_ae), each "
+          f"step against the "
+          f"one-process step on the whole batch: " + ", ".join(
+              f"{k} loss rel {v['loss_rel_err']:.2e}, worst err/tol "
+              f"{v['worst']:.3f}, {v['ms']:.1f} ms a step (one process "
+              f"{v['one_process_ms']:.1f})" for k, v in out.items()
+              if k != "wall_s") + f"; children's wall {wall:.1f} s [{card}]")
+    return out
+
+
+def scale_resume(torch, dev, card, work):
+    """22e. Two SAE steps in (r), the parameters and the optimizer saved
+    (``save_pytree``), reloaded into a fresh template: step 3 equals the
+    uninterrupted run's bit for bit. ``save_codec``/``load_codec`` on the
+    card rebuild a codec whose round trip is bit-equal."""
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.models import spectral_ae
+    from audiocodec_tpu_torch.utils import serialization
+
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    x = make_signal(torch, dev, torch.float32)
+    cfg = spectral_ae.SpectralAE(filters_n=FILTERS_N, hidden_n=512,
+                                 latent_n=64, latent_step=1 / 32)
+    step, make_opt = spectral_ae.make_train_step(codec, cfg)
+
+    def fresh(seed):
+        params = spectral_ae.init_params(
+            torch.Generator(device="cpu").manual_seed(seed), cfg,
+            device=dev)
+        return params, make_opt(list(params.values()))
+
+    gen = lambda i: torch.Generator(device=dev).manual_seed(SEED + i)  # noqa
+    params, opt = fresh(SEED)
+    for i in range(2):
+        step(params, opt, x, gen(i))
+    t0 = time.perf_counter()
+    serialization.save_pytree(str(work / "params.npz"), params)
+    serialization.save_pytree(str(work / "opt.npz"), opt.state_dict())
+    save_s = time.perf_counter() - t0
+    want = step(params, opt, x, gen(2))
+    t0 = time.perf_counter()
+    params2, _ = fresh(SEED + 1)
+    params2 = serialization.load_pytree(str(work / "params.npz"), params2)
+    opt2 = make_opt(list(params2.values()))
+    opt2.load_state_dict(serialization.load_pytree(str(work / "opt.npz")))
+    load_s = time.perf_counter() - t0
+    got = step(params2, opt2, x, gen(2))
+    check(torch.equal(got, want) and all(
+        torch.equal(params2[k], params[k]) for k in params),
+        f"resume: step 3 {float(got)} vs uninterrupted {float(want)}")
+    path = str(work / "codec.json")
+    serialization.save_codec(path, codec)
+    loaded = serialization.load_codec(path, device=dev)
+    check(loaded.mdct.use_kernel is True,
+          "load_codec: the kernels did not resolve on the card")
+    with torch.no_grad():
+        same = torch.equal(loaded.round_trip_quantized(x),
+                           codec.round_trip_quantized(x))
+    check(same, "load_codec: the round trip differs from the saved codec's")
+    out = dict(step3_loss=float(got), save_s=save_s, load_s=load_s,
+               config=serialization.codec_config(loaded))
+    print(f"resume: SAE (r) step 3 after save_pytree/load_pytree equals the "
+          f"uninterrupted step bit for bit (loss {float(got):.7g}); saved "
+          f"in {save_s * 1e3:.1f} ms, loaded in {load_s * 1e3:.1f} ms; "
+          f"load_codec's round trip bit-equal [{card}]")
+    return out
+
+
+def scale_phase(torch, dev, card):
+    """22. Scale-out and checkpoints (a-e)."""
+    import tempfile
+
+    work_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work_root.mkdir(parents=True, exist_ok=True)
+    out = dict(mdct=scale_mdct(torch, dev, card),
+               corpus=scale_corpus(torch, dev, card),
+               train=scale_train(torch, dev, card))
+    with tempfile.TemporaryDirectory(dir=work_root) as tmp:
+        out["groups"] = scale_groups(torch, dev, card, Path(tmp))
+        out["resume"] = scale_resume(torch, dev, card, Path(tmp))
+    return out
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -3974,11 +4528,15 @@ def main(argv=None) -> int:
     parser.add_argument("--corpus-clips", type=int, default=CORPUS_CLIPS,
                         help="clips of phase 21's corpus (default "
                              "%(default)s)")
+    # a rank of phase 22d's process groups, started by this script
+    parser.add_argument("--scale-child", nargs=6, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if args.scale_child:
+        return scale_child(torch, args.scale_child)
     from audiocodec_tpu_torch import Codec, MDCT
     from audiocodec_tpu_torch.ops import _build
 
@@ -4142,12 +4700,16 @@ def main(argv=None) -> int:
     served = serve_phase(torch, dev, smi)
     t21 = time.monotonic()
     corpus = corpus_phase(torch, dev, smi, args.corpus_clips)
+
+    # 22. scale-out and checkpoints
+    t22 = time.monotonic()
+    scale = scale_phase(torch, dev, smi)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
           f"15 {t16 - t15:.1f} s, 16 {t17 - t16:.1f} s, 17 "
           f"{t18 - t17:.1f} s, 18 {t19 - t18:.1f} s, 19 "
           f"{t20 - t19:.1f} s, 20 {t21 - t20:.1f} s, 21 "
-          f"{time.monotonic() - t21:.1f} s")
+          f"{t22 - t21:.1f} s, 22 {time.monotonic() - t22:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
@@ -4156,7 +4718,7 @@ def main(argv=None) -> int:
                       "waveform_grads": waveform_grads, "probe": probe,
                       "rvq": rvq, "ladder": ladder, "acz": acz,
                       "stream": stream, "cli": cli, "serve": served,
-                      "corpus": corpus}))
+                      "corpus": corpus, "scale": scale}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

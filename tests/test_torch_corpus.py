@@ -5,7 +5,8 @@ Bark bands, 16 kHz, short clips).
 
 - ``load_corpus`` equals the JAX package's on both wires, status codes
   included.
-- A mesh is a (dp, sp) grid of ``torch.device``s; ``sp`` > 1 is refused.
+- A mesh is a (dp, sp) grid of ``torch.device``s (``sp`` > 1: see
+  tests/test_torch_sharded.py).
   ``encode_corpus`` over dp=2 (two CPU devices) equals dp=1, a ragged final
   batch padded and stripped.
 - The loaders (every case of tests/test_pipeline.py): order, errors,
@@ -121,6 +122,7 @@ def test_load_corpus_equals_jax(tmp_path, dtype):
     (dict(), {"dp": 2, "sp": 1}),
     (dict(n_devices=1), {"dp": 1, "sp": 1}),
     (dict(dp=2), {"dp": 2, "sp": 1}),
+    (dict(sp=2), {"dp": 1, "sp": 2}),
 ])
 def test_make_mesh_shapes(kw, shape):
     m = _mesh.make_mesh(devices=[CPU, CPU], **kw)
@@ -134,7 +136,6 @@ def test_make_mesh_shapes(kw, shape):
     (dict(sp=3), "not divisible by sp=3"),
     (dict(dp=3), r"dp\*sp=3 != n_devices=2"),
     (dict(n_devices=3), "n_devices=3"),
-    (dict(sp=2), "sequence parallelism is not ported.*§1.9"),
 ])
 def test_make_mesh_errors(kw, match):
     with pytest.raises(ValueError, match=match):

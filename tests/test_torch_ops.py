@@ -188,7 +188,10 @@ def test_import_loads_no_jax():
             "audiocodec_tpu_torch.serve, audiocodec_tpu_torch.parallel.mesh, "
             "audiocodec_tpu_torch.parallel.corpus, "
             "audiocodec_tpu_torch.parallel.pipeline, "
-            "audiocodec_tpu_torch.utils.device; "
+            "audiocodec_tpu_torch.parallel.multihost, "
+            "audiocodec_tpu_torch.parallel.sequence, "
+            "audiocodec_tpu_torch.utils.device, "
+            "audiocodec_tpu_torch.utils.serialization; "
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', 'audiocodec_tpu.')) or "
             "m == 'audiocodec_tpu']; "
