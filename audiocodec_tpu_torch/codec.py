@@ -78,8 +78,8 @@ class Codec(nn.Module):
         dct_precision: str = "highest",
         bark_precision: str | None = None,
         kernel_design: str = "auto",
-        calibrated: bool = False,
         sidecar_grid: int = _scq.DEFAULT_K2,
+        calibrated: bool = False,
         device="cuda",
     ) -> "Codec":
         """Build the codec on ``device``: the card unless the caller asks
@@ -88,10 +88,10 @@ class Codec(nn.Module):
         :param bark_precision: tier of the Bark contractions; defaults to
             ``dct_precision``, except that an ``int8`` MDCT pairs with
             ``default`` Bark contractions (int8 is an MDCT-only tier).
-        :param calibrated: the psychoacoustic model's calibrated mode
-            (``PsychoacousticModel``); False is reference parity.
         :param sidecar_grid: levels per octave of the Bark sidecar's log
             grid (scq.py), 1, 2, 4 or 8; 0 ships raw bfloat16 sidecars.
+        :param calibrated: the psychoacoustic model's calibrated mode
+            (``PsychoacousticModel``); False is reference parity.
         """
         if bark_precision is None:
             bark_precision = (

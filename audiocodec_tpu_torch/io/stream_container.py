@@ -74,6 +74,7 @@ from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.io import bitstream as _bitstream
 from audiocodec_tpu_torch.ops import threefry as _threefry
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils.profiling import span
 
 # Wire versions: "ACS2" marks grid-quantized sidecars (an ACS1 reader would
 # play their levels as bfloat16 deltas), "ACS3" DTX streams (every chunk
@@ -98,8 +99,6 @@ _CONCEAL_KEY = 0x9E3779B9
 _INTERP_KEY = 0x7F4A7C15
 # DTX comfort noise: numpy's default_rng(_COMFORT_SEED + chunk index)
 _COMFORT_SEED = 0xD7C0FFEE
-
-_span = torch.profiler.record_function
 
 
 class Chunk(typing.NamedTuple):
@@ -1193,9 +1192,9 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
         def flush_pending():
             payload, event, fec_prev = pending
             if event is not None:
-                with _span("stream.d2h"):
+                with span("stream.d2h"):
                     event.synchronize()
-            with _span("stream.pack"):
+            with span("stream.pack"):
                 fec_bytes = None
                 if fec:
                     fec_bytes = (b"" if fec_prev is None
@@ -1215,7 +1214,7 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
                 carry = streaming.mdct_stream_init(mdct, 1, c)
                 tctx = None
                 continue
-            with _span("stream.step"):
+            with span("stream.step"):
                 x_k = x[:, start:start + chunk].to(dev, non_blocking=True)
                 carry, tctx, enc, fecq = _encode_step(
                     codec, carry, x_k, drown, ts_k, ms, deadzone,
@@ -1712,7 +1711,7 @@ def decode_stream(codec, path, start_chunk: int = 0,
         io_lock = threading.Lock()
 
         def fetch(i):
-            with _span("stream.read"):
+            with span("stream.read"):
                 try:
                     with io_lock:
                         c = r.read_chunk(i)
@@ -1788,7 +1787,7 @@ def decode_stream(codec, path, start_chunk: int = 0,
                     yield samples
                     continue
                 c = val
-                with _span("stream.step"):
+                with span("stream.step"):
                     frames = frames_of(c, staged, frame_off)
                     carry, samples = streaming.imdct_stream_step(
                         mdct, carry, frames)

@@ -183,6 +183,12 @@ class MDCT(nn.Module):
             buf(f"dense_{name}", value, mat_dtype)
         self.build_kernel_residents()
 
+    @classmethod
+    def create(cls, *args, **kwargs) -> "MDCT":
+        """The JAX package's constructor name: the constructor's arguments,
+        in its order."""
+        return cls(*args, **kwargs)
+
     def build_kernel_residents(self) -> None:
         """(Re)build what the kernels derive from the forward residents.
         The operand forms of the matrices (``kernel_op_{fwd,inv}``: mono,

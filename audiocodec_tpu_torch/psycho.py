@@ -341,6 +341,12 @@ class PsychoacousticModel(nn.Module):
         self.register_buffer("c_inv_alpha", 1.0 / self.c_alpha,
                              persistent=False)
 
+    @classmethod
+    def create(cls, *args, **kwargs) -> "PsychoacousticModel":
+        """The JAX package's constructor name: the constructor's arguments,
+        in its order."""
+        return cls(*args, **kwargs)
+
     @property
     def dB_MAX(self) -> float:
         return DB_MAX

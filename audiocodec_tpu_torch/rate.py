@@ -41,8 +41,7 @@ from audiocodec_tpu_torch import nf as _nf
 from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch import tns as _tns
 from audiocodec_tpu_torch.io import bitstream as _bitstream
-
-_span = torch.profiler.record_function
+from audiocodec_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -311,7 +310,7 @@ def encode_with_target_bitrate_batch(
         codec.psycho.sample_rate,
     )
     dz_recon = _quantize.dz_recon_offset(z) if z != 0.5 else 0.0
-    with torch.no_grad(), _span("rate.analysis"):
+    with torch.no_grad(), span("rate.analysis"):
         trials = _Trials(codec, x, drown, ms, tmask, bs, tns, nf, bwe,
                          intensity, z)
     bark, tns_idx, bs_flags = (trials.bark_host, trials.tns_host,
@@ -362,11 +361,11 @@ def _search(pool, trials, pack_one, batch, seconds, target_kbps, tolerance,
 
     def sizes(log2_scales):
         """Pack every (trial, clip) concurrently; return kbps [K, B]."""
-        with torch.no_grad(), _span("rate.trials"):
+        with torch.no_grad(), span("rate.trials"):
             got = trials.members(2.0 ** log2_scales)
         k_n = log2_scales.shape[0]
         pairs = [(k, b) for k in range(k_n) for b in range(batch)]
-        with _span("rate.pack"):
+        with span("rate.pack"):
             packs = list(pool.map(
                 lambda kb: len(pack_one(
                     kb[1], got["codes"][kb[0]],
@@ -418,10 +417,10 @@ def _search(pool, trials, pack_one, batch, seconds, target_kbps, tolerance,
     # the decoder casts the container's float64 threshold_scale.
     k_best = np.argmin(np.abs(all_kbps - target_kbps), axis=0)
     win_scales = 2.0 ** all_grids[k_best, np.arange(batch)]
-    with torch.no_grad(), _span("rate.trials"):
+    with torch.no_grad(), span("rate.trials"):
         win = {name: None if v is None else v[0] for name, v in
                trials.members(win_scales[None, :], nf=nf).items()}
-    with _span("rate.pack"):
+    with span("rate.pack"):
         final_packs = list(pool.map(
             lambda b: pack_one(b, win["codes"], float(win_scales[b]),
                                nfl=win["nfl"], bweg=win["bwe"],

@@ -241,7 +241,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ranks equal bit for bit, each child under a timeout; (e) two SAE steps,
    ``save_pytree`` of the parameters and the optimizer, reloaded into a
    fresh template: step 3 equals the uninterrupted run's bit for bit, and
-   ``load_codec`` of a ``save_codec`` file gives a bit-equal round trip.
+   ``load_codec`` of a ``save_codec`` file gives a bit-equal round trip;
+23. the last modules: (a) the reference-signature shim at full width,
+   ``compat.MDCTransformer(1024)`` and ``compat.PsychoacousticModel(44100)``
+   on 32 mono clips of 10 s: transform -> tonality ->
+   ``global_masking_threshold(drown=0.1)`` -> ``add_noise`` ->
+   inverse_transform launches one ``fold_matmul`` and one
+   ``matmul_scatter`` (added to the ``highest`` kernel lines' launches),
+   the spectrum and the noiseless synthesis within the ``highest`` tier's
+   tolerance of a ``use_kernel=False`` twin, the noiseless round trip at
+   130 dB or more, ``H[0] @ H_inv[1] + H[1] @ H_inv[0]`` within 1e-5 of I,
+   two ``add_noise`` draws differ, each call's ms; (b) ``utils.profiling``:
+   a chrome trace of one (r) ``round_trip_fast`` holds an MDCT device
+   function and the ``span``'s name, ``time_fn`` (one blocking call on
+   the device) within 0.8-1.1x of the host clock's wall time of the
+   synchronised call and at least 0.95x ``cuda_ms`` (calls queued back to
+   back), the device busy ms; (c) ``utils.debug``: a clean (r)
+   ``round_trip`` passes ``checked``, a NaN input raises in ``throw()``,
+   ``find_nonfinite`` finds a NaN planted in a spectral AE's parameters;
+   (d) the eight ``examples/torch/`` scripts in subprocesses on the card
+   at the CPU tests' arguments (N=256 where a script trains), each twice,
+   all at once: on the kernels, every kernel call held against its plain
+   version on the same inputs within its tolerance, and with every
+   wrapper swapped for its plain version (no launch); each run exits 0
+   with its key line within its timeout, and every number the two runs
+   print (bar wall-clock figures) is finite and within 1% + 0.05 of the
+   other's; wall times.
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -260,6 +285,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import signal
 import subprocess
 import sys
@@ -518,35 +544,34 @@ def expected_counts(**ones):
     return {k: int(k in ones) for k in all_launch_counts()}
 
 
+def kernel_wrappers():
+    """(module, name) of every MDCT and noise kernel wrapper and VJP."""
+    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
+
+    return [(cuda_mdct, k.__name__)
+            for k in cuda_mdct.KERNELS + cuda_mdct.VJPS] + [
+        (cuda_noise, "add_masked_noise")]
+
+
 def plain_kernels():
     """Every kernel wrapper and VJP swapped for its plain version (the
     wrappers are looked up at each call, by the MDCT's autograd Functions
     too)."""
     from contextlib import ExitStack
 
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
-
     stack = ExitStack()
-    mdct_names = [k.__name__ for k in cuda_mdct.KERNELS + cuda_mdct.VJPS]
-    for module, names in ((cuda_mdct, mdct_names),
-                          (cuda_noise, ("add_masked_noise",))):
-        for name in names:
-            stack.enter_context(mock.patch.object(
-                module, name, getattr(module, f"{name}_reference")))
+    for module, name in kernel_wrappers():
+        stack.enter_context(mock.patch.object(
+            module, name, getattr(module, f"{name}_reference")))
     return stack
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean ms a call of ``fn()`` between two CUDA events
+    (``utils.profiling.cuda_ms``)."""
+    from audiocodec_tpu_torch.utils import profiling
+
+    return profiling.cuda_ms(fn, iters=iters, warmup=warmup)
 
 
 def stage_ms(torch, codec, x, noise=None):
@@ -800,6 +825,8 @@ def function_ms(torch, fn, calls=5):
     torch.profiler trace of ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
+    from audiocodec_tpu_torch.utils import profiling
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -807,9 +834,7 @@ def function_ms(torch, fn, calls=5):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in profiling.kernel_events(prof):
         name = next((f for f in MDCT_DEVICE_FUNCTIONS if f in e.name),
                     e.name[:40])
         span = (e.time_range.end - e.time_range.start) / 1e3 / calls
@@ -1447,6 +1472,8 @@ def trace_steps(torch, step, steps=5):
     with no kernel running."""
     from torch.profiler import ProfilerActivity, profile
 
+    from audiocodec_tpu_torch.utils import profiling
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1454,9 +1481,7 @@ def trace_steps(torch, step, steps=5):
             step()
         torch.cuda.synchronize()
     spans, split = [], dict(mdct_kernels=0.0, library_gemms=0.0, other=0.0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in profiling.kernel_events(prof):
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
         if any(f in e.name for f in MDCT_DEVICE_FUNCTIONS):
@@ -1471,17 +1496,11 @@ def trace_steps(torch, step, steps=5):
 
 
 def covered(spans):
-    """(time some span covers, the spans' whole extent) of [(start, end)]."""
-    spans = sorted(spans)
-    busy, reach = 0.0, None
-    for start, end in spans:
-        if reach is None or start > reach:
-            busy += end - start
-            reach = end
-        elif end > reach:
-            busy += end - reach
-            reach = end
-    return busy, max(end for _, end in spans) - spans[0][0]
+    """(time some span covers, the spans' whole extent) of [(start, end)]
+    (``utils.profiling.covered``)."""
+    from audiocodec_tpu_torch.utils import profiling
+
+    return profiling.covered(spans)
 
 
 def training_phase(torch, dev, entries):
@@ -2980,11 +2999,12 @@ def kernel_launches(torch, fn):
     """The device kernels that one call of ``fn`` launches (a trace)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from audiocodec_tpu_torch.utils import profiling
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return len(profiling.kernel_events(prof))
 
 
 def cli_call(torch, argv, device="cuda"):
@@ -3658,6 +3678,7 @@ def serve_trace(torch, dev, codec, card):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from audiocodec_tpu_torch import serve
+    from audiocodec_tpu_torch.utils import profiling
 
     clips = serve_clips(SERVE_CLIENTS)
     with serve.CodecServer(codec, SAMPLE_RATE, port=0) as s:
@@ -3685,9 +3706,8 @@ def serve_trace(torch, dev, codec, card):
     check(len(label) == 1, f"serve trace: {len(label)} serve.cycle spans")
     lo, hi = label[0].start, label[0].end
     spans = [(max(e.time_range.start, lo), min(e.time_range.end, hi))
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.time_range.end > lo and e.time_range.start < hi]
+             for e in profiling.kernel_events(prof)
+             if e.time_range.end > lo and e.time_range.start < hi]
     check(spans, "serve trace: no kernel in the traced cycle")
     busy, span = covered(spans)
     out = dict(batches=batches, cycle_ms_untraced=walls,
@@ -4498,6 +4518,461 @@ def scale_phase(torch, dev, card):
     return out
 
 
+# Phase 23: the compat shim at full width, the profiling and debug utils,
+# the examples
+COMPAT_DROWN = 0.1
+COMPAT_IDENTITY_ATOL = 1e-5
+# time_fn's blocking call against the host clock's (whose interval holds
+# the device events', and the host's record and wake-up besides), and its
+# floor against cuda_ms's queued calls
+TIME_FN_WALL = (0.8, 1.1)
+TIME_FN_FLOOR = 0.95
+TRACE_SPAN = "chip_smoke.round_trip_fast"
+EXAMPLE_TIMEOUT_S = 180
+# Runs an example script in a child process: example_child(argv[1:])
+EXAMPLE_RUNNER = ("import sys, chip_smoke; "
+                  "sys.exit(chip_smoke.example_child(sys.argv[1:]))")
+# The numbers an example prints (nan and inf too), and the wall-clock
+# figures among them, which the comparison of its two runs leaves out
+EXAMPLE_NUMBER = re.compile(
+    r"(?<![\w.])[-+]?(?:nan|inf)(?!\w)|[-+]?\d[\d,]*(?:\.\d+)?(?:e[-+]?\d+)?",
+    re.IGNORECASE)
+EXAMPLE_TIMING = re.compile(r"[\d.,]+ ?(?:audio-s/s|ms)\b|\(\d+x less work\)")
+# An example's numbers on the kernels against its all-plain twin's: the
+# same seeds on the card draw the same weights and noise, so only the
+# kernels' rounding (and the scripts' printed digits) stands between them
+EXAMPLE_RTOL = 1e-2
+EXAMPLE_ATOL = 0.05
+# (script, its arguments: the CPU tests', N=256 where a script trains so
+# that the MDCT kernels serve; its key line)
+EXAMPLE_RUNS = (
+    ("codec_demo.py", ["--bitrates", "96"], "96k ladder"),
+    ("adaptive_streaming_demo.py", ["--seconds", "3"],
+     "plays in ANY .acs decoder"),
+    ("lossy_transport_demo.py", ["--seconds", "4", "--chunk-blocks", "16",
+                                 "--lose", "1"],
+     "stream length preserved: True"),
+    ("archival_demo.py", ["--seconds", "4"], "seekable=True"),
+    ("train_spectral_gains.py", ["--steps", "2", "--filters-n", "256"],
+     "final mean gain: "),
+    ("train_neural_codec.py", ["--steps", "2", "--filters-n", "256",
+                               "--latent-n", "8", "--batch", "2",
+                               "--clips", "2"],
+     "quantized-latent reconstruction SNR: "),
+    ("train_rvq_codec.py", ["--steps", "2", "--warmup", "1", "--filters-n",
+                            "256", "--latent-n", "8", "--stages", "2",
+                            "--codebook-size", "16", "--batch", "2",
+                            "--clips", "2"],
+     "packed-code reconstruction SNR: "),
+    ("post_filter_demo.py", ["--steps", "2", "--filters-n", "256"],
+     "held-out decode SNR at 8.0x threshold scale: "),
+)
+
+
+def compat_phase(torch, dev, entries, card):
+    """23a. ``compat.MDCTransformer`` and ``compat.PsychoacousticModel`` at
+    full width: transform -> tonality -> global_masking_threshold ->
+    add_noise -> inverse_transform launches one ``fold_matmul`` and one
+    ``matmul_scatter``; spectrum and noiseless synthesis against a
+    ``use_kernel=False`` twin (this phase's oracle only); the noiseless
+    round trip's SNR; the polyphase tensors mutually inverse; two draws
+    differ; each call's ms."""
+    from audiocodec_tpu_torch import MDCT
+    from audiocodec_tpu_torch.compat import MDCTransformer, PsychoacousticModel
+
+    x = make_signal(torch, dev, torch.float32)
+    mdct = MDCTransformer(FILTERS_N, device=dev)
+    pa = PsychoacousticModel(SAMPLE_RATE, device=dev)
+    check(mdct._m.use_kernel is True and mdct._m.dct_precision == "highest",
+          "compat: the shim's MDCT is not on the highest kernels")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        spec = mdct.transform(x)
+        ton = pa.tonality(spec)
+        thr = pa.global_masking_threshold(spec, ton, drown=COMPAT_DROWN)
+        noisy = pa.add_noise(spec, thr)
+        out = mdct.inverse_transform(noisy)
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        check(counts == expected_counts(fold_matmul=1, matmul_scatter=1),
+              f"compat: launch counts {counts}")
+        check(out.shape == (BATCH, SAMPLES + 2 * FILTERS_N, 1)
+              and bool(torch.isfinite(out).all()),
+              f"compat: output {tuple(out.shape)} or non-finite")
+        plain = MDCT(FILTERS_N, use_kernel=False, dct_precision="highest",
+                     device=dev)
+        want = plain.transform(x)
+        spec_err = float((spec - want).abs().max())
+        spec_tol = tolerance(torch, want, "fold_matmul", "highest",
+                             torch.float32)
+        clean = mdct.inverse_transform(spec)
+        want = plain.inverse_transform(spec)
+        synth_err = float((clean - want).abs().max())
+        synth_tol = tolerance(torch, want, "matmul_scatter", "highest",
+                              torch.float32)
+        snr = snr_db(x, clean)
+        draws_differ = not torch.equal(pa.add_noise(spec, thr),
+                                       pa.add_noise(spec, thr))
+        h, h_inv = mdct.H.double(), mdct.H_inv.double()
+        eye = torch.eye(FILTERS_N, dtype=torch.float64, device=dev)
+        identity_err = float((h[0] @ h_inv[1] + h[1] @ h_inv[0] - eye)
+                             .abs().max())
+        host_x = x.cpu().numpy()
+        ms = dict(
+            transform=cuda_ms(torch, lambda: mdct.transform(x), iters=10),
+            transform_from_host=cuda_ms(
+                torch, lambda: mdct.transform(host_x), iters=5),
+            tonality=cuda_ms(torch, lambda: pa.tonality(spec), iters=10),
+            global_masking_threshold=cuda_ms(
+                torch, lambda: pa.global_masking_threshold(
+                    spec, ton, drown=COMPAT_DROWN), iters=10),
+            add_noise=cuda_ms(torch, lambda: pa.add_noise(spec, thr),
+                              iters=10),
+            inverse_transform=cuda_ms(
+                torch, lambda: mdct.inverse_transform(noisy), iters=10))
+    print(f"compat (MDCTransformer({FILTERS_N}), PsychoacousticModel("
+          f"{SAMPLE_RATE}), {tuple(x.shape)}): launches {counts}; spectrum "
+          f"{spec_err:.3e} from the plain twin (tol {spec_tol:.0e}), "
+          f"noiseless synthesis {synth_err:.3e} (tol {synth_tol:.0e}), SNR "
+          f"{snr:.2f} dB; H0 H_inv1 + H1 H_inv0 - I max {identity_err:.3e}; "
+          f"draws differ {draws_differ}; ms " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]")
+    check(spec_err <= spec_tol, f"compat: spectrum error {spec_err}")
+    check(synth_err <= synth_tol, f"compat: synthesis error {synth_err}")
+    check(snr >= FIDELITY_SNR_DB, f"compat: round trip SNR {snr}")
+    check(identity_err <= COMPAT_IDENTITY_ATOL,
+          f"compat: polyphase identity error {identity_err}")
+    check(draws_differ, "compat: two add_noise calls drew the same noise")
+    for e in entries:
+        if e["config"] == "highest" and e["n"] == FILTERS_N:
+            name = e["name"].split("[")[0]
+            e["compat_launches"] = counts[name]
+            e["launches"] += counts[name]
+    return dict(launches=counts, spectrum_err=spec_err,
+                synthesis_err=synth_err, snr_db=snr,
+                identity_err=identity_err, ms=ms)
+
+
+def profiling_phase(torch, dev, codec, x, card, work):
+    """23b. ``utils.profiling``: a chrome trace of one (r)
+    ``round_trip_fast`` under a span holds an MDCT device function and
+    the span; ``time_fn`` of the call, one blocking call timed on the
+    device, within TIME_FN_WALL of the host clock's best-of wall time of
+    the same synchronised call and not below TIME_FN_FLOOR of
+    ``cuda_ms``'s mean over calls queued back to back (a blocking call
+    cannot beat the queued rate); the device busy ms a call."""
+    from audiocodec_tpu_torch.utils import profiling
+
+    def call():
+        with torch.no_grad():
+            return codec.round_trip_fast(x, SEED)
+
+    call()
+    with profiling.trace(str(work)):
+        with profiling.span(TRACE_SPAN):
+            call()
+    files = list(work.glob("*.json"))
+    check(len(files) == 1, f"profiling: trace files {files}")
+    names = {e.get("name", "") for e in
+             json.loads(files[0].read_text())["traceEvents"]}
+    mdct_functions = sorted({f for f in MDCT_DEVICE_FUNCTIONS
+                             for name in names if f in name})
+    best_ms = profiling.time_fn(call, iters=10) * 1e3
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = min(walls)
+    mean_ms = cuda_ms(torch, call, iters=20)
+    busy_ms = profiling.device_busy_ms(call)
+    print(f"profiling: trace {files[0].stat().st_size} bytes, "
+          f"{len(names)} event names, MDCT device functions "
+          f"{mdct_functions}, span {TRACE_SPAN in names}; time_fn "
+          f"{best_ms:.4f} ms a blocking call (host clock's best-of "
+          f"{wall_ms:.4f} ms), cuda_ms {mean_ms:.4f} ms a call queued back "
+          f"to back, device busy {busy_ms:.4f} ms a call [{card}]")
+    check(mdct_functions, "profiling: no MDCT device function in the trace")
+    check(TRACE_SPAN in names, "profiling: the span is not in the trace")
+    low, high = TIME_FN_WALL
+    check(low * wall_ms <= best_ms <= high * wall_ms
+          and best_ms >= TIME_FN_FLOOR * mean_ms,
+          f"profiling: time_fn {best_ms} ms against the host's {wall_ms} "
+          f"ms and cuda_ms {mean_ms} ms")
+    return dict(mdct_functions=mdct_functions, time_fn_ms=best_ms,
+                wall_ms=wall_ms, cuda_ms=mean_ms, device_busy_ms=busy_ms)
+
+
+def debug_phase(torch, dev, codec, x):
+    """23c. ``utils.debug`` on the card: a clean (r) ``round_trip``
+    passes ``checked``, a NaN input makes ``throw()`` raise, and
+    ``find_nonfinite`` finds one NaN planted in a spectral AE's
+    parameters."""
+    from audiocodec_tpu_torch.models import spectral_ae
+    from audiocodec_tpu_torch.utils import debug
+
+    gen = torch.Generator(device=dev)
+    checked = debug.checked(
+        lambda x: codec.round_trip(x, gen.manual_seed(SEED)))
+    with torch.no_grad():
+        err, out = checked(x)
+        clean = err.get()
+        bad_x = x.clone()
+        bad_x[0, SAMPLES // 2, 0] = float("nan")
+        err, _ = checked(bad_x)
+    try:
+        err.throw()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    cfg = spectral_ae.SpectralAE(**RVQ_AE)
+    params = spectral_ae.init_params(gen.manual_seed(SEED), cfg, device=dev)
+    with torch.no_grad():
+        params["dec_w1"][3, 5] = float("nan")
+    found = debug.find_nonfinite(params)
+    print(f"debug: clean round_trip {clean!r}, NaN input raised {raised!r}, "
+          f"find_nonfinite {found}")
+    check(clean is None and out.shape == (BATCH, SAMPLES + 2 * FILTERS_N, 1),
+          f"debug: the clean round trip failed a check: {clean}")
+    check(raised is not None, "debug: a NaN input did not raise")
+    check(found == {"['dec_w1']": 1}, f"debug: find_nonfinite {found}")
+    return dict(clean=clean, nan_raised=raised, find_nonfinite=found)
+
+
+def checking_kernels(torch, errors):
+    """Every MDCT and noise kernel wrapper and VJP wrapped so that each of
+    its calls also runs its plain version on the same inputs (outside the
+    launch counts; on the CPU a wrapper is its plain version):
+    ``errors[name]`` keeps the calls, their shapes, and the error and
+    tolerance (tolerance(), vjp_tolerance() at the call's tier) of the
+    call nearest its tolerance. Returns the patch stack; the wrappers
+    return the kernels' results."""
+    import inspect
+    from contextlib import ExitStack
+
+    def checking(name, kernel, plain):
+        signature = inspect.signature(kernel)
+
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            # the wrapper counts its launch under its module name, which
+            # is now this function
+            kernel.launches += call.launches
+            call.launches = 0
+            with torch.no_grad():
+                want = plain(*args, **kwargs)
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            tier = bound.arguments.get("precision")
+            if name.endswith("_vjp"):
+                tol = vjp_tolerance(torch, want, tier, out.dtype)
+            else:
+                tol = tolerance(torch, want, name, tier, out.dtype)
+            err = float((out.float() - want.float()).abs().max())
+            ratio = err / tol if tol else (0.0 if err == 0 else math.inf)
+            rec = errors.setdefault(name, dict(calls=0, shapes=[],
+                                               ratio=-1.0))
+            rec["calls"] += 1
+            shape = list(args[0].shape)
+            if shape not in rec["shapes"]:
+                rec["shapes"].append(shape)
+            if ratio > rec["ratio"]:
+                rec.update(ratio=ratio, tier=tier, max_abs_err=err, tol=tol)
+            return out
+
+        call.launches = 0
+        return call
+
+    stack = ExitStack()
+    for module, name in kernel_wrappers():
+        stack.enter_context(mock.patch.object(module, name, checking(
+            name, getattr(module, name),
+            getattr(module, f"{name}_reference"))))
+    return stack
+
+
+def example_child(argv):
+    """An examples/torch/ script, ``argv[1]``, run as __main__ with the
+    arguments ``argv[2:]``; ``argv[0]`` is the mode: ``kernels``, each
+    kernel call held against its plain version (checking_kernels()), or
+    ``plain``, every wrapper swapped for its plain version (plain_kernels()).
+    Prints, last, the process's launch counts and the kernels' errors."""
+    import runpy
+
+    import torch
+
+    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
+
+    mode, script, *args = argv
+    sys.argv = [script, *args]
+    errors = {}
+    stack = plain_kernels() if mode == "plain" else checking_kernels(
+        torch, errors)
+    try:
+        with stack:
+            runpy.run_path(script, run_name="__main__")
+    finally:
+        counts = {**cuda_mdct.launch_counts(), **cuda_noise.launch_counts()}
+        print("launches " + json.dumps({k: v for k, v in counts.items() if v}))
+        print("kernel_errors " + json.dumps(errors))
+    return 0
+
+
+def example_numbers(lines, out_dir):
+    """The numbers of each line an example printed, its wall-clock
+    figures and the path of its output directory left out."""
+    out = []
+    for line in lines:
+        line = EXAMPLE_TIMING.sub("", line.replace(str(out_dir), "<out>"))
+        out.append([float(m.replace(",", ""))
+                    for m in EXAMPLE_NUMBER.findall(line)])
+    return out
+
+
+def example_mismatches(got, want):
+    """The lines whose numbers differ between two runs of an example
+    beyond EXAMPLE_RTOL / EXAMPLE_ATOL, or hold a non-finite number."""
+    if len(got) != len(want):
+        return [f"{len(got)} lines against {len(want)}"]
+    bad = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if len(a) != len(b) or not all(
+                math.isfinite(u) and math.isfinite(v)
+                and abs(u - v) <= EXAMPLE_ATOL + EXAMPLE_RTOL * max(abs(u),
+                                                                    abs(v))
+                for u, v in zip(a, b)):
+            bad.append(f"line {i}: {a} against {b}")
+    return bad
+
+
+def examples_phase(card, work):
+    """23d. Each examples/torch/ script on the card at the tests' small
+    arguments (no --cpu), twice, all sixteen runs at once in subprocesses
+    (EXAMPLE_RUNNER): on the kernels, each kernel call held against its
+    plain version on the same inputs, and all-plain. Each run exits 0 with
+    its key line within EXAMPLE_TIMEOUT_S; every kernel call within its
+    tolerance; every script but the lossless one launches kernels, the
+    plain twin none; every number the two runs print (bar wall-clock
+    figures) finite and within EXAMPLE_RTOL / EXAMPLE_ATOL of the
+    other's. Wall times and kernel launches."""
+    from contextlib import ExitStack
+
+    root = Path(__file__).resolve().parent
+    procs, ends = {}, {}
+    with ExitStack() as files:
+        for script, args, _ in EXAMPLE_RUNS:
+            for mode in ("kernels", "plain"):
+                run_args = list(args)
+                if script == "codec_demo.py":
+                    run_args += ["--out-dir",
+                                 str(work / f"codec_demo.{mode}")]
+                logs = [files.enter_context(
+                    open(work / f"{script}.{mode}.{k}", "w"))
+                    for k in ("out", "err")]
+                procs[script, mode] = (time.monotonic(), subprocess.Popen(
+                    [sys.executable, "-c", EXAMPLE_RUNNER, mode,
+                     str(root / "examples" / "torch" / script), *run_args],
+                    cwd=root, stdout=logs[0], stderr=logs[1]))
+        while len(ends) < len(procs):
+            for run, (t0, proc) in procs.items():
+                if run in ends:
+                    continue
+                if proc.poll() is not None:
+                    ends[run] = time.monotonic() - t0
+                elif time.monotonic() - t0 > EXAMPLE_TIMEOUT_S:
+                    proc.kill()
+                    proc.wait()
+                    ends[run] = time.monotonic() - t0
+            time.sleep(0.05)
+    out, failed = {}, []
+    for script, _, key in EXAMPLE_RUNS:
+        res, ran = {}, True
+        for mode in ("kernels", "plain"):
+            rc = procs[script, mode][1].returncode
+            text = (work / f"{script}.{mode}.out").read_text().splitlines()
+            tail = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+                    for ln in text
+                    if ln.startswith(("launches {", "kernel_errors {"))}
+            printed = [ln for ln in text
+                       if not ln.startswith(("launches {", "kernel_errors {"))]
+            res[mode] = dict(
+                rc=rc, wall_s=ends[script, mode],
+                lines=[ln for ln in printed if key in ln],
+                launches=tail.get("launches"),
+                kernel_errors=tail.get("kernel_errors"),
+                numbers=example_numbers(printed,
+                                        work / f"codec_demo.{mode}"))
+            if rc != 0 or not res[mode]["lines"]:
+                ran = False
+                failed.append(f"{script} ({mode})")
+                print((work / f"{script}.{mode}.err").read_text()[-2000:],
+                      file=sys.stderr)
+        k, p = res["kernels"], res["plain"]
+        mismatches = example_mismatches(k["numbers"], p["numbers"])
+        errors = k["kernel_errors"] or {}
+        unchecked = {name: n for name, n in (k["launches"] or {}).items()
+                     if errors.get(name, {}).get("calls") != n}
+        beyond = {name: e for name, e in errors.items() if e["ratio"] > 1.0}
+        out[script] = dict(
+            wall_s=dict(kernels=k["wall_s"], plain=p["wall_s"]),
+            launches=k["launches"], plain_launches=p["launches"],
+            kernel_errors=errors, lines=k["lines"], plain_lines=p["lines"],
+            mismatches=mismatches)
+        print(f"example {script}: exit {k['rc']} in {k['wall_s']:.1f} s on "
+              f"the kernels (plain twin: exit {p['rc']} in "
+              f"{p['wall_s']:.1f} s), launches {k['launches']} (twin "
+              f"{p['launches']}), worst call of each kernel against its "
+              f"plain version " + ", ".join(
+                  f"{name} {e['max_abs_err']:.3e} (tol {e['tol']:.0e}, "
+                  f"{e['calls']} calls at {e['shapes']})"
+                  for name, e in errors.items())
+              + ": " + " | ".join(k["lines"]) + f"; the twin: "
+              + " | ".join(p["lines"]) + f" [{card}]")
+        if not ran:
+            continue
+        check(not mismatches,
+              f"example {script}: the kernels' run and its plain twin "
+              f"differ: {mismatches}")
+        check(not unchecked, f"example {script}: kernel calls not held "
+              f"against their plain versions: {unchecked}")
+        check(not beyond, f"example {script}: kernel calls beyond their "
+              f"tolerance: {beyond}")
+        check(not p["launches"],
+              f"example {script}: the plain twin launched {p['launches']}")
+    check(not failed, f"examples: {failed} failed or lacked their key line")
+    # every script but the lossless one runs the MDCT on the kernels
+    idle = [k for k, v in out.items()
+            if k != "archival_demo.py" and not v["launches"]]
+    check(not idle, f"examples: {idle} launched no kernel on the card")
+    return out
+
+
+def tools_phase(torch, dev, entries, card):
+    """23. The compat shim, utils/profiling, utils/debug and the
+    examples (a-d)."""
+    import tempfile
+
+    from audiocodec_tpu_torch import Codec
+
+    out = dict(compat=compat_phase(torch, dev, entries, card))
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    x = make_signal(torch, dev, torch.float32)
+    work_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work_root) as tmp:
+        out["profiling"] = profiling_phase(torch, dev, codec, x, card,
+                                           Path(tmp) / "trace")
+        out["debug"] = debug_phase(torch, dev, codec, x)
+        del codec, x
+        torch.cuda.empty_cache()
+        out["examples"] = examples_phase(card, Path(tmp))
+    return out
+
+
 def noise_phases(torch, dev, entries):
     """Phases 7-10."""
     from audiocodec_tpu_torch import Codec
@@ -4704,12 +5179,17 @@ def main(argv=None) -> int:
     # 22. scale-out and checkpoints
     t22 = time.monotonic()
     scale = scale_phase(torch, dev, smi)
+
+    # 23. the compat shim, profiling, debug and the examples
+    t23 = time.monotonic()
+    tools = tools_phase(torch, dev, entries, smi)
     print(f"wall: phases 1-10 {t11 - t0:.1f} s, 11 {t12 - t11:.1f} s, 12 "
           f"{t13 - t12:.1f} s, 13 {t14 - t13:.1f} s, 14 {t15 - t14:.1f} s, "
           f"15 {t16 - t15:.1f} s, 16 {t17 - t16:.1f} s, 17 "
           f"{t18 - t17:.1f} s, 18 {t19 - t18:.1f} s, 19 "
           f"{t20 - t19:.1f} s, 20 {t21 - t20:.1f} s, 21 "
-          f"{t22 - t21:.1f} s, 22 {time.monotonic() - t22:.1f} s")
+          f"{t22 - t21:.1f} s, 22 {t23 - t22:.1f} s, 23 "
+          f"{time.monotonic() - t23:.1f} s")
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
@@ -4718,7 +5198,7 @@ def main(argv=None) -> int:
                       "waveform_grads": waveform_grads, "probe": probe,
                       "rvq": rvq, "ladder": ladder, "acz": acz,
                       "stream": stream, "cli": cli, "serve": served,
-                      "corpus": corpus, "scale": scale}))
+                      "corpus": corpus, "scale": scale, "tools": tools}))
     for e in entries:
         check(e["launches"], f"{e['name']}: no launch in the path's run")
     print(json.dumps({"kernels": entries}))

@@ -191,10 +191,87 @@ def test_import_loads_no_jax():
             "audiocodec_tpu_torch.parallel.multihost, "
             "audiocodec_tpu_torch.parallel.sequence, "
             "audiocodec_tpu_torch.utils.device, "
-            "audiocodec_tpu_torch.utils.serialization; "
+            "audiocodec_tpu_torch.utils.serialization, "
+            "audiocodec_tpu_torch.compat, "
+            "audiocodec_tpu_torch.utils.profiling, "
+            "audiocodec_tpu_torch.utils.debug; "
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'ml_dtypes.', 'audiocodec_tpu.')) or "
             "m == 'audiocodec_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+# -- the public surface (the JAX package's names and constructors) -------------
+
+
+def test_public_surface_covers_jax():
+    import audiocodec_tpu
+    import audiocodec_tpu_torch
+
+    assert set(audiocodec_tpu.__all__) <= set(audiocodec_tpu_torch.__all__)
+    from audiocodec_tpu_torch import (  # noqa: F401
+        Resampler, __version__, lossless, metrics, nf, tns)
+
+
+def test_version_matches_pyproject():
+    import tomllib
+
+    import audiocodec_tpu_torch
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        version = tomllib.load(f)["project"]["version"]
+    assert audiocodec_tpu_torch.__version__ == version
+
+
+def _buffers(module):
+    return {k: v for k, v in module.state_dict().items()}
+
+
+@pytest.mark.parametrize("build", [
+    lambda cls: (cls.create(64, device="cpu"), cls(64, device="cpu")),
+    lambda cls: (cls.create(64, "sine", torch.float64, device="cpu"),
+                 cls(64, "sine", torch.float64, device="cpu")),
+], ids=["defaults", "positional"])
+def test_mdct_create_is_the_constructor(build):
+    from audiocodec_tpu_torch import MDCT
+
+    made, plain = build(MDCT)
+    assert type(made) is MDCT
+    got, want = _buffers(made), _buffers(plain)
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_psycho_create_is_the_constructor(calibrated):
+    from audiocodec_tpu_torch import PsychoacousticModel
+
+    made = PsychoacousticModel.create(16000, filter_bands_n=64,
+                                      calibrated=calibrated, device="cpu")
+    plain = PsychoacousticModel(16000, 64, calibrated=calibrated,
+                                device="cpu")
+    assert type(made) is PsychoacousticModel
+    got, want = _buffers(made), _buffers(plain)
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def test_codec_create_takes_jax_order():
+    import inspect
+
+    from audiocodec_tpu.codec import Codec as JaxCodec
+    from audiocodec_tpu_torch import Codec
+
+    renames = {"use_pallas": "use_kernel", "pallas_kernel": "kernel_design"}
+    jax_names = [renames.get(p, p) for p in
+                 inspect.signature(JaxCodec.create).parameters]
+    names = list(inspect.signature(Codec.create).parameters)
+    assert names == jax_names + ["calibrated", "device"]
+    # a positional sidecar_grid lands in sidecar_grid
+    codec = Codec.create(16000, 64, 16, 0.6, "vorbis", torch.float32, False,
+                         "auto", "highest", None, "auto", 2, device="cpu")
+    assert codec.sidecar_grid == 2 and not codec.psycho.calibrated

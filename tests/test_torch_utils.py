@@ -1,0 +1,224 @@
+"""The port's utils/profiling and utils/debug on the CPU, held to the JAX
+package's utils where both compute the same thing (find_nonfinite) and to
+tests/test_aux.py's checkify tests where torch has no checkify."""
+
+import json
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiocodec_tpu.utils import debug as jax_debug
+from audiocodec_tpu_torch import Codec, rate
+from audiocodec_tpu_torch.io import stream_container
+from audiocodec_tpu_torch.utils import debug, profiling
+
+torch.set_num_threads(1)
+PACKAGE = Path(__file__).resolve().parent.parent / "audiocodec_tpu_torch"
+
+
+def _codec():
+    return Codec.create(16000, filters_n=64, bark_bands_n=16, device="cpu")
+
+
+# -- profiling -----------------------------------------------------------------
+
+
+def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
+    codec = _codec()
+    x = torch.full((1, 4 * 64, 1), 0.3)
+    with profiling.trace(str(tmp_path / "trace")):
+        with profiling.span("codec.round_trip_quantized"):
+            codec.round_trip_quantized(x)
+    files = list((tmp_path / "trace").glob("*.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "codec.round_trip_quantized" for e in events)
+
+
+def test_span_changes_nothing():
+    codec = _codec()
+    x = torch.linspace(-0.5, 0.5, 4 * 64).reshape(1, -1, 1)
+    want = codec.round_trip_quantized(x)
+    with profiling.span("label"):
+        got = codec.round_trip_quantized(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_host_stages_use_the_one_span():
+    assert rate.span is profiling.span
+    assert stream_container.span is profiling.span
+    for path in PACKAGE.rglob("*.py"):
+        if path.name != "profiling.py":
+            assert "record_function" not in path.read_text(), path
+
+
+def test_time_fn_returns_positive_seconds():
+    x = torch.ones((64, 64))
+    dt = profiling.time_fn(lambda a: a @ a, x, iters=2)
+    assert 0 < dt < 10.0
+    calls = []
+    profiling.time_fn(lambda: calls.append(1), iters=3)
+    assert len(calls) == 4  # one warm call, then iters timed ones
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([(0, 10)], (10, 10)),
+    ([(0, 10), (5, 15)], (15, 15)),          # overlapping
+    ([(5, 15), (0, 10), (2, 3)], (15, 15)),  # unsorted, nested
+    ([(0, 2), (2, 4)], (4, 4)),              # touching
+    ([(0, 2), (6, 8)], (4, 8)),              # a gap
+    ([(0, 10), (1, 2), (12, 13)], (11, 13)),
+])
+def test_covered(spans, want):
+    assert profiling.covered(spans) == want
+
+
+def test_kernel_events_of_a_cpu_trace_are_empty():
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones((16, 16))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        x @ x
+    assert prof.events() and profiling.kernel_events(prof) == []
+
+
+# -- chip_smoke.py's phase 23d helpers -----------------------------------------
+
+
+@pytest.mark.parametrize("kernels,plain,bad", [
+    (["SNR 13.88 dB", "final mean gain: 0.460"],
+     ["SNR 13.88 dB", "final mean gain: 0.460"], 0),
+    # wall-clock figures and the output directory are left out
+    (["level 1: 419,225 bytes  encode 63 audio-s/s  decode 142 audio-s/s",
+      "1 s window at 2.0 s -> 5.4 ms vs 17 ms full decode (3x less work)",
+      "input: OUT/input.wav (5.0 s)"],
+     ["level 1: 419,225 bytes  encode 48 audio-s/s  decode 124 audio-s/s",
+      "1 s window at 2.0 s -> 7.1 ms vs 23 ms full decode (4x less work)",
+      "input: OUT/input.wav (5.0 s)"], 0),
+    (["loss 17.475588"], ["loss 17.48"], 0),        # printed digits
+    (["SNR 13.88 dB"], ["SNR 14.50 dB"], 1),        # beyond 1% + 0.05
+    (["loss nan"], ["loss nan"], 1),                # non-finite
+    (["60757 bytes"], ["60757 bytes", "extra"], 1),  # a line missing
+])
+def test_chip_smoke_example_comparison(tmp_path, kernels, plain, bad):
+    import chip_smoke
+
+    def numbers(lines, mode):
+        out = tmp_path / mode
+        return chip_smoke.example_numbers(
+            [ln.replace("OUT", str(out)) for ln in lines], out)
+
+    got = chip_smoke.example_mismatches(numbers(kernels, "k1"),
+                                        numbers(plain, "p2"))
+    assert len(got) == bad, got
+
+
+def test_chip_smoke_checking_kernels_holds_each_call():
+    """Each wrapper call, forward and backward, is recorded with its shape,
+    tier, error and tolerance (here on the CPU, where a wrapper is its
+    plain version), and the wrappers are restored afterwards."""
+    import chip_smoke
+
+    from audiocodec_tpu_torch import MDCT
+    from audiocodec_tpu_torch.ops import cuda_mdct
+
+    m = MDCT(256, use_kernel=True, dct_precision="highest", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (2, 256 * 4, 1)).astype(np.float32)).requires_grad_()
+    errors, original = {}, cuda_mdct.fold_matmul
+    with chip_smoke.checking_kernels(torch, errors):
+        assert cuda_mdct.fold_matmul is not original
+        m.inverse_transform(m.transform(x)).sum().backward()
+    assert sorted(errors) == ["fold_matmul", "fold_matmul_vjp",
+                              "matmul_scatter", "matmul_scatter_vjp"]
+    for name, e in errors.items():
+        # on the CPU the wrapper is its plain version: no error
+        assert (e["calls"], e["tier"], e["max_abs_err"], e["ratio"]) == (
+            1, "highest", 0.0, 0.0), name
+        assert e["tol"] > 0 and e["shapes"][0][0] == 2
+    assert errors["fold_matmul"]["shapes"] == [[2, 4, 256]]
+    assert cuda_mdct.fold_matmul is original
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+# -- debug ---------------------------------------------------------------------
+
+
+class TestChecked:
+    """tests/test_aux.py::TestCheckify on the port."""
+
+    def test_clean_pipeline_passes(self):
+        codec = _codec()
+        x = torch.ones((1, 4 * 64, 1), dtype=torch.float32) * 0.3
+        checked = debug.checked(
+            lambda x, g: codec.round_trip(x, g)
+        )
+        err, out = checked(x, torch.Generator().manual_seed(0))
+        err.throw()  # no error
+        assert err.get() is None
+        assert out.shape == (1, 6 * 64, 1)
+
+    def test_nan_input_caught(self):
+        codec = _codec()
+        x = torch.full((1, 4 * 64, 1), float("nan"), dtype=torch.float32)
+        checked = debug.checked(lambda x, g: codec.round_trip(x, g))
+        err, _ = checked(x, torch.Generator().manual_seed(0))
+        with pytest.raises(FloatingPointError, match="non-finite"):
+            err.throw()
+
+    def test_the_first_failed_check_is_named(self):
+        def pipeline(x):
+            debug.assert_finite(x, "input")
+            y = debug.assert_finite(x / 0.0, "ratio")
+            return {"ok": x, "bad": [x, y]}
+
+        err, out = debug.checked(pipeline)(torch.ones(3))
+        assert err.get() == "ratio contains NaN/Inf"
+        err, out = debug.checked(lambda x: {"ok": x, "bad": [x, x / 0]})(
+            torch.ones(3))
+        with pytest.raises(FloatingPointError,
+                           match=r"output\['bad'\]\[1\]"):
+            err.throw()
+        assert debug.checked(lambda: None)()[0].get() is None
+
+
+def test_assert_finite_outside_checked_returns_its_input():
+    x = torch.tensor([1.0, float("nan")])
+    assert debug.assert_finite(x) is x
+    assert debug._CHECKS.get() is None
+
+
+def test_find_nonfinite_matches_jax():
+    values = {
+        "good": np.ones(4, np.float32),
+        "bad": np.asarray([1.0, np.nan, np.inf, 2.0], np.float32),
+        "rows": [np.zeros(2, np.float32),
+                 (np.asarray([np.nan, -np.inf, 0.0], np.float32),
+                  np.arange(3))],
+    }
+
+    def tree(to):
+        return {"good": to(values["good"]), "bad": to(values["bad"]),
+                "rows": [to(values["rows"][0]),
+                         (to(values["rows"][1][0]),
+                          to(values["rows"][1][1]))]}
+
+    want = jax_debug.find_nonfinite(tree(jnp.asarray))
+    assert want == {"['bad']": 2, "['rows'][1][0]": 2}
+    assert debug.find_nonfinite(tree(torch.from_numpy)) == want
+    assert debug.find_nonfinite(tree(np.asarray)) == want
+
+
+def test_find_nonfinite_walks_modules_and_named_tuples():
+    from audiocodec_tpu_torch.codec import EncodedFrames
+
+    codec = _codec()
+    assert debug.find_nonfinite(codec) == {}
+    codec.psycho.W[0, 0] = float("nan")
+    assert debug.find_nonfinite({"codec": codec}) == {"['codec'].psycho.W": 1}
+    frames = EncodedFrames(torch.zeros(2, dtype=torch.int32),
+                           torch.tensor([float("inf")]), None, None)
+    assert debug.find_nonfinite(frames) == {".bark16": 1}
