@@ -40,8 +40,9 @@ memory is bounded by the chunk: the signal may stay on the host.
 The reader gives the codes and members as numpy arrays and the sidecar as a
 CPU ``torch.bfloat16`` tensor, as ``io/bitstream.unpack`` does. The host
 spans are labelled for ``torch.profiler``: ``stream.step`` (a chunk's
-device work queued), ``stream.d2h`` (the wait for its payload) and
-``stream.pack`` (Rice coding and the write) in the encoder,
+device work queued; inside it ``stream.h2d``, the chunk's copy to the
+device, and the codec's stage spans), ``stream.d2h`` (the wait for its
+payload) and ``stream.pack`` (Rice coding and the write) in the encoder,
 ``stream.read`` (the worker's read, CRC and Rice decode) and
 ``stream.step`` in the decoder.
 """
@@ -1215,7 +1216,9 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
                 tctx = None
                 continue
             with span("stream.step"):
-                x_k = x[:, start:start + chunk].to(dev, non_blocking=True)
+                with span("stream.h2d"):
+                    x_k = x[:, start:start + chunk].to(dev,
+                                                       non_blocking=True)
                 carry, tctx, enc, fecq = _encode_step(
                     codec, carry, x_k, drown, ts_k, ms, deadzone,
                     fec_mult=fec, codec_fec=codec_fec, tmask_context=tctx,

@@ -31,6 +31,7 @@ from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.ops import folding as _folding
 from audiocodec_tpu_torch.ops import radix as _radix
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils.profiling import span
 
 _FOLD_WEIGHTS = ("wa_r", "wb", "wc", "ffr")
 _UNFOLD_WEIGHTS = ("p", "q", "r", "s_r")
@@ -327,6 +328,7 @@ class MDCT(nn.Module):
             self.kernel_args(direction), self.vjp_args(direction),
         )
 
+    @span("mdct.analysis")
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         """MDCT analysis: [B, S, C] -> [B, S/N + 1, N, C]."""
         _dtypes.check_input_dtype(x, self.compute_dtype, "transform input")
@@ -362,6 +364,7 @@ class MDCT(nn.Module):
             )
         return y.permute(0, 2, 3, 1)
 
+    @span("mdct.synthesis")
     def inverse_transform(self, mdct_amplitudes: torch.Tensor) -> torch.Tensor:
         """MDCT synthesis: [B, T, N, C] -> [B, (T + 1) * N, C]."""
         _dtypes.check_input_dtype(

@@ -25,6 +25,7 @@ from torch import nn
 from audiocodec_tpu_torch.ops import cuda_noise as _noise
 from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils.profiling import span
 
 DB_MAX = 120.0
 INTENSITY_EPS = 1e-14
@@ -367,6 +368,7 @@ class PsychoacousticModel(nn.Module):
         db = self.amplitude_to_dB(mdct_amplitude)
         return (db - self.c_db_min) / self.c_db_range
 
+    @span("psycho.tonality")
     def tonality(self, mdct_amplitudes: torch.Tensor) -> torch.Tensor:
         """Tonality in [0, 1] (0 = noise, 1 = tonal) from the spectral
         flatness measure, Zolzer eqs. 9.10-9.11."""
@@ -425,6 +427,7 @@ class PsychoacousticModel(nn.Module):
             thr = torch.maximum(thr, self.quiet_threshold_freq_amp)
         return thr
 
+    @span("psycho.masking")
     def global_masking_intensity_in_bark(
         self, mdct_amplitudes, tonality_per_block, drown=0.0
     ) -> torch.Tensor:
@@ -434,6 +437,7 @@ class PsychoacousticModel(nn.Module):
         )
         return torch.maximum(masking, self.quiet_threshold_intensity)
 
+    @span("psycho.threshold")
     def bark_intensity_to_threshold(self, bark_intensity) -> torch.Tensor:
         """Bark-band intensities -> filter-band threshold amplitudes: linear
         intensity split, then sqrt."""

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from audiocodec_tpu_torch.utils.profiling import span
+
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-d constant in ``like``'s dtype, kept on the host: a CUDA kernel
@@ -28,6 +30,7 @@ def step_size(masking_threshold: torch.Tensor,
     )
 
 
+@span("quantize.quantize")
 def quantize(mdct_amplitudes: torch.Tensor, masking_threshold: torch.Tensor,
              deadzone: float = 0.5):
     """Quantize spectra to integer codes.
@@ -60,6 +63,7 @@ def dz_recon_offset(deadzone: float, recon_point=None) -> float:
     return deadzone + recon_point - 1.0
 
 
+@span("quantize.dequantize")
 def dequantize(codes: torch.Tensor, delta: torch.Tensor, dtype=None,
                recon_offset: float = 0.0) -> torch.Tensor:
     """Reconstruct spectra from integer codes and step sizes."""

@@ -2,22 +2,31 @@
 
 The reference's only tracing hook is a single tf.name_scope
 (psychoacoustic.py:138). Here the port's host stages run under
-:func:`span` (a ``torch.profiler`` label, and an NVTX range once CUDA is
-initialised), and this module adds the user-facing entry points: a trace
-context manager writing a chrome trace, a best-of timer of one blocking
-call (:func:`time_fn`), and the device time of a call: the mean over
-calls queued back to back (:func:`cuda_ms`) and the union of its kernels'
-spans in a trace (:func:`covered`, :func:`device_busy_ms`).
+:func:`span` (a ``torch.profiler`` label while a profiler records, and an
+NVTX range once CUDA is initialised): the codec's seven stages
+(``mdct.analysis``, ``mdct.synthesis``, ``psycho.tonality``,
+``psycho.masking``, ``psycho.threshold``, ``quantize.quantize``,
+``quantize.dequantize``; none runs inside another), the stream
+container's ``stream.*`` and the rate search's ``rate.*``. This module
+adds the user-facing entry points: a trace context manager writing a
+chrome trace, a best-of timer of one blocking call (:func:`time_fn`), and
+the device time of a call: the mean over calls queued back to back
+(:func:`cuda_ms`) and the union of its kernels' spans in a trace
+(:func:`covered`, :func:`device_busy_ms`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
+
+# whether a torch profiler records on this thread (~0.1 us)
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 @contextlib.contextmanager
@@ -44,20 +53,49 @@ def trace(log_dir: str):
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def span(name: str):
+class span:
     """Label the enclosed host work ``name`` in a ``torch.profiler`` trace
     and, once CUDA is initialised, as an NVTX range. Changes nothing that
-    computes."""
-    nvtx = torch.cuda.is_initialized()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    computes. ``with span(name):`` labels a block; ``@span(name)`` labels
+    every call of a function, its whole body.
+
+    Free when nothing records: the profiler's label (a dispatcher op and a
+    ``RecordFunction`` each time) is entered only while a torch profiler
+    records on this thread, where it is the same label, nesting and clock
+    as always. The NVTX range, Nsight's route, is pushed whenever CUDA is
+    initialised."""
+
+    __slots__ = ("name", "_label", "_nvtx")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._nvtx = torch.cuda.is_initialized()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self._label = None
+        if _profiler_enabled():
+            self._label = record_function(self.name)
+            self._label.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            if self._label is not None:
+                self._label.__exit__(*exc)
+        finally:
+            if self._nvtx:
+                torch.cuda.nvtx.range_pop()
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def labelled(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return labelled
 
 
 def _first_tensor(out):
@@ -143,9 +181,17 @@ def covered(spans):
 
 def kernel_events(prof) -> list:
     """The device's events (its kernels and copies) in a
-    ``torch.profiler`` trace."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ``torch.profiler`` trace. A host label (a :func:`span`, a
+    ``record_function``) also gets a row on the device's timeline, from
+    its first kernel's start to its last one's end: that row is no device
+    work, and is left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    labels = {e.name for e in events if e.device_type != cuda
+              and getattr(e, "is_user_annotation", False)}
+    return [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in labels]
 
 
 def device_busy_ms(fn, calls: int = 10) -> float:

@@ -2381,6 +2381,8 @@ def trace_search(torch, fn, prefix="rate."):
     spans labelled ``prefix*`` (the rate search's ``rate.*``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from audiocodec_tpu_torch.utils import profiling
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2388,14 +2390,14 @@ def trace_search(torch, fn, prefix="rate."):
         out = fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    spans, host = [], {}
+    host = {}
     for e in prof.events():
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        if e.name.startswith(prefix):
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                host[e.name] = host.get(e.name, 0.0) + ms
-        elif e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
+        if (e.name.startswith(prefix)
+                and e.device_type != torch.autograd.DeviceType.CUDA):
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            host[e.name] = host.get(e.name, 0.0) + ms
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in profiling.kernel_events(prof)]
     busy, span = covered(spans)
     return out, dict(wall_ms=wall, device_busy_ms=busy / 1e3,
                      device_span_ms=span / 1e3,

@@ -177,6 +177,30 @@ def test_round_trip_quantized_copies_nothing_to_the_card():
     assert not [n for n in names if "HtoD" in n]
 
 
+def test_kernel_events_hold_no_stage_label():
+    """Each stage span also gets a row on the device's timeline (its
+    first kernel to its last); ``kernel_events`` gives the kernels and
+    copies alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiocodec_tpu_torch.utils import profiling
+
+    c = Codec.create(44100, device="cuda")
+    x = torch.zeros(2, 8 * 1024, 1, device="cuda")
+    c.round_trip_quantized(x)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c.round_trip_quantized(x)
+        torch.cuda.synchronize()
+    labels = {e.name for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CUDA
+              and e.is_user_annotation}
+    names = {e.name for e in profiling.kernel_events(prof)}
+    assert "psycho.masking" in labels
+    assert any("split_gemm_kernel" in n for n in names)
+    assert not labels & names
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     m = MDCT(256, use_kernel=True, device="cuda")
     fwd = m.kernel_args("forward")

@@ -457,3 +457,39 @@ def test_cbr_stream_vector():
     assert list(pcm.shape) == want["pcm_shape"]
     got = np.round(np.clip(wave.astype(np.float64), -1, 1) * 32767.0)
     assert np.abs(got.astype(np.int64) - pcm.astype(np.int64)).max() <= 4
+
+
+ENCODE_STAGES = ("mdct.analysis", "psycho.tonality", "psycho.masking",
+                 "psycho.threshold", "quantize.quantize")
+
+
+def test_encode_stream_spans(tmp_path):
+    """Under the profiler each body chunk's step holds one ``stream.h2d``
+    (its copy in) and the encode's five stage spans; the flush frame's
+    stages lie outside every step, and ``stream.pack`` holds no span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def below(event):
+        for child in event.cpu_children:
+            yield child
+            yield from below(child)
+
+    codec = Codec.create(SR, filters_n=N, bark_bands_n=BARK, device="cpu")
+    x = torch.from_numpy(signal(2, dtype=np.float32))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        chunks = sc.encode_stream(codec, x, str(tmp_path / "a.acs"),
+                                  chunk_blocks=CB)
+    events = prof.events()
+    steps = [e for e in events if e.name == "stream.step"]
+    h2d = [e for e in events if e.name == "stream.h2d"]
+    assert len(steps) == len(h2d) == chunks - 1 == 16 // CB
+    assert all(e.cpu_parent.name == "stream.step" for e in h2d)
+    for step in steps:
+        names = [e.name for e in below(step)]
+        assert names.count("stream.h2d") == 1
+        assert all(names.count(stage) == 1 for stage in ENCODE_STAGES)
+    analyses = [e for e in events if e.name == "mdct.analysis"]
+    assert len(analyses) == chunks  # the flush frame's: outside the steps
+    for pack in (e for e in events if e.name == "stream.pack"):
+        assert not {e.name for e in below(pack)} & set(
+            ENCODE_STAGES + ("stream.h2d",))

@@ -11,12 +11,16 @@ import pytest
 import torch
 
 from audiocodec_tpu.utils import debug as jax_debug
-from audiocodec_tpu_torch import Codec, rate
+from audiocodec_tpu_torch import Codec, mdct, psycho, quantize, rate
 from audiocodec_tpu_torch.io import stream_container
 from audiocodec_tpu_torch.utils import debug, profiling
 
 torch.set_num_threads(1)
 PACKAGE = Path(__file__).resolve().parent.parent / "audiocodec_tpu_torch"
+# the codec's stage spans: none runs inside another
+STAGES = ("mdct.analysis", "mdct.synthesis", "psycho.tonality",
+          "psycho.masking", "psycho.threshold", "quantize.quantize",
+          "quantize.dequantize")
 
 
 def _codec():
@@ -47,12 +51,90 @@ def test_span_changes_nothing():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _profiled(fn):
+    """(fn's output, the events of a CPU profile of the call)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def _enclosing(event):
+    names, parent = [], event.cpu_parent
+    while parent is not None:
+        names.append(parent.name)
+        parent = parent.cpu_parent
+    return names
+
+
+def test_span_enters_no_label_when_nothing_records(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    with profiling.span("label"):
+        pass
+    assert profiling.span("wrapped")(lambda a: a + 1)(1) == 2
+    _codec().round_trip_quantized(torch.full((1, 4 * 64, 1), 0.3))
+    monkeypatch.undo()
+
+    def labelled():
+        with profiling.span("label"):
+            profiling.span("wrapped")(lambda: None)()
+
+    _, events = _profiled(labelled)
+    (inner,) = [e for e in events if e.name == "wrapped"]
+    assert _enclosing(inner)[0] == "label"
+
+
+def test_span_ends_its_label_when_the_body_raises():
+    def fail():
+        with profiling.span("label"):
+            raise KeyError("body")
+
+    def run():
+        with pytest.raises(KeyError):
+            fail()
+        with profiling.span("after"):
+            pass
+
+    _, events = _profiled(run)
+    (after,) = [e for e in events if e.name == "after"]
+    assert "label" not in _enclosing(after)
+
+
 def test_host_stages_use_the_one_span():
-    assert rate.span is profiling.span
-    assert stream_container.span is profiling.span
+    for module in (rate, stream_container, mdct, psycho, quantize):
+        assert module.span is profiling.span, module
+    # a labelled function keeps its name and docstring
+    assert quantize.quantize.__name__ == "quantize"
+    assert mdct.MDCT.transform.__doc__.startswith("MDCT analysis")
     for path in PACKAGE.rglob("*.py"):
         if path.name != "profiling.py":
             assert "record_function" not in path.read_text(), path
+
+
+def test_round_trip_shows_each_stage_once_none_inside_another():
+    codec = _codec()
+    x = torch.linspace(-0.5, 0.5, 4 * 64).reshape(1, -1, 1)
+    _, events = _profiled(lambda: codec.round_trip_quantized(x))
+    stages = [e for e in events if e.name in STAGES]
+    assert sorted(e.name for e in stages) == sorted(STAGES)
+    for e in stages:
+        assert not set(_enclosing(e)) & set(STAGES), e.name
+
+
+def test_outputs_equal_with_and_without_a_recording_profiler():
+    codec = _codec()
+    x = torch.sin(torch.arange(8 * 64) * 0.3).reshape(1, -1, 1) * 0.4
+    want = codec.round_trip_quantized(x)
+    codes, delta, threshold = codec.encode_quantized(x)
+    got, _ = _profiled(lambda: codec.round_trip_quantized(x))
+    assert torch.equal(got, want)
+    (c, d, t), _ = _profiled(lambda: codec.encode_quantized(x))
+    assert torch.equal(c, codes) and torch.equal(d, delta)
+    assert torch.equal(t, threshold)
 
 
 def test_time_fn_returns_positive_seconds():
@@ -84,6 +166,27 @@ def test_kernel_events_of_a_cpu_trace_are_empty():
         x @ x
     assert prof.events() and profiling.kernel_events(prof) == []
 
+
+
+def test_kernel_events_leave_out_the_labels_device_rows():
+    from types import SimpleNamespace
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(name, device, annotation=False):
+        return SimpleNamespace(name=name, device_type=device,
+                               is_user_annotation=annotation)
+
+    events = [event("psycho.masking", cpu, True),
+              event("mdct.analysis", cpu, True),
+              event("aten::mul", cpu),
+              event("psycho.masking", cuda, True),  # kineto's label row
+              event("mdct.analysis", cuda),  # a label row left unmarked
+              event("split_gemm_kernel<6>", cuda),
+              event("Memcpy HtoD (Pageable -> Device)", cuda)]
+    prof = SimpleNamespace(events=lambda: events)
+    assert [e.name for e in profiling.kernel_events(prof)] == [
+        "split_gemm_kernel<6>", "Memcpy HtoD (Pageable -> Device)"]
 
 # -- chip_smoke.py's phase 23d helpers -----------------------------------------
 
