@@ -33,6 +33,7 @@ from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch import scq as _scq
 from audiocodec_tpu_torch import tns as _tns
 from audiocodec_tpu_torch.mdct import MDCT
+from audiocodec_tpu_torch.ops import cuda_psycho as _cuda_psycho
 from audiocodec_tpu_torch.psycho import PsychoacousticModel
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
 
@@ -160,11 +161,25 @@ class Codec(nn.Module):
                         drown=0.0) -> torch.Tensor:
         return self.decode(self.encode_fast(x, seed, drown))
 
+    def _fused(self, x: torch.Tensor) -> bool:
+        """Whether the deterministic encode of ``x`` runs the psycho/quantize
+        kernel (ops/cuda_psycho.py) between the transforms: ``x`` on the
+        card, float32 with float32 Bark products, no autograd graph
+        recorded, and rows of a multiple of 4 bins (16-byte aligned, as the
+        kernel reads them). Every other input takes the stagewise path."""
+        return (x.is_cuda and self.psycho.compute_dtype == torch.float32
+                and self.psycho.bark_precision in _cuda_psycho.PRECISIONS
+                and self.mdct.filters_n % 4 == 0
+                and not (torch.is_grad_enabled() and x.requires_grad))
+
     def encode_quantized(self, x: torch.Tensor, drown=0.0):
         """Deterministic encode of a waveform [B, S, C].
 
         :return: (codes int32 [B, S/N+1, N, C], step sizes, threshold).
         """
+        if self._fused(x):
+            return _cuda_psycho.psycho_quantize(
+                self.psycho, self.mdct.transform(x), drown, encode=True)
         spectrum, threshold = self._analyze(x, drown)
         codes, delta = _quantize.quantize(spectrum, threshold)
         return codes, delta, threshold
@@ -180,6 +195,9 @@ class Codec(nn.Module):
     def round_trip_quantized(self, x: torch.Tensor, drown=0.0) -> torch.Tensor:
         """encode_quantized + decode_quantized; the output has filters_n
         padding samples at each end relative to the input."""
+        if self._fused(x):
+            return self.decode(_cuda_psycho.psycho_quantize(
+                self.psycho, self.mdct.transform(x), drown))
         codes, delta, _ = self.encode_quantized(x, drown)
         return self.decode_quantized(codes, delta)
 

@@ -20,7 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mdct_kernels.cu", "noise_kernel.cu", "probe_kernels.cu")
+SOURCES = ("mdct_kernels.cu", "noise_kernel.cu", "probe_kernels.cu",
+           "psycho_kernel.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audiocodec_tpu_torch"
 NVCC_FLAGS = (
@@ -107,6 +108,9 @@ def library() -> ctypes.CDLL:
         ],
         "acx_probe_gemm": [ptr] * 3 + [i32, i32, f32, ptr],
         "acx_probe_shared_bytes": [i32],
+        "acx_psycho_quantize": [ptr] * 6 + [
+            ptr, ctypes.c_longlong, i32, i32, i32, i32, ptr,
+        ],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

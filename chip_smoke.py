@@ -266,7 +266,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    wrapper swapped for its plain version (no launch); each run exits 0
    with its key line within its timeout, and every number the two runs
    print (bar wall-clock figures) is finite and within 1% + 0.05 of the
-   other's; wall times.
+   other's; wall times;
+24. the psycho/quantize kernel (``ops/cuda_psycho.py``, one launch a call
+   of the deterministic encode in (r)) against its plain version, the
+   stagewise chain, at the main path's spectrum [32, 431, 1024, 1]: the
+   round trip equals the encode's codes times its steps bit for bit, codes
+   equal but at rounding ties (``tie_flips``), steps and thresholds within
+   ``PSYCHO_ULPS`` ulps, the dequantized spectrum's error energy within
+   ``PSYCHO_ERR`` of the plain one's; its time against its bound (the
+   spectrum read once, the result written once) and the plain version's,
+   which is the stagewise chain the codec ran before it; and
+   ``round_trip_quantized`` with the kernel and with the stagewise chain,
+   in audio-s/s, with its SNR within 0.05 dB of the stagewise one's.
 
 Each kernel line names the device functions its tier runs and carries its
 bound (the larger of its operations over the card's peak for the tier and
@@ -306,6 +317,7 @@ SEED = 1234
 SOURCE = "audiocodec_tpu_torch/csrc/mdct_kernels.cu"
 NOISE_SOURCE = "audiocodec_tpu_torch/csrc/noise_kernel.cu"
 PROBE_SOURCE = "audiocodec_tpu_torch/csrc/probe_kernels.cu"
+PSYCHO_SOURCE = "audiocodec_tpu_torch/csrc/psycho_kernel.cu"
 # the probe's variants -> their kernel instances, in the order of the
 # variant codes (csrc/probe_kernels.cu ``Variant``)
 PROBE_VARIANTS = {"bf16": "BF16", "int8": "INT8", "int8_grouped": "INT8G"}
@@ -318,6 +330,7 @@ REPLACES = {
     "radix_fold_matmul": "audiocodec_tpu/ops/pallas_mdct.py:696",
     "radix_matmul_scatter": "audiocodec_tpu/ops/pallas_mdct.py:708",
     "add_masked_noise": "audiocodec_tpu/ops/pallas_noise.py:53",
+    "psycho_quantize": "none: XLA fuses the chain (audiocodec_tpu/codec.py)",
     "fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:641",
     "matmul_scatter_vjp": "audiocodec_tpu/ops/pallas_mdct.py:675",
     "radix_fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:729",
@@ -335,6 +348,15 @@ MEMORY_TB_S = 3.35
 # cos, 2 products: 14, 7 an element) and the masked add (2 products and a
 # sum)
 NOISE_OPS_PER_ELEMENT = 30
+# Phase 24: the psycho/quantize kernel against the stagewise chain. Only
+# the order of the sums differs (csrc/psycho_kernel.cu): the tonality's
+# sum of 1024 logs of ~-20 each carries a few ulps of ~2e4, which exp, the
+# offset's power of ten and the 1/alpha power pass on to the threshold,
+# ~1e-6 relative at most; 64 ulps are 7.6e-6, within the 1e-5 of
+# ``tie_flips``. The error energy is that of the tie flips and the steps'
+# ulps
+PSYCHO_ULPS = 64
+PSYCHO_ERR = 1e-9
 # Ragged views of phase 7: (first element, elements cut from the end); the
 # counts are not a multiple of 8, and a first element of 1 is not 16-byte
 # aligned (the kernel's scalar path)
@@ -525,18 +547,21 @@ def snr_db(x, out, n=FILTERS_N):
 
 
 def all_launch_counts():
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise, cuda_probe
+    from audiocodec_tpu_torch.ops import (cuda_mdct, cuda_noise, cuda_probe,
+                                          cuda_psycho)
 
     return {**cuda_mdct.launch_counts(), **cuda_noise.launch_counts(),
-            **cuda_probe.launch_counts()}
+            **cuda_probe.launch_counts(), **cuda_psycho.launch_counts()}
 
 
 def reset_all_launch_counts():
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise, cuda_probe
+    from audiocodec_tpu_torch.ops import (cuda_mdct, cuda_noise, cuda_probe,
+                                          cuda_psycho)
 
     cuda_mdct.reset_launch_counts()
     cuda_noise.reset_launch_counts()
     cuda_probe.reset_launch_counts()
+    cuda_psycho.reset_launch_counts()
 
 
 def expected_counts(**ones):
@@ -545,12 +570,14 @@ def expected_counts(**ones):
 
 
 def kernel_wrappers():
-    """(module, name) of every MDCT and noise kernel wrapper and VJP."""
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
+    """(module, name) of every MDCT, noise and psycho/quantize kernel
+    wrapper and VJP."""
+    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise, cuda_psycho
 
     return [(cuda_mdct, k.__name__)
             for k in cuda_mdct.KERNELS + cuda_mdct.VJPS] + [
-        (cuda_noise, "add_masked_noise")]
+        (cuda_noise, "add_masked_noise"),
+        (cuda_psycho, "psycho_quantize")]
 
 
 def plain_kernels():
@@ -687,6 +714,8 @@ def device_functions(name, tier):
         return device_functions(VJP_RUNS[name.removesuffix("_vjp")], tier)
     if name == "add_masked_noise":
         return "noise_kernel"
+    if name == "psycho_quantize":
+        return "psycho_quantize_kernel"
     if name.startswith("probe_"):
         return f"probe_kernel<{PROBE_VARIANTS[name.removeprefix('probe_')]}>"
     if name.startswith("radix"):
@@ -707,7 +736,8 @@ def entry(name, tier, dtype, config, n, route_tier=None, **numbers):
     it runs, if not ``tier``); ``launches`` is filled in by the run of the
     path ``config`` names."""
     label = dtype if tier is None else f"{tier},{dtype}"
-    source = {"add_masked_noise": NOISE_SOURCE}.get(
+    source = {"add_masked_noise": NOISE_SOURCE,
+              "psycho_quantize": PSYCHO_SOURCE}.get(
         name, PROBE_SOURCE if name.startswith("probe_") else SOURCE)
     return dict(name=f"{name}[{label}]", config=config, n=n,
                 route="cuda",
@@ -4027,7 +4057,8 @@ def max_abs(a, b):
 def scale_mdct(torch, dev, card):
     """22a. ``MDCT.transform``/``inverse_transform`` and ``encode_quantized``
     with the blocks split over SCALE_SP shards (215 blocks each), in (r)
-    and (b): one launch a shard, the same frames, synthesis and codes as
+    and (b): one launch a shard (and in (r) one psycho/quantize launch a
+    shard), the same frames, synthesis and codes as
     the unsharded call on the card, and the all-plain unsharded call's
     within the tier's tolerance."""
     import numpy as np
@@ -4042,6 +4073,8 @@ def scale_mdct(torch, dev, card):
         mdct = codec.mdct
         tier, dtype = mdct.kernel_precision, mdct.compute_dtype
         fwd, inv = (mdct.kernel_name(d) for d in ("forward", "inverse"))
+        # (r)'s float32 encode runs the psycho/quantize kernel, a shard each
+        fused = {"psycho_quantize": SCALE_SP} if k == "r" else {}
         codecs = sequence.replicas(codec, [dev] * SCALE_SP)
         x = make_signal(torch, dev, dtype)
 
@@ -4056,10 +4089,11 @@ def scale_mdct(torch, dev, card):
             outs, c_inv = counted(
                 torch, lambda: sequence.inverse_transform(codecs, shards))
             (codes, delta), c_enc = counted(torch, encode)
-            for label, c, name in (("transform", c_fwd, fwd),
-                                   ("inverse_transform", c_inv, inv),
-                                   ("encode_quantized", c_enc, fwd)):
-                check(c == stream_counts(**{name: SCALE_SP}),
+            for label, c, want in (
+                    ("transform", c_fwd, {fwd: SCALE_SP}),
+                    ("inverse_transform", c_inv, {inv: SCALE_SP}),
+                    ("encode_quantized", c_enc, {fwd: SCALE_SP, **fused})):
+                check(c == stream_counts(**want),
                       f"sharded {label} ({k}): launch counts {c}")
             frames = [b - a for a, b in sequence.block_bounds(
                 SAMPLES // mdct.filters_n, SCALE_SP)]
@@ -4110,7 +4144,8 @@ def scale_mdct(torch, dev, card):
                                                    iters=10))
         out[k] = dict(launches=dict(transform=c_fwd[fwd],
                                     inverse_transform=c_inv[inv],
-                                    encode_quantized=c_enc[fwd]),
+                                    encode_quantized=c_enc[fwd],
+                                    psycho_quantize=c_enc["psycho_quantize"]),
                       bit_equal=dict(transform=errs[
                           "transform_vs_unsharded"] == 0.0,
                           inverse=errs["inverse_vs_unsharded"] == 0.0),
@@ -4152,8 +4187,8 @@ def tie_flips(torch, label, codes, want_codes, spec, want_delta, rtol=1e-5):
 
 def scale_corpus(torch, dev, card):
     """22b. The corpus encoder on a dp=2, sp=2 mesh over SCALE_CORPUS_CLIPS
-    clips of 10 s in (r): one ``fold_matmul`` a shard, the unsharded
-    frames bit for bit, step sizes within 1e-5 and codes equal to the
+    clips of 10 s in (r): one ``fold_matmul`` and one ``psycho_quantize`` a
+    shard, the unsharded frames bit for bit, step sizes within 1e-5 and codes equal to the
     unsharded encode's but where those step sizes' last bits flip a
     rounding tie; audio-s/s beside the unsharded encode's."""
     import numpy as np
@@ -4170,7 +4205,8 @@ def scale_corpus(torch, dev, card):
     encoder = corpus.make_corpus_encoder(codec, grid)
     with torch.no_grad():
         (codes, delta), counts = counted(torch, lambda: encoder(x))
-        check(counts == stream_counts(fold_matmul=SCALE_DP * SCALE_SP),
+        check(counts == stream_counts(fold_matmul=SCALE_DP * SCALE_SP,
+                                      psycho_quantize=SCALE_DP * SCALE_SP),
               f"sharded corpus: launch counts {counts}")
         rows = sequence.mesh_rows(codec, grid)
         frames = torch.cat([torch.cat(sequence.transform(r, xr), 1)
@@ -4493,8 +4529,12 @@ def scale_resume(torch, dev, card, work):
     check(loaded.mdct.use_kernel is True,
           "load_codec: the kernels did not resolve on the card")
     with torch.no_grad():
-        same = torch.equal(loaded.round_trip_quantized(x),
-                           codec.round_trip_quantized(x))
+        loaded_rt, counts = counted(
+            torch, lambda: loaded.round_trip_quantized(x))
+        same = torch.equal(loaded_rt, codec.round_trip_quantized(x))
+    check(counts == expected_counts(fold_matmul=1, matmul_scatter=1,
+                                    psycho_quantize=1),
+          f"load_codec: round trip launch counts {counts}")
     check(same, "load_codec: the round trip differs from the saved codec's")
     out = dict(step3_loss=float(got), save_s=save_s, load_s=load_s,
                config=serialization.codec_config(loaded))
@@ -4806,8 +4846,6 @@ def example_child(argv):
 
     import torch
 
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise
-
     mode, script, *args = argv
     sys.argv = [script, *args]
     errors = {}
@@ -4817,7 +4855,7 @@ def example_child(argv):
         with stack:
             runpy.run_path(script, run_name="__main__")
     finally:
-        counts = {**cuda_mdct.launch_counts(), **cuda_noise.launch_counts()}
+        counts = all_launch_counts()
         print("launches " + json.dumps({k: v for k, v in counts.items() if v}))
         print("kernel_errors " + json.dumps(errors))
     return 0
@@ -4973,6 +5011,107 @@ def tools_phase(torch, dev, entries, card):
         torch.cuda.empty_cache()
         out["examples"] = examples_phase(card, Path(tmp))
     return out
+
+
+def max_ulps(torch, a, b):
+    """The largest distance in float32 ulps between two tensors of
+    positive floats."""
+    def bits(t):
+        return t.float().view(torch.int32).long()
+
+    return int((bits(a) - bits(b)).abs().max())
+
+
+def psycho_kernel_phase(torch, dev, entries, card):
+    """24. The psycho/quantize kernel against the stagewise chain at the main
+    path's spectrum, and the round trip with each."""
+    from audiocodec_tpu_torch import Codec
+    from audiocodec_tpu_torch.ops import cuda_psycho
+
+    codec = Codec.create(SAMPLE_RATE, bark_bands_n=64, device=dev,
+                         **NOISE_CONFIGS["r"])
+    psycho = codec.psycho
+    x = make_signal(torch, dev, torch.float32)
+    stagewise = mock.patch.object(cuda_psycho, "psycho_quantize",
+                                  cuda_psycho.psycho_quantize_reference)
+    with torch.no_grad():
+        spec = codec.mdct.transform(x)
+        cuda_psycho.reset_launch_counts()
+        out = cuda_psycho.psycho_quantize(psycho, spec)
+        codes, delta, thr = cuda_psycho.psycho_quantize(psycho, spec,
+                                                        encode=True)
+        torch.cuda.synchronize()
+        launches = cuda_psycho.launch_counts()["psycho_quantize"]
+        check(launches == 2, f"psycho_quantize: {launches} launches in two "
+                             "calls")
+        want_codes, want_delta, want_thr = (
+            cuda_psycho.psycho_quantize_reference(psycho, spec, encode=True))
+        want = cuda_psycho.psycho_quantize_reference(psycho, spec)
+        check(torch.equal(out, codes.float() * delta),
+              "psycho_quantize: the round trip is not the encode's codes "
+              "times its steps")
+        flips = tie_flips(torch, "psycho_quantize", codes, want_codes, spec,
+                          want_delta)
+        ulps = dict(delta=max_ulps(torch, delta, want_delta),
+                    threshold=max_ulps(torch, thr, want_thr))
+        err = float(((out.double() - want.double()) ** 2).sum()
+                    / (want.double() ** 2).sum())
+        print(f"kernel psycho_quantize float32 {tuple(spec.shape)}: "
+              f"{flips} of {codes.numel()} codes flipped at ties, ulps "
+              f"{ulps} (bound {PSYCHO_ULPS}), error energy {err:.3e} "
+              f"(bound {PSYCHO_ERR})")
+        check(max(ulps.values()) <= PSYCHO_ULPS,
+              f"psycho_quantize: {ulps} ulps > {PSYCHO_ULPS}")
+        check(err <= PSYCHO_ERR, f"psycho_quantize: error energy {err}")
+        del want_codes, want_thr
+        ms = cuda_ms(torch, lambda: cuda_psycho.psycho_quantize(psycho, spec))
+        enc_ms = cuda_ms(torch, lambda: cuda_psycho.psycho_quantize(
+            psycho, spec, encode=True))
+        plain_ms = cuda_ms(torch, lambda: cuda_psycho.psycho_quantize_reference(
+            psycho, spec), iters=10)
+        bound_ms, bound_by, _ = bound(0.0, nbytes(spec, out), "float32")
+        enc_bound_ms = bound(0.0, nbytes(spec, codes, delta, thr),
+                             "float32")[0]
+        print(f"psycho_quantize: round trip {ms:.4f} ms, encode {enc_ms:.4f}"
+              f" ms (bounds {bound_ms:.4f}, {enc_bound_ms:.4f} ms, bytes), "
+              f"plain (the stagewise chain) {plain_ms:.4f} ms [{card}]")
+        del out, codes, delta, thr, want, want_delta
+        rt, counts = {}, {}
+        mdct_once = {codec.mdct.kernel_name(d): 1
+                     for d in ("forward", "inverse")}
+        for label, ctx in (("kernel", None), ("stagewise", stagewise)):
+            if ctx is not None:
+                ctx.start()
+            try:
+                y, counts[label] = counted(
+                    torch, lambda: codec.round_trip_quantized(x))
+                t = cuda_ms(torch, lambda: codec.round_trip_quantized(x),
+                            iters=20)
+                rt[label] = dict(launches=counts[label]["psycho_quantize"],
+                                 ms=t, snr_db=snr_db(x, y),
+                                 audio_s_per_s=BATCH * SAMPLES / SAMPLE_RATE
+                                 / (t * 1e-3))
+            finally:
+                if ctx is not None:
+                    ctx.stop()
+        print("psycho_quantize: round_trip_quantized (r) " + ", ".join(
+            f"{k} {v['ms']:.4f} ms = {v['audio_s_per_s']:.1f} audio-s/s, "
+            f"SNR {v['snr_db']:.4f} dB, {v['launches']} launches"
+            for k, v in rt.items()) + f" [{card}]")
+        check(counts["kernel"] == expected_counts(psycho_quantize=1,
+                                                  **mdct_once)
+              and counts["stagewise"] == expected_counts(**mdct_once),
+              f"psycho_quantize: round trip launch counts {counts}")
+        check(abs(rt["kernel"]["snr_db"] - rt["stagewise"]["snr_db"])
+              <= SNR_MARGIN_DB, f"psycho_quantize: SNR {rt}")
+    entries.append(entry("psycho_quantize", None, "float32", "psycho (r)",
+                         FILTERS_N, flips=flips, ulps=ulps, err=err, ms=ms,
+                         encode_ms=enc_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=plain_ms, round_trip=rt))
+    entries[-1]["launches"] = rt["kernel"]["launches"]
+    return dict(flips=flips, ulps=ulps, err=err, ms=ms, encode_ms=enc_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, round_trip=rt)
 
 
 def noise_phases(torch, dev, entries):
@@ -5139,6 +5278,9 @@ def main(argv=None) -> int:
     check(fid["highest"] >= FIDELITY_SNR_DB,
           f"fidelity SNR {fid['highest']} < {FIDELITY_SNR_DB}")
 
+    # 24. the psycho/quantize kernel
+    psycho = psycho_kernel_phase(torch, dev, entries, smi)
+
     # 7-10. the noise-injection codec and its kernels
     noise = noise_phases(torch, dev, entries)
 
@@ -5195,7 +5337,8 @@ def main(argv=None) -> int:
 
     # 6. the numbers
     print(json.dumps({"configs": results, "fidelity_snr_db": fid,
-                      "tensor_core": tensor_core, **noise,
+                      "tensor_core": tensor_core, "psycho": psycho,
+                      **noise,
                       "training": training,
                       "waveform_grads": waveform_grads, "probe": probe,
                       "rvq": rvq, "ladder": ladder, "acz": acz,

@@ -196,7 +196,7 @@ def test_kernel_events_hold_no_stage_label():
               if e.device_type != torch.autograd.DeviceType.CUDA
               and e.is_user_annotation}
     names = {e.name for e in profiling.kernel_events(prof)}
-    assert "psycho.masking" in labels
+    assert "psycho.fused" in labels
     assert any("split_gemm_kernel" in n for n in names)
     assert not labels & names
 

@@ -176,7 +176,8 @@ def test_build_without_nvcc_raises(tmp_path):
 def test_import_loads_no_jax():
     code = ("import sys, audiocodec_tpu_torch, audiocodec_tpu_torch.convert, "
             "audiocodec_tpu_torch.models, audiocodec_tpu_torch.parallel, "
-            "audiocodec_tpu_torch.ops.threefry, audiocodec_tpu_torch.scq, "
+            "audiocodec_tpu_torch.ops.threefry, "
+            "audiocodec_tpu_torch.ops.cuda_psycho, audiocodec_tpu_torch.scq, "
             "audiocodec_tpu_torch.tns, audiocodec_tpu_torch.blockswitch, "
             "audiocodec_tpu_torch.nf, audiocodec_tpu_torch.bwe, "
             "audiocodec_tpu_torch.intensity, audiocodec_tpu_torch.io.wav, "
