@@ -36,6 +36,7 @@ from audiocodec_tpu_torch.mdct import MDCT
 from audiocodec_tpu_torch.ops import cuda_psycho as _cuda_psycho
 from audiocodec_tpu_torch.psycho import PsychoacousticModel
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils.profiling import span
 
 
 class EncodedFrames(typing.NamedTuple):
@@ -288,21 +289,90 @@ class Codec(nn.Module):
             frames, tonality, drown
         )
         if tmask:
-            bark = _psycho.temporal_masking(
-                bark, self._tmask_db_per_frame(tmask),
-                context=tmask_context,
-            )
+            bark = self._tmask(bark, tmask, tmask_context)
         if ms:
-            if frames.shape[-1] != 2:
-                raise ValueError("joint stereo needs exactly 2 channels")
-            bark16 = self._snap(torch.amin(bark, dim=-1, keepdim=True))
-            return (self.to_mid_side(frames), bark16,
-                    self._ms_threshold(bark16), bs_flags)
+            spec, bark = self._mid_side(frames, bark)
+            bark16 = self._snap(bark)
+            return spec, bark16, self._ms_threshold(bark16), bs_flags
         bark16 = self._snap(bark)
         threshold = self.psycho.bark_intensity_to_threshold(
             bark16.to(self.mdct.compute_dtype)
         )
         return frames, bark16, threshold, bs_flags
+
+    # -- the feature ladder's encode stages: each is one span, entered only
+    # when its feature is on; none runs inside another or inside a codec
+    # stage span, so that their times add up ---------------------------------
+
+    @span("ladder.tmask")
+    def _tmask(self, bark, tmask_db_per_s, context):
+        """Forward masking of the pre-snap Bark intensities, the previous
+        chunk's ``context`` prepended."""
+        return _psycho.temporal_masking(
+            bark, self._tmask_db_per_frame(tmask_db_per_s), context=context,
+        )
+
+    @span("ladder.ms")
+    def _mid_side(self, frames, bark):
+        """Joint stereo: (the mid/side spectra, the per-band min of the two
+        channels' Bark intensities: the one sidecar channel)."""
+        if frames.shape[-1] != 2:
+            raise ValueError("joint stereo needs exactly 2 channels")
+        return self.to_mid_side(frames), torch.amin(bark, dim=-1,
+                                                    keepdim=True)
+
+    @span("ladder.bs")
+    def _block_switch(self, frames, spec, threshold):
+        """Block switching: transient flags from the long (pre-rotation)
+        ``frames``, then the flagged frames' ``spec`` in the short basis and
+        their ``threshold`` min-pooled. Pooling here, before the TNS scale,
+        equals pooling after it: short frames never filter, and an all-zero
+        TNS row scales by exactly 1.
+
+        :return: (flags bool [B, frames], spectrum, threshold).
+        """
+        prec = self.mdct.dct_precision
+        flags = _blockswitch.detect(frames, precision=prec)
+        return (flags,
+                _blockswitch.split_spectrum(spec, flags, precision=prec),
+                _blockswitch.pool_threshold(threshold, flags))
+
+    @span("ladder.tns")
+    def _tns(self, spec, threshold, bs_flags):
+        """Temporal noise shaping: the indices (zero on short frames), the
+        filtered spectrum and the gain-compensated threshold."""
+        tbs = self.tns_band_start
+        idx = _tns.analyze(spec, tbs)
+        if bs_flags is not None:
+            idx = torch.where(bs_flags[:, :, None, None], 0, idx)
+        return (idx, _tns.filter_forward(spec, idx, tbs),
+                _tns.scaled_threshold(threshold, idx, tbs))
+
+    @span("ladder.nf")
+    def _nf_levels(self, spec, codes, delta, bs_flags, deadzone, bwe, excl):
+        nfl = _nf.analyze(spec, codes, delta, self.nf_band_start,
+                          deadzone=deadzone,
+                          band_end=self.bwe_start if bwe else None,
+                          exclude=excl)
+        if bs_flags is not None:
+            nfl = torch.where(bs_flags[:, :, None], 0, nfl)
+        return nfl
+
+    @span("ladder.bwe")
+    def _bwe_gains(self, spec, codes, delta, bs_flags, excl):
+        gains = _bwe.analyze(spec, codes, delta, self.bwe_start,
+                             exclude=excl)
+        if bs_flags is not None:
+            gains = torch.where(bs_flags[:, :, None, None], 0, gains)
+        return gains
+
+    @span("ladder.intensity")
+    def _intensity(self, spec, codes, delta, bs_flags, bwe_gains):
+        """Intensity stereo: (the codes with the owned side band forced to
+        zero, the image gains)."""
+        codes, excl = self._intensity_force(codes, bs_flags)
+        return codes, self._intensity_gains(spec, codes, delta, bs_flags,
+                                            bwe_gains=bwe_gains, excl=excl)
 
     def _tmask_db_per_frame(self, tmask_db_per_s: float) -> float:
         """dB-per-second forward-masking decay -> dB per frame hop."""
@@ -349,12 +419,9 @@ class Codec(nn.Module):
             self.mdct.filters_n, self.psycho.sample_rate
         )
 
-    def _intensity_force(self, codes, bs_flags, ms):
+    def _intensity_force(self, codes, bs_flags):
         """The encoder-side intensity setup: force the owned side band's
         codes to zero and give the nf/bwe exclusion mask."""
-        if not ms:
-            raise ValueError("intensity stereo requires ms=True (it "
-                             "codes the mid/side layout)")
         codes = _intensity.force_codes(codes, self.is_start, bs_flags)
         excl = _intensity.owned_mask(self.mdct.filters_n, self.is_start,
                                      codes.device)
@@ -378,32 +445,13 @@ class Codec(nn.Module):
             isg = torch.where(bs_flags[:, :, None], 0, isg)
         return isg
 
-    def _side_members(self, spec, codes, delta, bs_flags, deadzone, nf, bwe,
-                      intensity, excl):
-        """The nf levels, bwe gains and intensity gains of a quantized
-        encode, each analyzed in the domain the quantizer saw and zeroed on
-        short block-switch frames: a tuple of the members that are on."""
-        out = ()
-        if nf:
-            nfl = _nf.analyze(spec, codes, delta, self.nf_band_start,
-                              deadzone=deadzone,
-                              band_end=self.bwe_start if bwe else None,
-                              exclude=excl)
-            if bs_flags is not None:
-                nfl = torch.where(bs_flags[:, :, None], 0, nfl)
-            out = out + (nfl,)
-        gains = None
-        if bwe:
-            gains = _bwe.analyze(spec, codes, delta, self.bwe_start,
-                                 exclude=excl)
-            if bs_flags is not None:
-                gains = torch.where(bs_flags[:, :, None, None], 0, gains)
-            out = out + (gains,)
-        if intensity:
-            out = out + (self._intensity_gains(
-                spec, codes, delta, bs_flags, bwe_gains=gains, excl=excl,
-            ),)
-        return out
+    @staticmethod
+    def _as_tuple(enc: EncodedFrames) -> tuple:
+        """(codes, bark16, *the members that are on, bs_flags last)."""
+        members = (enc.tns_idx, enc.nf_levels, enc.bwe_gains, enc.is_gains,
+                   enc.bs_flags)
+        return (enc.codes, enc.bark16) + tuple(m for m in members
+                                               if m is not None)
 
     def quantize_frames(self, frames: torch.Tensor, drown=0.0,
                         threshold_scale=1.0, ms: bool = False,
@@ -432,26 +480,12 @@ class Codec(nn.Module):
             side codes are forced to zero and uint8 image gains
             [B, frames, groups] appended; nf/bwe exclude the owned region.
         """
-        spec_q, bark16, threshold, bs_flags = self.analyze_for_quantization(
-            frames, drown, ms=ms, tmask=tmask,
-            tmask_context=tmask_context, bs=bs,
-        )
-        threshold = self._scaled(threshold, threshold_scale)
-        if bs:
-            spec_q = _blockswitch.split_spectrum(
-                spec_q, bs_flags, precision=self.mdct.dct_precision
-            )
-            threshold = _blockswitch.pool_threshold(threshold, bs_flags)
-        codes, delta = _quantize.quantize(spec_q, threshold,
-                                          deadzone=deadzone)
-        excl = None
-        if intensity:
-            codes, excl = self._intensity_force(codes, bs_flags, ms)
-        out = (codes, bark16) + self._side_members(
-            spec_q, codes, delta, bs_flags, deadzone, nf, bwe, intensity,
-            excl,
-        )
-        return out + (bs_flags,) if bs else out
+        return self._as_tuple(self.encode_frames(
+            frames, drown, threshold_scale=threshold_scale, ms=ms,
+            deadzone=deadzone, nf=nf, tmask=tmask,
+            tmask_context=tmask_context, bs=bs, bwe=bwe,
+            intensity=intensity,
+        ))
 
     def quantize_frames_tns(self, frames: torch.Tensor, drown=0.0,
                             threshold_scale=1.0, ms: bool = False,
@@ -470,32 +504,12 @@ class Codec(nn.Module):
         :return: (codes, bark16, tns_idx int8 [B, frames, order, C],
             *members) as :meth:`quantize_frames` appends them.
         """
-        spec_q, bark16, threshold, bs_flags = self.analyze_for_quantization(
-            frames, drown, ms=ms, tmask=tmask,
-            tmask_context=tmask_context, bs=bs,
-        )
-        tbs = self.tns_band_start
-        tns_idx = _tns.analyze(spec_q, tbs)
-        if bs:
-            tns_idx = torch.where(bs_flags[:, :, None, None], 0, tns_idx)
-        spec_f = _tns.filter_forward(spec_q, tns_idx, tbs)
-        threshold = self._scaled(threshold, threshold_scale)
-        threshold = _tns.scaled_threshold(threshold, tns_idx, tbs)
-        if bs:
-            spec_f = _blockswitch.split_spectrum(
-                spec_f, bs_flags, precision=self.mdct.dct_precision
-            )
-            threshold = _blockswitch.pool_threshold(threshold, bs_flags)
-        codes, delta = _quantize.quantize(spec_f, threshold,
-                                          deadzone=deadzone)
-        excl = None
-        if intensity:
-            codes, excl = self._intensity_force(codes, bs_flags, ms)
-        out = (codes, bark16, tns_idx) + self._side_members(
-            spec_f, codes, delta, bs_flags, deadzone, nf, bwe, intensity,
-            excl,
-        )
-        return out + (bs_flags,) if bs else out
+        return self._as_tuple(self.encode_frames(
+            frames, drown, threshold_scale=threshold_scale, ms=ms,
+            deadzone=deadzone, tns=True, nf=nf, tmask=tmask,
+            tmask_context=tmask_context, bs=bs, bwe=bwe,
+            intensity=intensity,
+        ))
 
     def quantize_frames_fec(self, frames: torch.Tensor, drown=0.0,
                             threshold_scale=1.0, ms: bool = False,
@@ -545,26 +559,41 @@ class Codec(nn.Module):
                       tmask_context: torch.Tensor | None = None,
                       bs: bool = False, bwe: bool = False,
                       intensity: bool = False) -> EncodedFrames:
-        """The one entry point of every coded-bitstream encode: wraps
-        :meth:`quantize_frames` / :meth:`quantize_frames_tns` and returns an
-        :class:`EncodedFrames` (absent features are None).
+        """The one entry point of every coded-bitstream encode
+        (:meth:`quantize_frames` and :meth:`quantize_frames_tns` are its
+        tuple forms): the analysis, the threshold scale, then block
+        switching, TNS, the quantizer, and the members analyzed in the
+        domain the quantizer saw (nf, bwe, then intensity, which forces the
+        owned side codes to zero; nf and bwe exclude that band, so they read
+        the same either side of the forcing). Absent features are None.
 
         :param frames: MDCT spectra [B, frames, N, C] (``mdct.transform``).
         """
-        fn = self.quantize_frames_tns if tns else self.quantize_frames
-        out = list(fn(
-            frames, drown, threshold_scale=threshold_scale, ms=ms,
-            deadzone=deadzone, nf=nf, tmask=tmask,
-            tmask_context=tmask_context, bs=bs, bwe=bwe,
-            intensity=intensity,
-        ))
-        codes, bark16 = out.pop(0), out.pop(0)
-        members = {}
-        for name, on in (("tns_idx", tns), ("nf_levels", nf),
-                         ("bwe_gains", bwe), ("is_gains", intensity),
-                         ("bs_flags", bs)):
-            members[name] = out.pop(0) if on else None
-        return EncodedFrames(codes, bark16, **members)
+        if intensity and not ms:
+            raise ValueError("intensity stereo requires ms=True (it "
+                             "codes the mid/side layout)")
+        spec, bark16, threshold, _ = self.analyze_for_quantization(
+            frames, drown, ms=ms, tmask=tmask, tmask_context=tmask_context,
+        )
+        threshold = self._scaled(threshold, threshold_scale)
+        bs_flags = tns_idx = nfl = gains = isg = None
+        if bs:
+            bs_flags, spec, threshold = self._block_switch(frames, spec,
+                                                           threshold)
+        if tns:
+            tns_idx, spec, threshold = self._tns(spec, threshold, bs_flags)
+        codes, delta = _quantize.quantize(spec, threshold, deadzone=deadzone)
+        excl = (_intensity.owned_mask(self.mdct.filters_n, self.is_start,
+                                      codes.device) if intensity else None)
+        if nf:
+            nfl = self._nf_levels(spec, codes, delta, bs_flags, deadzone,
+                                  bwe, excl)
+        if bwe:
+            gains = self._bwe_gains(spec, codes, delta, bs_flags, excl)
+        if intensity:
+            codes, isg = self._intensity(spec, codes, delta, bs_flags, gains)
+        return EncodedFrames(codes, bark16, tns_idx, nfl, bs_flags, gains,
+                             isg)
 
     def _decode_threshold(self, threshold, tns_idx, tbs, bs_flags):
         """The decoder's thresholds, scaled and pooled in the encoder's

@@ -41,10 +41,11 @@ The reader gives the codes and members as numpy arrays and the sidecar as a
 CPU ``torch.bfloat16`` tensor, as ``io/bitstream.unpack`` does. The host
 spans are labelled for ``torch.profiler``: ``stream.step`` (a chunk's
 device work queued; inside it ``stream.h2d``, the chunk's copy to the
-device, and the codec's stage spans), ``stream.d2h`` (the wait for its
-payload) and ``stream.pack`` (Rice coding and the write) in the encoder,
-``stream.read`` (the worker's read, CRC and Rice decode) and
-``stream.step`` in the decoder.
+device, the codec's stage spans and the ladder's ``ladder.*``),
+``stream.d2h`` (the wait for its payload) and ``stream.pack`` (Rice coding
+and the write; inside it ``stream.members``, the ladder's members, on
+streams that declare any) in the encoder, ``stream.read`` (the worker's
+read, CRC and Rice decode) and ``stream.step`` in the decoder.
 """
 
 from __future__ import annotations
@@ -93,6 +94,9 @@ _SILENT_BLOCKS_CAP = 1 << 16
 # row per 4 frames, the group's max intensity); both ride each member.
 _FEC_K2 = 1
 _FEC_TPOOL = 4
+
+# header keys of the feature ladder's members
+_LADDER_KEYS = ("tns", "nf", "bwe", "isf", "bs")
 
 # Concealment's sign-scramble keys (jax.random.key of these, folded with
 # the chunk index)
@@ -368,6 +372,11 @@ class StreamWriter:
         self._f.write(magic + struct.pack("<I", len(header)) + header)
         self._index = []
         self._closed = False
+        # the feature ladder's members, coded under the "stream.members"
+        # span, and their counts over the stream, taken from the host
+        # arrays ``append`` codes (no device synchronisation)
+        self._ladder = any(k in self.meta for k in _LADDER_KEYS)
+        self.counters = {}
 
     def append(self, codes, bark16, tns_idx=None, nf_levels=None,
                tscale=None, bs_flags=None, bwe_gains=None,
@@ -405,7 +414,6 @@ class StreamWriter:
                     f"chunk {name} must be passed exactly when the stream "
                     f"header declares {word}"
                 )
-        tns = self.meta.get("tns")
         cbr = self.meta.get("cbr")
         if cbr is not None and not 0 < float(tscale) < 2**32:
             raise ValueError(f"chunk threshold scale out of range: {tscale}")
@@ -422,41 +430,13 @@ class StreamWriter:
                 bark, block_axis=0,
                 coder=self.meta.get("scoder", self.meta["coder"]),
             )
-
-        def unbatched(values, dtype, ndim, shape, what):
-            a = np.ascontiguousarray(_bitstream.host(values), dtype=dtype)
-            if a.ndim == ndim:
-                a = a[0]
-            if a.shape != shape:
-                raise ValueError(f"chunk {what} shape {a.shape} != {shape}")
-            return a
-
-        # optional members in wire order: (header key, bytes)
+        # the optional members in wire order, as bytes
         members = []
-        if tns is not None:
-            ti = unbatched(tns_idx, np.int8, 4, (blocks, tns["order"], ch),
-                           "tns_idx")
-            members.append(zlib.compress(ti.tobytes(), 6))
-        if self.meta.get("nf") is not None:
-            lv = unbatched(nf_levels, np.uint8, 3, (blocks, ch), "nf_levels")
-            members.append(zlib.compress(lv.tobytes(), 6))
-        if self.meta.get("bwe") is not None:
-            groups = _bwe.n_groups(self.meta["filters_n"],
-                                   self.meta["bwe"]["start"])
-            gz = unbatched(bwe_gains, np.uint8, 4, (blocks, groups, ch),
-                           "bwe_gains")
-            members.append(zlib.compress(gz.tobytes(), 6))
-        if self.meta.get("isf") is not None:
-            groups = _intensity.n_groups(self.meta["filters_n"],
-                                         self.meta["isf"]["start"])
-            gz = unbatched(is_gains, np.uint8, 3, (blocks, groups),
-                           "is_gains")
-            members.append(zlib.compress(gz.tobytes(), 6))
-        if self.meta.get("bs") is not None:
-            fl = unbatched(bs_flags, bool, 2, (blocks,), "bs_flags")
-            members.append(
-                _blockswitch.pack_flags(torch.from_numpy(fl[None]))[0]
-                .tobytes())
+        if self._ladder:
+            with span("stream.members"):
+                members = self._ladder_members(
+                    blocks, ch, tns_idx, nf_levels, bwe_gains, is_gains,
+                    bs_flags)
         if self.meta.get("fec") is not None:
             members.append(bytes(fec))
         # the CRC covers the header fields too, chained in file order
@@ -484,6 +464,59 @@ class StreamWriter:
             self._f.write(hdr)
             self._f.write(data)
         self._f.write(struct.pack("<I", crc))
+
+    def _ladder_members(self, blocks, ch, tns_idx, nf_levels, bwe_gains,
+                        is_gains, bs_flags) -> list:
+        """The declared ladder members of one chunk in wire order, as
+        bytes; counts their frames and filled entries in ``counters``:
+        ``frames``, ``short_frames`` (block-switched), ``tns_frames`` (a
+        nonzero TNS index in some channel), ``nf_filled``, ``bwe_filled``,
+        ``is_filled`` (nonzero levels or gains)."""
+
+        def unbatched(values, dtype, ndim, shape, what):
+            a = np.ascontiguousarray(_bitstream.host(values), dtype=dtype)
+            if a.ndim == ndim:
+                a = a[0]
+            if a.shape != shape:
+                raise ValueError(f"chunk {what} shape {a.shape} != {shape}")
+            return a
+
+        def count(name, n):
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+        count("frames", blocks)
+        members = []
+        tns = self.meta.get("tns")
+        if tns is not None:
+            ti = unbatched(tns_idx, np.int8, 4, (blocks, tns["order"], ch),
+                           "tns_idx")
+            count("tns_frames", np.any(ti != 0, axis=(1, 2)).sum())
+            members.append(zlib.compress(ti.tobytes(), 6))
+        if self.meta.get("nf") is not None:
+            lv = unbatched(nf_levels, np.uint8, 3, (blocks, ch), "nf_levels")
+            count("nf_filled", np.count_nonzero(lv))
+            members.append(zlib.compress(lv.tobytes(), 6))
+        if self.meta.get("bwe") is not None:
+            groups = _bwe.n_groups(self.meta["filters_n"],
+                                   self.meta["bwe"]["start"])
+            gz = unbatched(bwe_gains, np.uint8, 4, (blocks, groups, ch),
+                           "bwe_gains")
+            count("bwe_filled", np.count_nonzero(gz))
+            members.append(zlib.compress(gz.tobytes(), 6))
+        if self.meta.get("isf") is not None:
+            groups = _intensity.n_groups(self.meta["filters_n"],
+                                         self.meta["isf"]["start"])
+            gz = unbatched(is_gains, np.uint8, 3, (blocks, groups),
+                           "is_gains")
+            count("is_filled", np.count_nonzero(gz))
+            members.append(zlib.compress(gz.tobytes(), 6))
+        if self.meta.get("bs") is not None:
+            fl = unbatched(bs_flags, bool, 2, (blocks,), "bs_flags")
+            count("short_frames", fl.sum())
+            members.append(
+                _blockswitch.pack_flags(torch.from_numpy(fl[None]))[0]
+                .tobytes())
+        return members
 
     def append_silent(self, blocks: int, levels) -> None:
         """Write one DTX silent record: marker 1, the frame count, and one
@@ -1086,7 +1119,8 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
                   tmask: float = 0.0, bs: bool = False,
                   bwe: bool = False, intensity: bool = False,
                   fec: float = 0.0, dtx: float = 0.0,
-                  orig_samples: int = 0, lufs=None) -> int:
+                  orig_samples: int = 0, lufs=None,
+                  counters: dict | None = None) -> int:
     """Encode a long waveform to a seekable stream with bounded memory.
 
     The streaming MDCT (one carried block across chunks) and a per-chunk
@@ -1117,6 +1151,8 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
         hangover) become silent records carrying comfort-noise levels; the
         encoder zeroes its MDCT carry across them. Magic ACS3; does not
         compose with ``fec`` or CBR scales.
+    :param counters: a dict that receives the writer's counts of the
+        ladder's members over the stream (``StreamWriter._ladder_members``).
     :return: number of chunks written.
     """
     mdct = codec.mdct
@@ -1252,6 +1288,8 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
                  bs_flags=last.bs_flags, bwe_gains=last.bwe_gains,
                  is_gains=last.is_gains, fec=fec_last)
         n_chunks = len(w._index)
+    if counters is not None:
+        counters.update(w.counters)
     return n_chunks
 
 

@@ -6,8 +6,12 @@ The reference's only tracing hook is a single tf.name_scope
 NVTX range once CUDA is initialised): the codec's seven stages
 (``mdct.analysis``, ``mdct.synthesis``, ``psycho.tonality``,
 ``psycho.masking``, ``psycho.threshold``, ``quantize.quantize``,
-``quantize.dequantize``; none runs inside another), the stream
-container's ``stream.*`` and the rate search's ``rate.*``. This module
+``quantize.dequantize``; none runs inside another), the feature
+ladder's encode stages (``ladder.ms``, ``ladder.tmask``, ``ladder.bs``,
+``ladder.tns``, ``ladder.nf``, ``ladder.bwe``, ``ladder.intensity``; each
+entered only when its feature is on, none inside another or inside a
+codec stage), the stream container's ``stream.*`` and the rate search's
+``rate.*``. This module
 adds the user-facing entry points: a trace context manager writing a
 chrome trace, a best-of timer of one blocking call (:func:`time_fn`), and
 the device time of a call: the mean over calls queued back to back

@@ -2014,7 +2014,7 @@ def ladder_stage_ms(torch, codec, x, kw, enc):
     excl = None
     if kw.get("intensity"):
         codes, excl = stage("intensity force", lambda: codec._intensity_force(
-            codes, flags, ms))
+            codes, flags))
     if kw.get("nf"):
         stage("nf analyze", lambda: nf.analyze(
             spec_f, codes, delta, codec.nf_band_start, deadzone=dz,

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from audiocodec_tpu.utils import debug as jax_debug
-from audiocodec_tpu_torch import Codec, mdct, psycho, quantize, rate
+from audiocodec_tpu_torch import Codec, codec, mdct, psycho, quantize, rate
 from audiocodec_tpu_torch.io import stream_container
 from audiocodec_tpu_torch.utils import debug, profiling
 
@@ -105,7 +105,7 @@ def test_span_ends_its_label_when_the_body_raises():
 
 
 def test_host_stages_use_the_one_span():
-    for module in (rate, stream_container, mdct, psycho, quantize):
+    for module in (rate, stream_container, mdct, psycho, quantize, codec):
         assert module.span is profiling.span, module
     # a labelled function keeps its name and docstring
     assert quantize.quantize.__name__ == "quantize"
@@ -123,6 +123,81 @@ def test_round_trip_shows_each_stage_once_none_inside_another():
     assert sorted(e.name for e in stages) == sorted(STAGES)
     for e in stages:
         assert not set(_enclosing(e)) & set(STAGES), e.name
+
+
+LADDER = ("ladder.ms", "ladder.tmask", "ladder.bs", "ladder.tns",
+          "ladder.nf", "ladder.bwe", "ladder.intensity")
+LOW = dict(ms=True, deadzone=1.0, tns=True, bs=True, nf=True, tmask=130.0,
+           bwe=True, intensity=True)
+
+
+def _ladder_input(blocks, seed=0):
+    """[1, blocks * 1024, 2] panned tones with a click after a gap, so
+    that block switching and TNS fire at 48 kHz, N=1024."""
+    g = torch.Generator().manual_seed(seed)
+    t = torch.arange(blocks * 1024, dtype=torch.float64) / 48000
+    tone = 0.3 * torch.sin(2 * torch.pi * 440 * t) + 0.05 * torch.randn(
+        t.shape, generator=g, dtype=torch.float64)
+    at = 3 * 1024 + 300
+    tone[at - 2048:at] = 0.0
+    tone[at:at + 64] += 0.8 * torch.exp(-torch.arange(64.0) / 8)
+    x = torch.stack([tone, 0.6 * tone + 0.02 * torch.randn(
+        t.shape, generator=g, dtype=torch.float64)], dim=-1)
+    return x[None].clamp(-0.9, 0.9).float()
+
+
+def test_ladder_encode_shows_each_stage_once_none_inside_another():
+    codec = Codec.create(48000, filters_n=1024, device="cpu")
+    frames = codec.mdct.transform(_ladder_input(6))
+    enc, events = _profiled(lambda: codec.encode_frames(frames, **LOW))
+    assert bool(enc.bs_flags.any()) and bool((enc.tns_idx != 0).any())
+    ladder = [e for e in events if e.name in LADDER]
+    assert sorted(e.name for e in ladder) == sorted(LADDER)
+    for e in ladder:
+        assert not set(_enclosing(e)) & set(LADDER + STAGES), e.name
+    for e in events:
+        if e.name in STAGES:
+            assert not set(_enclosing(e)) & set(LADDER), e.name
+
+
+@pytest.mark.parametrize("kw", [{}, dict(ms=True, deadzone=0.7)],
+                         ids=["archive", "ms-only-deadzone"])
+def test_no_ladder_span_without_its_features(kw):
+    codec = Codec.create(48000, filters_n=1024, device="cpu")
+    frames = codec.mdct.transform(_ladder_input(4))
+    _, events = _profiled(lambda: codec.encode_frames(frames, **kw))
+    names = {e.name for e in events}
+    assert not names & set(LADDER) - ({"ladder.ms"} if kw else set())
+
+
+def test_stream_writer_counts_the_members_it_codes(tmp_path):
+    codec = Codec.create(48000, filters_n=1024, device="cpu")
+    x = _ladder_input(12, seed=3)
+    path = str(tmp_path / "low.acs")
+    counters = {}
+    n, events = _profiled(lambda: stream_container.encode_stream(
+        codec, x, path, chunk_blocks=4, counters=counters, **LOW))
+    assert sum(e.name == "stream.members" for e in events) == n == 4
+    chunks = [stream_container.StreamReader(path).read_chunk(i)
+              for i in range(n)]
+    cat = {k: np.concatenate([getattr(c, k) for c in chunks])
+           for k in ("tns", "nfl", "bwe", "isg", "bsw")}
+    assert counters == {
+        "frames": 13,
+        "tns_frames": int(np.any(cat["tns"] != 0, axis=(1, 2)).sum()),
+        "nf_filled": int(np.count_nonzero(cat["nfl"])),
+        "bwe_filled": int(np.count_nonzero(cat["bwe"])),
+        "is_filled": int(np.count_nonzero(cat["isg"])),
+        "short_frames": int(cat["bsw"].sum()),
+    }
+    assert counters["short_frames"] > 0 and counters["tns_frames"] > 0
+    # the archive stream codes no member: no span, no count
+    counters = {}
+    _, events = _profiled(lambda: stream_container.encode_stream(
+        codec, x, str(tmp_path / "plain.acs"), chunk_blocks=4,
+        counters=counters))
+    assert counters == {}
+    assert not {e.name for e in events} & {"stream.members", *LADDER}
 
 
 def test_outputs_equal_with_and_without_a_recording_profiler():
