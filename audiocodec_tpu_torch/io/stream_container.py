@@ -31,21 +31,26 @@ Layout (little-endian):
   trailer: u64 chunk byte offsets | u64 n_chunks | u64 index offset
 
 The encoder runs each chunk's device work (the streaming MDCT on the card's
-kernels, then ``Codec.encode_frames``) one chunk ahead of the host's Rice
-coding: the payload comes back through pinned memory, and the host waits on
-an event, never on the whole card. The decoder reads and Rice-decodes the
-next chunk in a worker thread while the card synthesizes this one. Device
-memory is bounded by the chunk: the signal may stay on the host.
+kernels, ``Codec.encode_frames``, then the Rice coding of the codes by
+``ops/cuda_rice.py``) one chunk ahead of the host's pack: the coded bytes
+and the other members come back through pinned memory, and the host waits
+on an event, never on the whole card. Codes on the host are Rice-coded
+there (``native.rrice_encode``); both coders write the same bytes. The
+decoder reads and Rice-decodes the next chunk in a worker thread while the
+card synthesizes this one. Device memory is bounded by the chunk: the
+signal may stay on the host.
 
 The reader gives the codes and members as numpy arrays and the sidecar as a
 CPU ``torch.bfloat16`` tensor, as ``io/bitstream.unpack`` does. The host
 spans are labelled for ``torch.profiler``: ``stream.step`` (a chunk's
 device work queued; inside it ``stream.h2d``, the chunk's copy to the
-device, the codec's stage spans and the ladder's ``ladder.*``),
-``stream.d2h`` (the wait for its payload) and ``stream.pack`` (Rice coding
-and the write; inside it ``stream.members``, the ladder's members, on
-streams that declare any) in the encoder, ``stream.read`` (the worker's
-read, CRC and Rice decode) and ``stream.step`` in the decoder.
+device, the codec's stage spans, the ladder's ``ladder.*`` and
+``stream.rice``, the Rice coder's launch), ``stream.d2h`` (the wait for its
+payload and the copy of its coded bytes) and ``stream.pack`` (the sidecar,
+the members, the CRC and the write, and the Rice coding of codes on the
+host; inside it ``stream.members``, the ladder's members, on streams that
+declare any) in the encoder, ``stream.read`` (the worker's read, CRC and
+Rice decode) and ``stream.step`` in the decoder.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ from audiocodec_tpu_torch import streaming
 from audiocodec_tpu_torch import tns as _tns
 from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.io import bitstream as _bitstream
+from audiocodec_tpu_torch.ops import cuda_rice as _cuda_rice
 from audiocodec_tpu_torch.ops import threefry as _threefry
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
 from audiocodec_tpu_torch.utils.profiling import span
@@ -122,6 +128,31 @@ class Chunk(typing.NamedTuple):
     silent: np.ndarray | None = None  # f32 [C] comfort-noise RMS levels of
     #   a DTX silent record; its codes and sidecar are then zeros and
     #   floors, so it decodes through the standard step
+
+
+class RiceBytes(typing.NamedTuple):
+    """A chunk's codes already Rice-coded (``native.rrice_encode``'s
+    bytes), which ``StreamWriter.append`` takes in place of the codes."""
+
+    data: bytes
+    shape: tuple  # the codes' shape: [1, blocks, N, C] or [blocks, N, C]
+    card: bool  # coded on the card (counted as such by the writer)
+
+
+def _rice_bytes(codes) -> RiceBytes:
+    """The Rice coding of ``codes``: on the card for CUDA codes (waits for
+    it), else on the host."""
+    if isinstance(codes, torch.Tensor) and codes.is_cuda:
+        buf, nbytes = _cuda_rice.rrice_encode(
+            codes.to(torch.int32).contiguous())
+        n = int(nbytes.item())
+        if n < 0:
+            raise RuntimeError("rrice encoder overflow (bound bug)")
+        return RiceBytes(buf[:n].cpu().numpy().tobytes(), tuple(codes.shape),
+                         True)
+    codes = _bitstream.host(codes)
+    return RiceBytes(native.rrice_encode(codes.astype(np.int32)),
+                     codes.shape, False)
 
 
 def _bark16(bark) -> torch.Tensor:
@@ -378,6 +409,9 @@ class StreamWriter:
         self._ladder = any(k in self.meta for k in _LADDER_KEYS)
         self.counters = {}
 
+    def _count(self, name: str, n=1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + int(n)
+
     def append(self, codes, bark16, tns_idx=None, nf_levels=None,
                tscale=None, bs_flags=None, bwe_gains=None,
                is_gains=None, fec=None) -> None:
@@ -388,16 +422,21 @@ class StreamWriter:
         scale (CBR), bool block-switch flags [1, blocks], uint8 replication
         gains [1, blocks, groups, C], uint8 intensity gains [1, blocks,
         groups], FEC member bytes (b"" for the first chunk). Arrays may be
-        numpy or tensors on any device."""
-        codes = _bitstream.host(codes)
+        numpy or tensors on any device; codes on the card are Rice-coded
+        there, others on the host, and ``RiceBytes`` are written as they
+        are. ``counters`` counts the chunks of each coder:
+        ``rice_card_chunks``, ``rice_host_chunks``."""
+        if not isinstance(codes, RiceBytes):
+            codes = _rice_bytes(codes)
+        shape = tuple(codes.shape)
         bark = _bark16(bark16)
-        if codes.ndim == 4:
-            if codes.shape[0] != 1:
+        if len(shape) == 4:
+            if shape[0] != 1:
                 raise ValueError("stream chunks are single-clip")
-            codes = codes[0]
+            shape = shape[1:]
             bark = bark[0]
-        blocks = codes.shape[0]
-        ch = codes.shape[-1]
+        blocks = shape[0]
+        ch = shape[-1]
         # each member is passed exactly when the header declares it
         for name, value, key, word in (
             ("TNS indices", tns_idx, "tns", "TNS"),
@@ -417,9 +456,8 @@ class StreamWriter:
         cbr = self.meta.get("cbr")
         if cbr is not None and not 0 < float(tscale) < 2**32:
             raise ValueError(f"chunk threshold scale out of range: {tscale}")
-        enc = (native.rrice_encode if self.meta["coder"] == "rrice"
-               else native.rice_encode)
-        code_bytes = enc(codes.astype(np.int32))
+        code_bytes = bytes(codes.data)
+        self._count("rice_card_chunks" if codes.card else "rice_host_chunks")
         scq_k2 = self.meta.get("scq", 0)
         if scq_k2:
             bark_bytes = _scq.encode_levels(
@@ -481,9 +519,7 @@ class StreamWriter:
                 raise ValueError(f"chunk {what} shape {a.shape} != {shape}")
             return a
 
-        def count(name, n):
-            self.counters[name] = self.counters.get(name, 0) + int(n)
-
+        count = self._count
         count("frames", blocks)
         members = []
         tns = self.meta.get("tns")
@@ -1151,8 +1187,10 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
         hangover) become silent records carrying comfort-noise levels; the
         encoder zeroes its MDCT carry across them. Magic ACS3; does not
         compose with ``fec`` or CBR scales.
-    :param counters: a dict that receives the writer's counts of the
-        ladder's members over the stream (``StreamWriter._ladder_members``).
+    :param counters: a dict that receives the writer's counts over the
+        stream: the ladder's members (``StreamWriter._ladder_members``) and
+        the chunks Rice-coded on the card and on the host
+        (``StreamWriter.append``).
     :return: number of chunks written.
     """
     mdct = codec.mdct
@@ -1221,16 +1259,41 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
         carry = streaming.mdct_stream_init(mdct, 1, c)
         tctx = None
         # one-deep pipeline: chunk k+1's device work is queued before the
-        # host waits for chunk k's payload and Rice-codes it
+        # host waits for chunk k's payload and packs it
         pending = None  # (host payload, its event, FEC member of the
-        #                 previous chunk's coarse copy or None)
+        #                 previous chunk's coarse copy or None, the device
+        #                 buffer of the codes' coding and their shape or None)
         prev_coarse = None  # (codes, pooled sidecar) on the host, scale
+        # on the card: chunk k's coding stays in its buffer until the host
+        # reads it back, on a side stream into one pinned buffer
+        side = staging = None
+
+        def read_coded(buf, nbytes, event) -> bytes:
+            nonlocal side, staging
+            n = int(nbytes)
+            if n < 0:
+                raise RuntimeError("rrice encoder overflow (bound bug)")
+            if side is None:
+                side = torch.cuda.Stream(buf.device)
+            if staging is None or staging.numel() < n:
+                staging = torch.empty(buf.numel(), dtype=torch.uint8,
+                                      pin_memory=True)
+            # not behind chunk k+1's step, queued on the current stream
+            side.wait_event(event)
+            with torch.cuda.stream(side):
+                staging[:n].copy_(buf[:n], non_blocking=True)
+            side.synchronize()
+            return staging[:n].numpy().tobytes()
 
         def flush_pending():
-            payload, event, fec_prev = pending
+            payload, event, fec_prev, rice = pending
             if event is not None:
                 with span("stream.d2h"):
                     event.synchronize()
+                    if rice is not None:
+                        buf, shape = rice
+                        payload[0] = RiceBytes(
+                            read_coded(buf, payload[0], event), shape, True)
             with span("stream.pack"):
                 fec_bytes = None
                 if fec:
@@ -1260,14 +1323,21 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
                     fec_mult=fec, codec_fec=codec_fec, tmask_context=tctx,
                     **features,
                 )
+                codes, rice = enc.codes, None
+                if codes.is_cuda:
+                    # the coding's byte count comes back in the codes' place
+                    with span("stream.rice"):
+                        buf, codes = _cuda_rice.rrice_encode(
+                            codes.to(torch.int32).contiguous())
+                    rice = (buf, tuple(enc.codes.shape))
                 payload, event = _to_host(
-                    (enc.codes, enc.bark16, enc.tns_idx, enc.nf_levels,
+                    (codes, enc.bark16, enc.tns_idx, enc.nf_levels,
                      None, enc.bs_flags, enc.bwe_gains, enc.is_gains)
                     + (tuple(fecq) if fecq is not None else ()))
             payload[4] = ts_k if cbr else None
             if pending is not None:
                 flush_pending()
-            pending = (payload, event, prev_coarse)
+            pending = (payload, event, prev_coarse, rice)
             if fec:
                 prev_coarse = (payload[8], payload[9], ts_k * fec)
         if pending is not None:

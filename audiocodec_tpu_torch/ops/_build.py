@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("mdct_kernels.cu", "noise_kernel.cu", "probe_kernels.cu",
-           "psycho_kernel.cu")
+           "psycho_kernel.cu", "rice_kernel.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audiocodec_tpu_torch"
 NVCC_FLAGS = (
@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
         "acx_psycho_quantize": [ptr] * 6 + [
             ptr, ctypes.c_longlong, i32, i32, i32, i32, ptr,
         ],
+        "acx_rrice_encode_cuda": [ptr, ctypes.c_longlong, ptr,
+                                  ctypes.c_longlong, ptr, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

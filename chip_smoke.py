@@ -153,10 +153,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tier's tolerance) in (r) and (b) with chunks of 256 and 7 blocks, one
    kernel launch a step and one for the flush; ``encode_stream`` and
    ``decode_stream`` of ``--stream-seconds`` (600: 110 chunks) launch
-   ``fold_matmul`` once a chunk and for the flush frame, ``matmul_scatter``
-   once a chunk, for the flush chunk and the tail, with codes and sidecar
-   levels at least 99.9% equal to the all-plain stream's (levels within
-   one grid step, codes within one step where the levels are equal) and
+   ``fold_matmul`` and the Rice coder (``rrice_encode``) once a chunk and
+   for the flush frame, ``matmul_scatter`` once a chunk, for the flush
+   chunk and the tail, with codes and sidecar levels at least 99.9% equal
+   to the all-plain stream's (levels within one grid step, codes within
+   one step where the levels are equal); the same encode with every
+   kernel call checked against its plain version writes the same file,
+   every Rice coder call byte for byte equal to the host coder's (the
+   body chunks [1, 256, 1024, 2] and the flush chunk [1, 1, 1024, 2]),
+   and the coder alone on the file's first body chunk and its flush chunk
+   equals the host coder, timed against it and its bytes bound; and
    the decode equal to the plain synthesis's decode of the same file
    within the synthesis tolerance (both SNRs and the all-plain stream's
    are printed); seeks from chunk 1 and the
@@ -316,6 +322,7 @@ RADIX_FIDELITY_MARGIN_DB = 1.0
 SEED = 1234
 SOURCE = "audiocodec_tpu_torch/csrc/mdct_kernels.cu"
 NOISE_SOURCE = "audiocodec_tpu_torch/csrc/noise_kernel.cu"
+RICE_SOURCE = "audiocodec_tpu_torch/csrc/rice_kernel.cu"
 PROBE_SOURCE = "audiocodec_tpu_torch/csrc/probe_kernels.cu"
 PSYCHO_SOURCE = "audiocodec_tpu_torch/csrc/psycho_kernel.cu"
 # the probe's variants -> their kernel instances, in the order of the
@@ -331,6 +338,7 @@ REPLACES = {
     "radix_matmul_scatter": "audiocodec_tpu/ops/pallas_mdct.py:708",
     "add_masked_noise": "audiocodec_tpu/ops/pallas_noise.py:53",
     "psycho_quantize": "none: XLA fuses the chain (audiocodec_tpu/codec.py)",
+    "rrice_encode": "none: the host coder (audiocodec_tpu/native/entropy.cpp)",
     "fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:641",
     "matmul_scatter_vjp": "audiocodec_tpu/ops/pallas_mdct.py:675",
     "radix_fold_matmul_vjp": "audiocodec_tpu/ops/pallas_mdct.py:729",
@@ -548,20 +556,22 @@ def snr_db(x, out, n=FILTERS_N):
 
 def all_launch_counts():
     from audiocodec_tpu_torch.ops import (cuda_mdct, cuda_noise, cuda_probe,
-                                          cuda_psycho)
+                                          cuda_psycho, cuda_rice)
 
     return {**cuda_mdct.launch_counts(), **cuda_noise.launch_counts(),
-            **cuda_probe.launch_counts(), **cuda_psycho.launch_counts()}
+            **cuda_probe.launch_counts(), **cuda_psycho.launch_counts(),
+            **cuda_rice.launch_counts()}
 
 
 def reset_all_launch_counts():
     from audiocodec_tpu_torch.ops import (cuda_mdct, cuda_noise, cuda_probe,
-                                          cuda_psycho)
+                                          cuda_psycho, cuda_rice)
 
     cuda_mdct.reset_launch_counts()
     cuda_noise.reset_launch_counts()
     cuda_probe.reset_launch_counts()
     cuda_psycho.reset_launch_counts()
+    cuda_rice.reset_launch_counts()
 
 
 def expected_counts(**ones):
@@ -570,14 +580,16 @@ def expected_counts(**ones):
 
 
 def kernel_wrappers():
-    """(module, name) of every MDCT, noise and psycho/quantize kernel
+    """(module, name) of every MDCT, noise, psycho/quantize and Rice kernel
     wrapper and VJP."""
-    from audiocodec_tpu_torch.ops import cuda_mdct, cuda_noise, cuda_psycho
+    from audiocodec_tpu_torch.ops import (cuda_mdct, cuda_noise, cuda_psycho,
+                                          cuda_rice)
 
     return [(cuda_mdct, k.__name__)
             for k in cuda_mdct.KERNELS + cuda_mdct.VJPS] + [
         (cuda_noise, "add_masked_noise"),
-        (cuda_psycho, "psycho_quantize")]
+        (cuda_psycho, "psycho_quantize"),
+        (cuda_rice, "rrice_encode")]
 
 
 def plain_kernels():
@@ -716,6 +728,8 @@ def device_functions(name, tier):
         return "noise_kernel"
     if name == "psycho_quantize":
         return "psycho_quantize_kernel"
+    if name == "rrice_encode":
+        return "rrice_cost_kernel + rrice_scan_kernel + rrice_write_kernel"
     if name.startswith("probe_"):
         return f"probe_kernel<{PROBE_VARIANTS[name.removeprefix('probe_')]}>"
     if name.startswith("radix"):
@@ -737,7 +751,8 @@ def entry(name, tier, dtype, config, n, route_tier=None, **numbers):
     path ``config`` names."""
     label = dtype if tier is None else f"{tier},{dtype}"
     source = {"add_masked_noise": NOISE_SOURCE,
-              "psycho_quantize": PSYCHO_SOURCE}.get(
+              "psycho_quantize": PSYCHO_SOURCE,
+              "rrice_encode": RICE_SOURCE}.get(
         name, PROBE_SOURCE if name.startswith("probe_") else SOURCE)
     return dict(name=f"{name}[{label}]", config=config, n=n,
                 route="cuda",
@@ -2649,7 +2664,82 @@ def stream_chunks(sc, path, levels=False):
         [scq.levels_from_bark16(c.bark, k2) for c in chunks], axis=0)
 
 
-def stream_throughput(torch, dev, codec, seconds, workdir, card):
+def rice_coder_check(torch, dev, codec, x, path, workdir, n_body, card):
+    """18c. The Rice coder on the stream path's own chunks, at tolerance 0:
+    ``encode_stream`` of ``x`` again with every kernel call checked against
+    its plain version (checking_kernels()) writes ``path``'s bytes, every
+    coder call (one a body chunk [1, STREAM_CB, N, 2] and one for the flush
+    chunk [1, 1, N, 2]) equal to the host coder's; then the coder alone on
+    the file's first body chunk and its flush chunk, against
+    ``native.rrice_encode`` of the same codes: the bytes, the card's ms,
+    the host coder's ms and the bytes bound (the codes read once, the
+    coding written once)."""
+    import statistics
+
+    import numpy as np
+
+    from audiocodec_tpu_torch import native
+    from audiocodec_tpu_torch.io import stream_container as sc
+    from audiocodec_tpu_torch.ops import cuda_rice
+
+    errors = {}
+    checked = workdir / "checked.acs"
+    with checking_kernels(torch, errors):
+        sc.encode_stream(codec, x, str(checked), chunk_blocks=STREAM_CB)
+    torch.cuda.synchronize()
+    calls = errors.get("rrice_encode", {})
+    shapes = [[1, STREAM_CB, FILTERS_N, 2], [1, 1, FILTERS_N, 2]]
+    check(calls.get("calls") == n_body + 1 and calls.get("ratio") == 0.0
+          and sorted(calls.get("shapes", [])) == sorted(shapes),
+          f"stream: the Rice coder's checked calls {calls}")
+    check(checked.read_bytes() == Path(path).read_bytes(),
+          "stream: the checked encode wrote another file than the timed one")
+    checked.unlink()
+    with sc.StreamReader(path) as r:
+        chunk_codes = dict(body=r.read_chunk(0).codes,
+                           flush=r.read_chunk(r.n_chunks - 1).codes)
+    out = dict(checked_calls=calls.get("calls"),
+               checked_shapes=calls.get("shapes"),
+               other_kernels_checked={k: v["ratio"] for k, v in errors.items()
+                                      if k != "rrice_encode"})
+    for label, codes in chunk_codes.items():
+        codes = np.ascontiguousarray(codes, dtype=np.int32)[None]
+        on_card = torch.from_numpy(codes).to(dev)
+        want = native.rrice_encode(codes)
+        buf, n = cuda_rice.rrice_encode(on_card)
+        check(int(n) == len(want)
+              and buf[:len(want)].cpu().numpy().tobytes() == want,
+              f"stream: the Rice coder's {label} chunk {list(codes.shape)} "
+              "differs from the host coder's bytes")
+        ms = cuda_ms(torch, lambda: cuda_rice.rrice_encode(on_card))
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            native.rrice_encode(codes)
+            host.append((time.perf_counter() - t0) * 1e3)
+        bound_ms, bound_by, _ = bound(0.0, nbytes(on_card) + len(want),
+                                      "float32")
+        out[label] = dict(shape=list(codes.shape), bytes=len(want),
+                          bits_per_code=8 * len(want) / codes.size, ms=ms,
+                          host_ms=statistics.median(host),
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"kernel rrice_encode int32 {tuple(codes.shape)} ({label} "
+              f"chunk of the stream, {len(want)} bytes, "
+              f"{out[label]['bits_per_code']:.3f} bits a code): equal to "
+              f"the host coder's bytes, {ms:.4f} ms vs the host coder "
+              f"{out[label]['host_ms']:.3f} ms, bound {bound_ms:.3g} ms "
+              f"({bound_by}) = {100 * bound_ms / ms:.1f}% of the time "
+              f"[{card}]")
+        del on_card, buf, n
+    print(f"stream: the checked encode ({out['checked_calls']} coder calls, "
+          f"shapes {out['checked_shapes']}) wrote the timed file; other "
+          f"kernels' error over tolerance {out['other_kernels_checked']}")
+    body = out["body"]
+    return dict(out, ms=body["ms"], host_ms=body["host_ms"],
+                bound_ms=body["bound_ms"], bound_by=body["bound_by"])
+
+
+def stream_throughput(torch, dev, codec, seconds, workdir, card, entries):
     """18b. ``encode_stream`` and ``decode_stream`` of ``seconds`` of
     stereo in (r), default features: audio-s/s each way, the launches (one
     analysis a chunk and the flush; one synthesis a chunk, the flush chunk
@@ -2658,7 +2748,9 @@ def stream_throughput(torch, dev, codec, seconds, workdir, card):
     stream's SNR differs from it by the codes that a rounding flipped,
     which add up with the stream's length: it is printed, not held);
     seeks from chunk 1 and the middle equal the full
-    decode bit for bit (time to the first chunk); a traced encode and
+    decode bit for bit (time to the first chunk); the Rice coder on the
+    main path's chunks byte for byte (rice_coder_check()), its kernels
+    line entry in ``entries``; a traced encode and
     decode of STREAM_TRACE_CHUNKS chunks: device busy, idle share and the
     ``stream.*`` host spans (the decoder's read runs in its worker thread,
     which the trace does not record: it is timed alone)."""
@@ -2695,10 +2787,16 @@ def stream_throughput(torch, dev, codec, seconds, workdir, card):
     dec_s = time.perf_counter() - t0
     dec_counts = all_launch_counts()
     check(n_chunks == n_body + 1, f"stream: {n_chunks} chunks")
-    check(enc_counts == stream_counts(fold_matmul=n_body + 1),
+    check(enc_counts == stream_counts(fold_matmul=n_body + 1,
+                                      rrice_encode=n_body + 1),
           f"stream: encode launches {enc_counts}")
     check(dec_counts == stream_counts(matmul_scatter=n_body + 2),
           f"stream: decode launches {dec_counts}")
+    rice = rice_coder_check(torch, dev, codec, x, path, workdir, n_body,
+                            card)
+    entries.append(entry("rrice_encode", None, "int32", "stream (r)",
+                         FILTERS_N, **rice))
+    entries[-1]["launches"] = enc_counts["rrice_encode"]
     n = FILTERS_N
     check(y.shape == (1, s + 2 * n, 2) and bool(torch.isfinite(y).all()),
           f"stream: decode {tuple(y.shape)}")
@@ -2766,7 +2864,8 @@ def stream_throughput(torch, dev, codec, seconds, workdir, card):
                decode_max_abs_to_plain=dec_err, decode_tolerance=dec_tol,
                snr_db=snr, plain_decode_snr_db=plain_dec_snr,
                plain_snr_db=plain_snr,
-               seek_first_chunk_ms=seeks, traced_encode=enc_trace,
+               seek_first_chunk_ms=seeks, rice_coder=rice,
+               traced_encode=enc_trace,
                traced_decode=dec_trace)
 
     def spans(t):
@@ -2857,7 +2956,8 @@ def stream_features(torch, dev, codec, workdir, card):
                              **STREAM_LADDER)
         torch.cuda.synchronize()
         counts = all_launch_counts()
-        check(counts == stream_counts(fold_matmul=n_body + 1),
+        check(counts == stream_counts(fold_matmul=n_body + 1,
+                                      rrice_encode=n_body + 1),
               f"stream ladder fec={fec}: launches {counts}")
         corrupt_chunk(sc, src, bad, lost)
         try:
@@ -2984,7 +3084,7 @@ def stream_features(torch, dev, codec, workdir, card):
     return out
 
 
-def stream_phase(torch, dev, seconds, card):
+def stream_phase(torch, dev, seconds, card, entries):
     """18. The .acs stream path (BASELINE.md config 5) on the card."""
     import tempfile
 
@@ -2999,7 +3099,7 @@ def stream_phase(torch, dev, seconds, card):
     work.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         out["throughput"] = stream_throughput(torch, dev, codec, seconds,
-                                              Path(tmp), card)
+                                              Path(tmp), card, entries)
         out["features"] = stream_features(torch, dev, codec, Path(tmp), card)
     return out
 
@@ -4809,11 +4909,16 @@ def checking_kernels(torch, errors):
             bound = signature.bind(*args, **kwargs)
             bound.apply_defaults()
             tier = bound.arguments.get("precision")
-            if name.endswith("_vjp"):
-                tol = vjp_tolerance(torch, want, tier, out.dtype)
+            if name == "rrice_encode":
+                # exact: the coding's bytes, (buffer, byte count)
+                n, tol = int(want[1]), 0.0
+                err = float(int(out[1]) != n or not torch.equal(
+                    out[0][:n].cpu(), want[0][:n].cpu()))
             else:
-                tol = tolerance(torch, want, name, tier, out.dtype)
-            err = float((out.float() - want.float()).abs().max())
+                tol = (vjp_tolerance(torch, want, tier, out.dtype)
+                       if name.endswith("_vjp")
+                       else tolerance(torch, want, name, tier, out.dtype))
+                err = float((out.float() - want.float()).abs().max())
             ratio = err / tol if tol else (0.0 if err == 0 else math.inf)
             rec = errors.setdefault(name, dict(calls=0, shapes=[],
                                                ratio=-1.0))
@@ -5308,7 +5413,7 @@ def main(argv=None) -> int:
 
     # 18. the .acs stream path
     t18 = time.monotonic()
-    stream = stream_phase(torch, dev, args.stream_seconds, smi)
+    stream = stream_phase(torch, dev, args.stream_seconds, smi, entries)
 
     # 19. the command line
     t19 = time.monotonic()

@@ -37,7 +37,7 @@ import torch
 
 from audiocodec_tpu.codec import Codec as JaxCodec
 from audiocodec_tpu.io import stream_container as jsc
-from audiocodec_tpu_torch import Codec
+from audiocodec_tpu_torch import Codec, native, scq
 from audiocodec_tpu_torch.io import bitstream
 from audiocodec_tpu_torch.io import stream_container as sc
 
@@ -493,3 +493,49 @@ def test_encode_stream_spans(tmp_path):
     for pack in (e for e in events if e.name == "stream.pack"):
         assert not {e.name for e in below(pack)} & set(
             ENCODE_STAGES + ("stream.h2d",))
+
+
+# sha256 of _coded_stream's file as the writer wrote it while it coded every
+# chunk on the host, before the card's coder (1,343 bytes)
+HOST_CODED_SHA256 = (
+    "68d4492467a73ed2b54292fd9acdda2959b0ca00f2bbf5d5e7afe58b8fd73d2c")
+
+
+def _coded_stream(*appends):
+    """A stereo stream of two seeded chunks, Laplacian codes (70% zeros) and
+    grid-snapped sidecars; ``appends`` turn the codes of each into what
+    ``StreamWriter.append`` is given -> (file bytes, writer counters)."""
+    rng = np.random.default_rng(7)
+    codes = np.round(rng.laplace(scale=2.0, size=(1, CB, N, 2)))
+    codes[rng.random(codes.shape) < 0.7] = 0
+    codes = codes.astype(np.int32)
+    bark = scq.snap(torch.from_numpy(rng.uniform(
+        1e-4, 1e-1, (1, CB, BARK, 2)).astype(np.float32)), 4).to(
+        torch.bfloat16)
+    buf = io.BytesIO()
+    w = sc.StreamWriter(buf, sample_rate=SR, filters_n=N, bark_bands_n=BARK,
+                        alpha=0.6, window_type="vorbis", channels=2,
+                        sidecar_grid=4)
+    for i, given in enumerate(appends):
+        w.append(given(codes if i == 0 else codes[0]),
+                 bark if i == 0 else bark[0])
+    w.close()
+    return buf.getvalue(), w.counters
+
+
+def test_host_codes_take_the_native_coder():
+    """Codes on the host, numpy or a CPU tensor, batched or not, are coded
+    by ``native.rrice_encode`` and counted as ``rice_host_chunks``, into the
+    bytes the writer wrote before the card's coder; their ``RiceBytes``,
+    of either coder, write the same chunks."""
+    data, counters = _coded_stream(lambda c: c, torch.from_numpy)
+    assert hashlib.sha256(data).hexdigest() == HOST_CODED_SHA256
+    assert counters == {"rice_host_chunks": 2}
+    with sc.StreamReader(io.BytesIO(data)) as r:
+        first = r.read_chunk(0).codes
+    coded, counters = _coded_stream(
+        lambda c: sc.RiceBytes(native.rrice_encode(c), c.shape, False),
+        lambda c: sc.RiceBytes(native.rrice_encode(c), c.shape, True))
+    assert coded == data
+    assert counters == {"rice_host_chunks": 1, "rice_card_chunks": 1}
+    assert first.shape == (CB, N, 2) and first.any()

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from audiocodec_tpu.utils import debug as jax_debug
-from audiocodec_tpu_torch import Codec, codec, mdct, psycho, quantize, rate
+from audiocodec_tpu_torch import (Codec, codec, mdct, native, psycho, quantize,
+                                  rate)
 from audiocodec_tpu_torch.io import stream_container
 from audiocodec_tpu_torch.utils import debug, profiling
 
@@ -189,14 +190,16 @@ def test_stream_writer_counts_the_members_it_codes(tmp_path):
         "bwe_filled": int(np.count_nonzero(cat["bwe"])),
         "is_filled": int(np.count_nonzero(cat["isg"])),
         "short_frames": int(cat["bsw"].sum()),
+        "rice_host_chunks": n,
     }
     assert counters["short_frames"] > 0 and counters["tns_frames"] > 0
-    # the archive stream codes no member: no span, no count
+    # the archive stream codes no member: no span, no member count; its
+    # chunks' codes are Rice-coded where they lie, here on the host
     counters = {}
     _, events = _profiled(lambda: stream_container.encode_stream(
         codec, x, str(tmp_path / "plain.acs"), chunk_blocks=4,
         counters=counters))
-    assert counters == {}
+    assert counters == {"rice_host_chunks": n}
     assert not {e.name for e in events} & {"stream.members", *LADDER}
 
 
@@ -320,6 +323,27 @@ def test_chip_smoke_checking_kernels_holds_each_call():
     assert errors["fold_matmul"]["shapes"] == [[2, 4, 256]]
     assert cuda_mdct.fold_matmul is original
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+def test_chip_smoke_checking_kernels_holds_the_rice_coder_exactly():
+    """The Rice coder's calls are held byte for byte (tolerance 0), and
+    its plain version is what ``plain_kernels`` puts in its place."""
+    import chip_smoke
+
+    from audiocodec_tpu_torch.ops import cuda_rice
+
+    codes = torch.from_numpy(np.random.default_rng(1).integers(
+        -3, 4, (3, 300), dtype=np.int32))
+    errors = {}
+    with chip_smoke.checking_kernels(torch, errors):
+        buf, nbytes = cuda_rice.rrice_encode(codes)
+    assert errors == {"rrice_encode": dict(
+        calls=1, shapes=[[3, 300]], ratio=0.0, tier=None, max_abs_err=0.0,
+        tol=0.0)}
+    assert bytes(buf[:int(nbytes)].numpy()) == native.rrice_encode(codes)
+    with chip_smoke.plain_kernels():
+        assert cuda_rice.rrice_encode is cuda_rice.rrice_encode_reference
+    assert "rrice_encode" in chip_smoke.all_launch_counts()
 
 
 # -- debug ---------------------------------------------------------------------
