@@ -548,14 +548,11 @@ def cmd_roundtrip(args):
             tns=args.tns, nf=args.nf, tmask=args.tmask, bs=args.bs,
             bwe=args.bwe, intensity=args.intensity,
         )
-        kw = dict(tns_idx=enc.tns_idx, nf_levels=enc.nf_levels,
-                  bs_flags=enc.bs_flags, bwe_gains=enc.bwe_gains)
-        if args.ms:
-            out = codec.decode_bitstream_ms(
-                enc.codes, enc.bark16, is_gains=enc.is_gains, **kw
-            )
-        else:
-            out = codec.decode_bitstream(enc.codes, enc.bark16, **kw)
+        out = codec.decode(codec.decode_frames(
+            enc.codes, enc.bark16, ms=args.ms, tns_idx=enc.tns_idx,
+            nf_levels=enc.nf_levels, bs_flags=enc.bs_flags,
+            bwe_gains=enc.bwe_gains, is_gains=enc.is_gains,
+        ))
     else:
         out = codec.round_trip_quantized(x, drown=args.drown)
     n = args.filters_n

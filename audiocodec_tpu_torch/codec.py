@@ -7,7 +7,7 @@
       -> (dequantize ->) MDCT.inverse_transform              [decode...]
 
 and the bitstream path, what a container carries (``encode_frames`` ->
-:class:`EncodedFrames` -> ``decode_bitstream[_ms]``): integer codes, the
+:class:`EncodedFrames` -> ``decode_frames``): integer codes, the
 Bark sidecar on the scq grid, and the feature ladder's members: TNS
 indices, noise-fill levels, block-switch flags, bandwidth-extension gains
 and intensity-stereo gains. The order of operations on both sides is part
@@ -604,15 +604,91 @@ class Codec(nn.Module):
             threshold = _blockswitch.pool_threshold(threshold, bs_flags)
         return threshold
 
-    def _decode_tail(self, spec, tns_idx, tbs, bs_flags):
-        """Merge the block-switched frames, then inverse-filter TNS."""
+    def decode_frames(self, codes: torch.Tensor, bark16: torch.Tensor, *,
+                      ms: bool = False, threshold_scale=1.0,
+                      dz_recon: float = 0.0,
+                      tns_idx: torch.Tensor | None = None,
+                      tns_band_start: int | None = None,
+                      nf_levels: torch.Tensor | None = None,
+                      nf_band_start: int | None = None,
+                      nf_seed=0, nf_frame_offset=0,
+                      bs_flags: torch.Tensor | None = None,
+                      bwe_gains: torch.Tensor | None = None,
+                      bwe_start: int | None = None,
+                      is_gains: torch.Tensor | None = None,
+                      is_start: int | None = None) -> torch.Tensor:
+        """The one decode body, the mirror of :meth:`encode_frames`: codes
+        + sidecar (+ members) -> spectra [B, frames, N, C], derotated to
+        left/right with ``ms``. The step sizes follow the encoder's order
+        bit for bit: the sidecar's threshold (the one min channel with
+        ``ms``), the scale, the TNS gain compensation, the block-switch
+        pooling last; then the dequantization, the fills (bwe, noise,
+        intensity), the block-switch merge and the TNS inverse filter, all
+        in the coded domain before the derotation.
+
+        :param dz_recon: dead-zone reconstruction offset (0 for plain
+            rounding).
+        :param tns_idx: TNS indices (None: unfiltered); ``tns_band_start``
+            the encoder's band start (default this codec's), as each
+            ``*_start`` below.
+        :param nf_levels: noise-fill levels (None: unfilled); ``nf_seed``
+            the container's seed, ``nf_frame_offset`` the global index of
+            the first frame.
+        :param bs_flags: block-switch flags (None: long only).
+        :param bwe_gains: bandwidth-extension gains (None: off), applied
+            before the noise fill, which they cap at ``bwe_start``.
+        :param is_gains: intensity-stereo image gains (None: fully coded;
+            only with ``ms``); nf and bwe then exclude the owned region as
+            the encoder did, and with bwe the side is rebuilt from the
+            bwe-reconstructed mid.
+        """
+        if is_gains is not None and not ms:
+            raise ValueError("intensity stereo requires ms=True (it "
+                             "codes the mid/side layout)")
+        dtype = self.mdct.compute_dtype
+        threshold = self._scaled(
+            self._ms_threshold(bark16) if ms else
+            self.psycho.bark_intensity_to_threshold(bark16.to(dtype)),
+            threshold_scale,
+        )
+        tbs = self.tns_band_start if tns_band_start is None else tns_band_start
+        delta = _quantize.step_size(
+            self._decode_threshold(threshold, tns_idx, tbs, bs_flags)
+        )
+        spec = _quantize.dequantize(codes, delta, dtype=dtype,
+                                    recon_offset=dz_recon)
+        excl = ist = bst = None
+        if is_gains is not None:
+            ist = self.is_start if is_start is None else is_start
+            excl = _intensity.owned_mask(self.mdct.filters_n, ist,
+                                         codes.device)
+        if bwe_gains is not None:
+            bst = self.bwe_start if bwe_start is None else bwe_start
+            spec = _bwe.fill(spec, codes, delta, bwe_gains, bst,
+                             exclude=excl)
+        if nf_levels is not None:
+            bs_nf = (self.nf_band_start if nf_band_start is None
+                     else nf_band_start)
+            spec = _nf.fill(spec, codes, delta, nf_levels, bs_nf, nf_seed,
+                            nf_frame_offset, band_end=bst, exclude=excl)
+        if is_gains is not None:
+            # with bwe the fill scales the bwe-reconstructed mid, the
+            # reference the encoder projected onto
+            mid_ref = None
+            if bwe_gains is not None:
+                mid_ref = _intensity.mid_reference(
+                    codes, delta, dtype, bwe_gains=bwe_gains,
+                    bwe_start=bst, exclude=excl,
+                )
+            spec = _intensity.fill(spec, codes, delta, is_gains, ist,
+                                   mid_ref=mid_ref)
         if bs_flags is not None:
             spec = _blockswitch.merge_spectrum(
                 spec, bs_flags, precision=self.mdct.dct_precision
             )
         if tns_idx is not None:
             spec = _tns.filter_inverse(spec, tns_idx, tbs)
-        return spec
+        return self.from_mid_side(spec) if ms else spec
 
     def decode_bitstream(self, codes: torch.Tensor, bark16: torch.Tensor,
                          threshold_scale=1.0,
@@ -627,43 +703,14 @@ class Codec(nn.Module):
                          bwe_start: int | None = None) -> torch.Tensor:
         """Inverse of :meth:`encode_bitstream` and of a mono
         :meth:`encode_frames`: codes + sidecar (+ members) -> waveform
-        [B, (blocks+1)*N, C].
-
-        :param dz_recon: dead-zone reconstruction offset (0 for plain
-            rounding).
-        :param tns_idx: TNS indices (None: unfiltered); ``tns_band_start``
-            the encoder's band start (default this codec's).
-        :param nf_levels: noise-fill levels (None: unfilled), filled in the
-            coded domain before the TNS inverse filter; ``nf_seed`` the
-            container's seed, ``nf_frame_offset`` the global index of the
-            first frame.
-        :param bs_flags: block-switch flags (None: long only).
-        :param bwe_gains: bandwidth-extension gains (None: off), applied
-            before the noise fill, which they cap at ``bwe_start``.
-        """
-        threshold = self._scaled(
-            self.psycho.bark_intensity_to_threshold(
-                bark16.to(self.mdct.compute_dtype)
-            ),
-            threshold_scale,
-        )
-        tbs = self.tns_band_start if tns_band_start is None else tns_band_start
-        delta = _quantize.step_size(
-            self._decode_threshold(threshold, tns_idx, tbs, bs_flags)
-        )
-        spec = _quantize.dequantize(codes, delta,
-                                    dtype=self.mdct.compute_dtype,
-                                    recon_offset=dz_recon)
-        bst = None
-        if bwe_gains is not None:
-            bst = self.bwe_start if bwe_start is None else bwe_start
-            spec = _bwe.fill(spec, codes, delta, bwe_gains, bst)
-        if nf_levels is not None:
-            bs_nf = (self.nf_band_start if nf_band_start is None
-                     else nf_band_start)
-            spec = _nf.fill(spec, codes, delta, nf_levels, bs_nf,
-                            nf_seed, nf_frame_offset, band_end=bst)
-        return self.decode(self._decode_tail(spec, tns_idx, tbs, bs_flags))
+        [B, (blocks+1)*N, C]; the arguments are :meth:`decode_frames`'."""
+        return self.decode(self.decode_frames(
+            codes, bark16, threshold_scale=threshold_scale,
+            dz_recon=dz_recon, tns_idx=tns_idx,
+            tns_band_start=tns_band_start, nf_levels=nf_levels,
+            nf_band_start=nf_band_start, nf_seed=nf_seed,
+            nf_frame_offset=nf_frame_offset, bs_flags=bs_flags,
+            bwe_gains=bwe_gains, bwe_start=bwe_start))
 
     def decode_bitstream_ms(self, codes: torch.Tensor, bark16: torch.Tensor,
                             threshold_scale=1.0,
@@ -680,52 +727,13 @@ class Codec(nn.Module):
                             is_start: int | None = None
                             ) -> torch.Tensor:
         """Inverse of :meth:`encode_bitstream_ms` and of a mid/side
-        :meth:`encode_frames` -> left/right waveform. Every fill runs in the
-        coded (mid/side) domain, before the TNS inverse filter and the
-        stereo derotation; the arguments are :meth:`decode_bitstream`'s,
-        plus:
-
-        :param is_gains: intensity-stereo image gains (None: fully coded);
-            nf and bwe then exclude the owned region as the encoder did,
-            and with bwe the side is rebuilt from the bwe-reconstructed mid.
-        :param is_start: the encoder's intensity crossover (default this
-            codec's).
-        """
-        thr = self._scaled(self._ms_threshold(bark16), threshold_scale)
-        tbs = self.tns_band_start if tns_band_start is None else tns_band_start
-        delta = _quantize.step_size(
-            self._decode_threshold(thr, tns_idx, tbs, bs_flags)
-        )
-        spec_ms = _quantize.dequantize(
-            codes, delta, dtype=self.mdct.compute_dtype,
-            recon_offset=dz_recon,
-        )
-        excl = ist = None
-        if is_gains is not None:
-            ist = self.is_start if is_start is None else is_start
-            excl = _intensity.owned_mask(self.mdct.filters_n, ist,
-                                         codes.device)
-        bst = None
-        if bwe_gains is not None:
-            bst = self.bwe_start if bwe_start is None else bwe_start
-            spec_ms = _bwe.fill(spec_ms, codes, delta, bwe_gains, bst,
-                                exclude=excl)
-        if nf_levels is not None:
-            bs_nf = (self.nf_band_start if nf_band_start is None
-                     else nf_band_start)
-            spec_ms = _nf.fill(spec_ms, codes, delta, nf_levels, bs_nf,
-                               nf_seed, nf_frame_offset, band_end=bst,
-                               exclude=excl)
-        if is_gains is not None:
-            # with bwe the fill scales the bwe-reconstructed mid, the
-            # reference the encoder projected onto
-            mid_ref = None
-            if bwe_gains is not None:
-                mid_ref = _intensity.mid_reference(
-                    codes, delta, self.mdct.compute_dtype,
-                    bwe_gains=bwe_gains, bwe_start=bst, exclude=excl,
-                )
-            spec_ms = _intensity.fill(spec_ms, codes, delta, is_gains,
-                                      ist, mid_ref=mid_ref)
-        spec_ms = self._decode_tail(spec_ms, tns_idx, tbs, bs_flags)
-        return self.decode(self.from_mid_side(spec_ms))
+        :meth:`encode_frames` -> left/right waveform; the arguments are
+        :meth:`decode_frames`'."""
+        return self.decode(self.decode_frames(
+            codes, bark16, ms=True, threshold_scale=threshold_scale,
+            dz_recon=dz_recon, tns_idx=tns_idx,
+            tns_band_start=tns_band_start, nf_levels=nf_levels,
+            nf_band_start=nf_band_start, nf_seed=nf_seed,
+            nf_frame_offset=nf_frame_offset, bs_flags=bs_flags,
+            bwe_gains=bwe_gains, bwe_start=bwe_start, is_gains=is_gains,
+            is_start=is_start))

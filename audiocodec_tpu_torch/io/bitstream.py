@@ -800,7 +800,7 @@ def decode_container(codec, codes, bark, meta):
     """Decode a loaded ``.acz`` container (:func:`load`'s codes, sidecar
     and meta) on the codec's device -> waveform [B, (blocks+1)*N, C] in the
     codec's compute dtype: the meta's members become
-    ``decode_bitstream[_ms]``'s keywords, with the recorded band starts and
+    ``Codec.decode_frames``' keywords, with the recorded band starts and
     crossovers taken verbatim (0 is a legal wire value) and the noise seed
     as its uint32 value. A batch of B containers of one configuration
     decodes in one call: their codes, sidecars and members stacked, and
@@ -828,10 +828,8 @@ def decode_container(codec, codes, bark, meta):
         kw["bwe_start"] = int(meta.get("bwe_start", 0))
     codes = t(codes)
     bark = bark.to(dev, torch.bfloat16)
-    if meta.get("ms"):
-        isg = meta.get("is_gains")
-        if isg is not None:
-            kw["is_gains"] = t(isg)
-            kw["is_start"] = int(meta.get("is_start", 0))
-        return codec.decode_bitstream_ms(codes, bark, **kw)
-    return codec.decode_bitstream(codes, bark, **kw)
+    ms = bool(meta.get("ms"))
+    if ms and meta.get("is_gains") is not None:
+        kw["is_gains"] = t(meta["is_gains"])
+        kw["is_start"] = int(meta.get("is_start", 0))
+    return codec.decode(codec.decode_frames(codes, bark, ms=ms, **kw))

@@ -30,15 +30,16 @@ Layout (little-endian):
              | u32 crc32
   trailer: u64 chunk byte offsets | u64 n_chunks | u64 index offset
 
-The encoder runs each chunk's device work (the streaming MDCT on the card's
-kernels, ``Codec.encode_frames``, then the Rice coding of the codes by
-``ops/cuda_rice.py``) one chunk ahead of the host's pack: the coded bytes
-and the other members come back through pinned memory, and the host waits
-on an event, never on the whole card. Codes on the host are Rice-coded
-there (``native.rrice_encode``); both coders write the same bytes. The
-decoder reads and Rice-decodes the next chunk in a worker thread while the
-card synthesizes this one. Device memory is bounded by the chunk: the
-signal may stay on the host.
+The encoder (``_ChunkEncoder``, which ``encode_stream`` and the server's
+stream sessions share) runs each chunk's device work (the streaming MDCT on
+the card's kernels, ``Codec.encode_frames``, then the Rice coding of the
+codes by ``ops/cuda_rice.py``) one chunk ahead of the host's pack: the
+coded bytes and the other members come back through pinned memory, and the
+host waits on an event, never on the whole card. Codes on the host are
+Rice-coded there (``native.rrice_encode``); both coders write the same
+bytes. The decoder (``Codec.decode_frames`` a chunk) reads and Rice-decodes
+the next chunk in a worker thread while the card synthesizes this one.
+Device memory is bounded by the chunk: the signal may stay on the host.
 
 The reader gives the codes and members as numpy arrays and the sidecar as a
 CPU ``torch.bfloat16`` tensor, as ``io/bitstream.unpack`` does. The host
@@ -71,13 +72,12 @@ from audiocodec_tpu_torch import blockswitch as _blockswitch
 from audiocodec_tpu_torch import bwe as _bwe
 from audiocodec_tpu_torch import intensity as _intensity
 from audiocodec_tpu_torch import native
-from audiocodec_tpu_torch import nf as _nf
 from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch import rate as _rate
 from audiocodec_tpu_torch import scq as _scq
 from audiocodec_tpu_torch import streaming
 from audiocodec_tpu_torch import tns as _tns
-from audiocodec_tpu_torch.codec import Codec
+from audiocodec_tpu_torch.codec import Codec, EncodedFrames
 from audiocodec_tpu_torch.io import bitstream as _bitstream
 from audiocodec_tpu_torch.ops import cuda_rice as _cuda_rice
 from audiocodec_tpu_torch.ops import threefry as _threefry
@@ -136,23 +136,13 @@ class RiceBytes(typing.NamedTuple):
 
     data: bytes
     shape: tuple  # the codes' shape: [1, blocks, N, C] or [blocks, N, C]
-    card: bool  # coded on the card (counted as such by the writer)
 
 
-def _rice_bytes(codes) -> RiceBytes:
-    """The Rice coding of ``codes``: on the card for CUDA codes (waits for
-    it), else on the host."""
-    if isinstance(codes, torch.Tensor) and codes.is_cuda:
-        buf, nbytes = _cuda_rice.rrice_encode(
-            codes.to(torch.int32).contiguous())
-        n = int(nbytes.item())
-        if n < 0:
-            raise RuntimeError("rrice encoder overflow (bound bug)")
-        return RiceBytes(buf[:n].cpu().numpy().tobytes(), tuple(codes.shape),
-                         True)
-    codes = _bitstream.host(codes)
-    return RiceBytes(native.rrice_encode(codes.astype(np.int32)),
-                     codes.shape, False)
+def _card_rice(codes):
+    """Queue the Rice coding of CUDA ``codes`` on the card
+    (``ops/cuda_rice.py``, looked up at each call) -> (its device buffer,
+    its byte count on the device)."""
+    return _cuda_rice.rrice_encode(codes.to(torch.int32).contiguous())
 
 
 def _bark16(bark) -> torch.Tensor:
@@ -408,6 +398,8 @@ class StreamWriter:
         # arrays ``append`` codes (no device synchronisation)
         self._ladder = any(k in self.meta for k in _LADDER_KEYS)
         self.counters = {}
+        # the read back of the card's codings (_card_bytes)
+        self._side = self._staging = None
 
     def _count(self, name: str, n=1) -> None:
         self.counters[name] = self.counters.get(name, 0) + int(n)
@@ -423,11 +415,17 @@ class StreamWriter:
         gains [1, blocks, groups, C], uint8 intensity gains [1, blocks,
         groups], FEC member bytes (b"" for the first chunk). Arrays may be
         numpy or tensors on any device; codes on the card are Rice-coded
-        there, others on the host, and ``RiceBytes`` are written as they
-        are. ``counters`` counts the chunks of each coder:
-        ``rice_card_chunks``, ``rice_host_chunks``."""
-        if not isinstance(codes, RiceBytes):
-            codes = _rice_bytes(codes)
+        there (waited for), others on the host, and ``RiceBytes`` are
+        written as they are."""
+        if isinstance(codes, torch.Tensor) and codes.is_cuda:
+            buf, nbytes = _card_rice(codes)
+            (nbytes,), event = _to_host((nbytes,))
+            codes = RiceBytes(self._card_bytes(buf, nbytes, event),
+                              tuple(codes.shape))
+        elif not isinstance(codes, RiceBytes):
+            codes = _bitstream.host(codes)
+            codes = RiceBytes(native.rrice_encode(codes.astype(np.int32)),
+                              codes.shape)
         shape = tuple(codes.shape)
         bark = _bark16(bark16)
         if len(shape) == 4:
@@ -457,7 +455,6 @@ class StreamWriter:
         if cbr is not None and not 0 < float(tscale) < 2**32:
             raise ValueError(f"chunk threshold scale out of range: {tscale}")
         code_bytes = bytes(codes.data)
-        self._count("rice_card_chunks" if codes.card else "rice_host_chunks")
         scq_k2 = self.meta.get("scq", 0)
         if scq_k2:
             bark_bytes = _scq.encode_levels(
@@ -502,6 +499,26 @@ class StreamWriter:
             self._f.write(hdr)
             self._f.write(data)
         self._f.write(struct.pack("<I", crc))
+
+    def _card_bytes(self, buf, nbytes, event) -> bytes:
+        """The bytes of a card coding (_card_rice): ``nbytes`` its byte
+        count in pinned memory, ``event`` recorded after that copy. The
+        bytes come back on a side stream, not behind what the card was
+        given since, into one pinned staging buffer."""
+        event.synchronize()
+        n = int(nbytes)
+        if n < 0:
+            raise RuntimeError("rrice encoder overflow (bound bug)")
+        if self._side is None:
+            self._side = torch.cuda.Stream(buf.device)
+        if self._staging is None or self._staging.numel() < n:
+            self._staging = torch.empty(buf.numel(), dtype=torch.uint8,
+                                        pin_memory=True)
+        self._side.wait_event(event)
+        with torch.cuda.stream(self._side):
+            self._staging[:n].copy_(buf[:n], non_blocking=True)
+        self._side.synchronize()
+        return self._staging[:n].numpy().tobytes()
 
     def _ladder_members(self, blocks, ch, tns_idx, nf_levels, bwe_gains,
                         is_gains, bs_flags) -> list:
@@ -1094,44 +1111,6 @@ def _to_host(tensors):
     return out, event
 
 
-def _encode_step(codec, carry, x_chunk, drown, threshold_scale, ms,
-                 deadzone, tns=False, nf=False, tmask=0.0,
-                 tmask_context=None, bs=False, bwe=False, intensity=False,
-                 fec_mult=0.0, codec_fec=None):
-    """One chunk's device work: the streaming MDCT step, the coded encode,
-    the FEC copy (by ``codec_fec``, with ``fec_mult``) and the next chunk's
-    temporal-masking context ->
-    (carry, context, EncodedFrames, FEC (codes, pooled sidecar) or None)."""
-    carry, frames = streaming.mdct_stream_step(codec.mdct, carry, x_chunk)
-    enc = codec.encode_frames(
-        frames, drown, threshold_scale=threshold_scale, ms=ms,
-        deadzone=deadzone, tns=tns, nf=nf, tmask=tmask,
-        tmask_context=tmask_context, bs=bs, bwe=bwe, intensity=intensity,
-    )
-    # the FEC copy: a PLAIN coarse quantize of the same frames (it must
-    # decode standalone out of a successor chunk), on the member's own
-    # sidecar grid (codec_fec) and time pool, so its codes are quantized
-    # against exactly the sidecar the member carries
-    fecq = None
-    if fec_mult:
-        fecq = codec_fec.quantize_frames_fec(
-            frames, drown, threshold_scale=threshold_scale * fec_mult,
-            ms=ms, deadzone=deadzone, tpool=_FEC_TPOOL,
-        )
-    new_ctx = None
-    if tmask:
-        # the next chunk's context: the trailing pre-spread Bark
-        # intensities of these frames (per-frame, so equal to what the
-        # encode above used)
-        w = codec.tmask_context_frames(tmask)
-        take = min(w, frames.shape[1])
-        pre = codec.bark_intensity(frames[:, -take:], drown)
-        if tmask_context is not None and take < w:
-            pre = torch.cat([tmask_context, pre], dim=1)[:, -w:]
-        new_ctx = pre
-    return carry, new_ctx, enc, fecq
-
-
 def _dtx_gate(x, chunk: int, dtx: float):
     """Per-(chunk, channel) RMS of ``x`` [1, S, C] in float32, one reduction
     where ``x`` lives -> (gate bool [chunks], levels [chunks, C]). The gate
@@ -1144,6 +1123,197 @@ def _dtx_gate(x, chunk: int, dtx: float):
     gate = below & np.roll(below, 1)
     gate[0] = below[0]
     return gate, rms
+
+
+class _Pending(typing.NamedTuple):
+    """A chunk whose device work is queued and whose bytes are not yet
+    written (_ChunkEncoder)."""
+
+    enc: EncodedFrames  # host copies; codes the card coding's byte count
+    #   when ``card`` is set
+    event: typing.Any  # the CUDA event after the copies, or None
+    tscale: float
+    fec: tuple | None  # the previous chunk's coarse copy (codes, pooled
+    #   sidecar, scale) on the host, or None
+    card: tuple | None  # (the card coding's buffer, the codes' shape)
+
+
+class _ChunkEncoder:
+    """The one chunk pipeline of an .acs encode, ``encode_stream``'s and the
+    server's stream sessions': the ``StreamWriter`` whose header the codec
+    and the features make, the MDCT carry, the forward-masking context,
+    the FEC codec, and a one-deep pipeline: chunk k+1's device work is
+    queued before the host waits for chunk k's payload and writes it."""
+
+    def __init__(self, codec, sink, channels: int, *, drown=0.0,
+                 ms: bool = False, threshold_scale: float = 1.0,
+                 cbr: bool = False, deadzone: float = 0.5,
+                 tns: bool = False, nf: bool = False, nf_seed: int = 0,
+                 tmask: float = 0.0, bs: bool = False, bwe: bool = False,
+                 intensity: bool = False, fec: float = 0.0,
+                 dtx: float = 0.0, orig_samples: int = 0, lufs=None):
+        deadzone = float(deadzone)
+        self._writer = StreamWriter(
+            sink,
+            sample_rate=codec.psycho.sample_rate,
+            filters_n=codec.mdct.filters_n,
+            bark_bands_n=codec.psycho.bark_bands_n,
+            alpha=codec.psycho.alpha,
+            window_type=codec.mdct.window_type,
+            channels=channels,
+            compute_dtype=codec.mdct.compute_dtype,
+            ms=ms,
+            # CBR streams record 1.0: the scales ride each chunk
+            threshold_scale=1.0 if cbr else threshold_scale,
+            bark_precision=codec.psycho.bark_precision,
+            dz_recon=(_quantize.dz_recon_offset(deadzone) if deadzone != 0.5
+                      else 0.0),
+            tns_order=_tns.ORDER if tns else 0,
+            tns_band_start=codec.tns_band_start if tns else 0,
+            nf=nf,
+            nf_band_start=codec.nf_band_start if nf else 0,
+            nf_seed=nf_seed if nf else 0,
+            cbr=cbr,
+            bs=bs,
+            bwe_start=codec.bwe_start if bwe else 0,
+            is_start=codec.is_start if intensity else 0,
+            sidecar_grid=codec.sidecar_grid,
+            fec_scale=float(fec),
+            dtx_level=float(dtx),
+            orig_samples=orig_samples,
+            lufs=lufs,
+        )
+        self.counters = self._writer.counters
+        self._codec = codec
+        self._channels = channels
+        self._cbr = cbr
+        self._fec = float(fec)
+        self._kw = dict(drown=drown, ms=ms, deadzone=deadzone, tns=tns,
+                        nf=nf, tmask=float(tmask), bs=bs, bwe=bwe,
+                        intensity=intensity)
+        # the same codec on the FEC member's own coarse sidecar grid,
+        # sharing the modules and their buffers
+        self._codec_fec = (Codec(codec.mdct, codec.psycho,
+                                 sidecar_grid=_FEC_K2) if fec else None)
+        self._ts = threshold_scale  # the flush frame reuses the last scale
+        self._pending = self._coarse = None
+        self._restart()
+
+    def _restart(self) -> None:
+        """A zero MDCT carry and no forward-masking context."""
+        self._carry = streaming.mdct_stream_init(self._codec.mdct, 1,
+                                                 self._channels)
+        self._tctx = None
+
+    def _step(self, x, tscale):
+        """One chunk's device work: the streaming MDCT step, the coded
+        encode, the FEC copy and the next chunk's forward-masking context
+        -> (EncodedFrames, FEC (codes, pooled sidecar) or None)."""
+        codec, kw = self._codec, self._kw
+        self._carry, frames = streaming.mdct_stream_step(codec.mdct,
+                                                         self._carry, x)
+        enc = codec.encode_frames(frames, threshold_scale=tscale,
+                                  tmask_context=self._tctx, **kw)
+        # the FEC copy: a PLAIN coarse quantize of the same frames (it must
+        # decode standalone out of a successor chunk), on the member's own
+        # sidecar grid and time pool, so its codes are quantized against
+        # exactly the sidecar the member carries
+        fecq = None
+        if self._fec:
+            fecq = self._codec_fec.quantize_frames_fec(
+                frames, kw["drown"], threshold_scale=tscale * self._fec,
+                ms=kw["ms"], deadzone=kw["deadzone"], tpool=_FEC_TPOOL,
+            )
+        if kw["tmask"]:
+            # the next chunk's context: the trailing pre-spread Bark
+            # intensities of these frames (per-frame, so equal to what the
+            # encode above used)
+            w = codec.tmask_context_frames(kw["tmask"])
+            take = min(w, frames.shape[1])
+            pre = codec.bark_intensity(frames[:, -take:], kw["drown"])
+            if self._tctx is not None and take < w:
+                pre = torch.cat([self._tctx, pre], dim=1)[:, -w:]
+            self._tctx = pre
+        return enc, fecq
+
+    def push(self, x, tscale: float) -> None:
+        """Queue the device work of a chunk [1, samples, C] (on the host or
+        the codec's device) at threshold scale ``tscale``, then write the
+        previous chunk."""
+        with span("stream.step"):
+            with span("stream.h2d"):
+                x = x.to(_device(self._codec), non_blocking=True)
+            enc, fecq = self._step(x, tscale)
+            card = None
+            if enc.codes.is_cuda:
+                # the coding's byte count comes back in the codes' place
+                with span("stream.rice"):
+                    buf, nbytes = _card_rice(enc.codes)
+                card = (buf, tuple(enc.codes.shape))
+                enc = enc._replace(codes=nbytes)
+            host, event = _to_host(tuple(enc) + tuple(fecq or ()))
+        self.drain()
+        self._pending = _Pending(EncodedFrames(*host[:7]), event, tscale,
+                                 self._coarse, card)
+        if fecq is not None:
+            self._coarse = (host[7], host[8], tscale * self._fec)
+        self._ts = tscale
+
+    def drain(self) -> None:
+        """Wait for the pending chunk's payload and write it."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return
+        enc = p.enc
+        if p.event is not None:
+            with span("stream.d2h"):
+                p.event.synchronize()
+                if p.card is not None:
+                    buf, shape = p.card
+                    enc = enc._replace(codes=RiceBytes(
+                        self._writer._card_bytes(buf, enc.codes, p.event),
+                        shape))
+        with span("stream.pack"):
+            self._append(enc, p.tscale, p.fec)
+
+    def silent(self, blocks: int, levels) -> None:
+        """Write a DTX silent record after what is pending. Both ends take
+        the gated span as zeros: the carry restarts, the forward-masking
+        context is dropped."""
+        self.drain()
+        self._writer.append_silent(blocks, levels)
+        self._restart()
+
+    def finish(self) -> int:
+        """Write what is pending, then the flush frame (the carried block's
+        tail-out at the last chunk's scale, carrying the last body chunk's
+        FEC member) and the index -> the number of chunks written."""
+        self.drain()
+        codec = self._codec
+        last = codec.encode_frames(
+            streaming.mdct_stream_flush(codec.mdct, self._carry),
+            threshold_scale=self._ts, tmask_context=self._tctx, **self._kw)
+        self._append(last, self._ts, self._coarse)
+        self._writer.close()
+        return len(self._writer._index)
+
+    def _append(self, enc, tscale, coarse) -> None:
+        """Write a chunk, its FEC member made of ``coarse``."""
+        fec = None
+        if self._fec:
+            fec = (b"" if coarse is None
+                   else pack_fec_member(*coarse, self._writer.meta))
+        self._writer.append(enc.codes, enc.bark16, enc.tns_idx,
+                            enc.nf_levels,
+                            tscale=tscale if self._cbr else None,
+                            bs_flags=enc.bs_flags, bwe_gains=enc.bwe_gains,
+                            is_gains=enc.is_gains, fec=fec)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._writer.close()
 
 
 @torch.no_grad()
@@ -1188,15 +1358,12 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
         encoder zeroes its MDCT carry across them. Magic ACS3; does not
         compose with ``fec`` or CBR scales.
     :param counters: a dict that receives the writer's counts over the
-        stream: the ladder's members (``StreamWriter._ladder_members``) and
-        the chunks Rice-coded on the card and on the host
-        (``StreamWriter.append``).
+        stream: the ladder's members (``StreamWriter._ladder_members``).
     :return: number of chunks written.
     """
-    mdct = codec.mdct
-    n = mdct.filters_n
-    _dtypes.check_input_dtype(x, mdct.compute_dtype, "encode_stream input")
-    dev = _device(codec)
+    n = codec.mdct.filters_n
+    _dtypes.check_input_dtype(x, codec.mdct.compute_dtype,
+                              "encode_stream input")
     b, s, c = x.shape
     if b != 1:
         raise ValueError("encode_stream takes a single clip")
@@ -1205,9 +1372,6 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
     chunk = chunk_blocks * n
     if s % chunk != 0:
         raise ValueError(f"samples {s} must be a multiple of {chunk}")
-    deadzone = float(deadzone)
-    dz_recon = (_quantize.dz_recon_offset(deadzone) if deadzone != 0.5
-                else 0.0)
     cbr = np.ndim(threshold_scale) > 0 or isinstance(threshold_scale,
                                                      (list, tuple))
     if cbr:
@@ -1217,149 +1381,26 @@ def encode_stream(codec, x, path, chunk_blocks: int = 256,
                 f"per-chunk threshold_scale needs one value per body "
                 f"chunk ({s // chunk}), got {len(scales)}"
             )
-    tmask = float(tmask)
-    fec = float(fec)
-    features = dict(tns=tns, nf=nf, tmask=tmask, bs=bs, bwe=bwe,
-                    intensity=intensity)
-    with StreamWriter(
-        path,
-        sample_rate=codec.psycho.sample_rate,
-        filters_n=n,
-        bark_bands_n=codec.psycho.bark_bands_n,
-        alpha=codec.psycho.alpha,
-        window_type=mdct.window_type,
-        channels=c,
-        compute_dtype=mdct.compute_dtype,
-        ms=ms,
-        threshold_scale=1.0 if cbr else threshold_scale,
-        bark_precision=codec.psycho.bark_precision,
-        dz_recon=dz_recon,
-        tns_order=_tns.ORDER if tns else 0,
-        tns_band_start=codec.tns_band_start if tns else 0,
-        nf=nf,
-        nf_band_start=codec.nf_band_start if nf else 0,
-        nf_seed=nf_seed if nf else 0,
-        cbr=cbr,
-        bs=bs,
-        bwe_start=codec.bwe_start if bwe else 0,
-        is_start=codec.is_start if intensity else 0,
-        sidecar_grid=codec.sidecar_grid,
-        fec_scale=fec,
-        dtx_level=float(dtx),
-        orig_samples=orig_samples,
-        lufs=lufs,
-    ) as w:
+    with _ChunkEncoder(
+        codec, path, c, drown=drown, ms=ms,
+        threshold_scale=1.0 if cbr else threshold_scale, cbr=cbr,
+        deadzone=deadzone, tns=tns, nf=nf, nf_seed=nf_seed, tmask=tmask,
+        bs=bs, bwe=bwe, intensity=intensity, fec=fec, dtx=dtx,
+        orig_samples=orig_samples, lufs=lufs,
+    ) as enc:
         gate = None
         if dtx:
             gate, levels = _dtx_gate(x, chunk, dtx)
-        # the same codec on the FEC member's own coarse sidecar grid,
-        # sharing the modules and their buffers
-        codec_fec = (Codec(codec.mdct, codec.psycho, sidecar_grid=_FEC_K2)
-                     if fec else None)
-        carry = streaming.mdct_stream_init(mdct, 1, c)
-        tctx = None
-        # one-deep pipeline: chunk k+1's device work is queued before the
-        # host waits for chunk k's payload and packs it
-        pending = None  # (host payload, its event, FEC member of the
-        #                 previous chunk's coarse copy or None, the device
-        #                 buffer of the codes' coding and their shape or None)
-        prev_coarse = None  # (codes, pooled sidecar) on the host, scale
-        # on the card: chunk k's coding stays in its buffer until the host
-        # reads it back, on a side stream into one pinned buffer
-        side = staging = None
-
-        def read_coded(buf, nbytes, event) -> bytes:
-            nonlocal side, staging
-            n = int(nbytes)
-            if n < 0:
-                raise RuntimeError("rrice encoder overflow (bound bug)")
-            if side is None:
-                side = torch.cuda.Stream(buf.device)
-            if staging is None or staging.numel() < n:
-                staging = torch.empty(buf.numel(), dtype=torch.uint8,
-                                      pin_memory=True)
-            # not behind chunk k+1's step, queued on the current stream
-            side.wait_event(event)
-            with torch.cuda.stream(side):
-                staging[:n].copy_(buf[:n], non_blocking=True)
-            side.synchronize()
-            return staging[:n].numpy().tobytes()
-
-        def flush_pending():
-            payload, event, fec_prev, rice = pending
-            if event is not None:
-                with span("stream.d2h"):
-                    event.synchronize()
-                    if rice is not None:
-                        buf, shape = rice
-                        payload[0] = RiceBytes(
-                            read_coded(buf, payload[0], event), shape, True)
-            with span("stream.pack"):
-                fec_bytes = None
-                if fec:
-                    fec_bytes = (b"" if fec_prev is None
-                                 else pack_fec_member(*fec_prev, w.meta))
-                w.append(*payload[:8], fec=fec_bytes)
-
         for k, start in enumerate(range(0, s, chunk)):
-            ts_k = scales[k] if cbr else threshold_scale
             if gate is not None and gate[k]:
-                if pending is not None:
-                    flush_pending()
-                    pending = None
                 # digital silence records level 0: decodes to silence
-                w.append_silent(chunk_blocks, levels[k] * (levels[k] > 1e-12))
-                # both ends take the gated span as zeros: reset the overlap
-                # carry and drop the post-masking context
-                carry = streaming.mdct_stream_init(mdct, 1, c)
-                tctx = None
-                continue
-            with span("stream.step"):
-                with span("stream.h2d"):
-                    x_k = x[:, start:start + chunk].to(dev,
-                                                       non_blocking=True)
-                carry, tctx, enc, fecq = _encode_step(
-                    codec, carry, x_k, drown, ts_k, ms, deadzone,
-                    fec_mult=fec, codec_fec=codec_fec, tmask_context=tctx,
-                    **features,
-                )
-                codes, rice = enc.codes, None
-                if codes.is_cuda:
-                    # the coding's byte count comes back in the codes' place
-                    with span("stream.rice"):
-                        buf, codes = _cuda_rice.rrice_encode(
-                            codes.to(torch.int32).contiguous())
-                    rice = (buf, tuple(enc.codes.shape))
-                payload, event = _to_host(
-                    (codes, enc.bark16, enc.tns_idx, enc.nf_levels,
-                     None, enc.bs_flags, enc.bwe_gains, enc.is_gains)
-                    + (tuple(fecq) if fecq is not None else ()))
-            payload[4] = ts_k if cbr else None
-            if pending is not None:
-                flush_pending()
-            pending = (payload, event, prev_coarse, rice)
-            if fec:
-                prev_coarse = (payload[8], payload[9], ts_k * fec)
-        if pending is not None:
-            flush_pending()
-        ts_last = scales[-1] if cbr else threshold_scale
-        # the flush frame: the carried block's tail-out
-        last = codec.encode_frames(
-            streaming.mdct_stream_flush(mdct, carry), drown,
-            threshold_scale=ts_last, ms=ms, deadzone=deadzone,
-            tmask_context=tctx, **features)
-        fec_last = None
-        if fec:
-            # the flush chunk carries the LAST body chunk's redundancy
-            fec_last = (b"" if prev_coarse is None
-                        else pack_fec_member(*prev_coarse, w.meta))
-        w.append(last.codes, last.bark16, last.tns_idx, last.nf_levels,
-                 tscale=ts_last if cbr else None,
-                 bs_flags=last.bs_flags, bwe_gains=last.bwe_gains,
-                 is_gains=last.is_gains, fec=fec_last)
-        n_chunks = len(w._index)
+                enc.silent(chunk_blocks, levels[k] * (levels[k] > 1e-12))
+            else:
+                enc.push(x[:, start:start + chunk],
+                         scales[k] if cbr else threshold_scale)
+        n_chunks = enc.finish()
     if counters is not None:
-        counters.update(w.counters)
+        counters.update(enc.counters)
     return n_chunks
 
 
@@ -1627,66 +1668,20 @@ def encode_stream_cbr(
     return n_chunks, scales, kbps
 
 
-def _dequant_frames(codec, codes, bark, tscale, ms, dzr=0.0,
-                    tns=None, tns_bs=0,
-                    nfl=None, nf_bs=0, nf_seed=0, frame_offset=0,
-                    bsw=None, bwe=None, bwe_start=0,
-                    isg=None, is_start=0):
-    """A chunk's spectral frames [1, blocks, N, C] from its payload (device
-    tensors without the batch axis), mirroring the encoder's threshold
-    derivation exactly (mid/side min-channel sidecar, the scale, the TNS
-    gain compensation, the block-switch pooling last) so the step sizes are
-    bit-identical; then the dead-zone offset ``dzr``, the fills (bwe, the
-    noise fill keyed by ``frame_offset`` + frame, intensity), the
-    block-switch merge and the TNS inverse filter, all in the coded domain
-    before the mid/side derotation."""
-    dtype = codec.mdct.compute_dtype
-    bark = bark[None]
-    if ms:
-        threshold = codec._ms_threshold(bark)
-    else:
-        threshold = codec.psycho.bark_intensity_to_threshold(bark.to(dtype))
-    threshold = codec._scaled(threshold, tscale)
-    if tns is not None:
-        tns = tns[None]
-        threshold = _tns.scaled_threshold(threshold, tns, tns_bs)
-    if bsw is not None:
-        bsw = bsw[None]
-        threshold = _blockswitch.pool_threshold(threshold, bsw)
-    delta = _quantize.step_size(threshold)
-    codes = codes[None]
-    spec = _quantize.dequantize(codes, delta, dtype=dtype, recon_offset=dzr)
-    excl = None
-    if isg is not None:
-        excl = _intensity.owned_mask(codec.mdct.filters_n, is_start,
-                                     codes.device)
-    if bwe is not None:
-        # copy-up before the noise fill, which it caps at the crossover
-        spec = _bwe.fill(spec, codes, delta, bwe[None], bwe_start,
-                         exclude=excl)
-    if nfl is not None:
-        spec = _nf.fill(spec, codes, delta, nfl[None], nf_bs, nf_seed,
-                        frame_offset,
-                        band_end=bwe_start if bwe is not None else None,
-                        exclude=excl)
-    if isg is not None:
-        # with bwe the fill scales the bwe-reconstructed mid, the
-        # reference the encoder projected onto
-        mid_ref = None
-        if bwe is not None:
-            mid_ref = _intensity.mid_reference(
-                codes, delta, dtype, bwe_gains=bwe[None],
-                bwe_start=bwe_start, exclude=excl,
-            )
-        spec = _intensity.fill(spec, codes, delta, isg[None], is_start,
-                               mid_ref=mid_ref)
-    if bsw is not None:
-        spec = _blockswitch.merge_spectrum(
-            spec, bsw, precision=codec.mdct.dct_precision
-        )
-    if tns is not None:
-        spec = _tns.filter_inverse(spec, tns, tns_bs)
-    return codec.from_mid_side(spec) if ms else spec
+def _decode_keywords(meta: dict) -> dict:
+    """An .acs header's ``Codec.decode_frames`` keywords (a CBR chunk's own
+    scale replaces ``threshold_scale``)."""
+    tns, nf, bwe, isf = (meta.get(k) for k in ("tns", "nf", "bwe", "isf"))
+    return dict(
+        ms=bool(meta.get("ms", False)),
+        threshold_scale=float(meta.get("threshold_scale", 1.0)),
+        dz_recon=float(meta.get("dzr", 0.0)),
+        tns_band_start=int(tns["band_start"]) if tns else None,
+        nf_band_start=int(nf["band_start"]) if nf else None,
+        nf_seed=int(nf["seed"]) if nf else 0,
+        bwe_start=int(bwe["start"]) if bwe else None,
+        is_start=int(isf["start"]) if isf else None,
+    )
 
 
 def _signs(seed: int, chunk_idx: int, like, blocks: int):
@@ -1726,12 +1721,19 @@ def _conceal_interp_step(codec, carry, prev_frame, next_frame, weights,
     return carry, samples, frames[:, -1:]
 
 
+# Chunk fields -> Codec.decode_frames' arguments
+_DECODE_ARGS = dict(codes="codes", bark="bark16", tns="tns_idx",
+                    nfl="nf_levels", bsw="bs_flags", bwe="bwe_gains",
+                    isg="is_gains")
+
+
 def _staged(c: Chunk, pin: bool) -> dict:
-    """A chunk's arrays as host tensors, in pinned memory when ``pin`` (so
-    the copies to the card can run without blocking the host)."""
+    """A chunk's arrays as host tensors under ``Codec.decode_frames``'
+    names, in pinned memory when ``pin`` (so the copies to the card can
+    run without blocking the host)."""
     out = {}
-    for name in ("codes", "bark", "tns", "nfl", "bsw", "bwe", "isg"):
-        a = getattr(c, name)
+    for field, name in _DECODE_ARGS.items():
+        a = getattr(c, field)
         if a is not None:
             if not isinstance(a, torch.Tensor):
                 a = torch.from_numpy(a if a.flags.writeable else a.copy())
@@ -1739,6 +1741,40 @@ def _staged(c: Chunk, pin: bool) -> dict:
                 a = a.pin_memory()
         out[name] = a
     return out
+
+
+def _chunk_frames(codec, c: Chunk, staged: dict, kw: dict, frame_offset):
+    """A chunk's spectral frames [1, blocks, N, C] from its staged payload
+    and its header's keywords (_decode_keywords); ``frame_offset`` is the
+    global index of its first frame, which keys the noise fill."""
+    dev = _device(codec)
+    args = {k: None if v is None else v.to(dev, non_blocking=True)[None]
+            for k, v in staged.items()}
+    if c.tscale is not None:
+        kw = dict(kw, threshold_scale=c.tscale)
+    return codec.decode_frames(**args, nf_frame_offset=frame_offset, **kw)
+
+
+def _decode_chunk(codec, carry, c: Chunk, staged: dict, kw: dict,
+                  frame_offset, chunk_idx: int):
+    """One chunk's decode: its frames (_chunk_frames) through the streaming
+    iMDCT step, plus a DTX record's comfort noise -> (carry, samples,
+    frames)."""
+    with span("stream.step"):
+        frames = _chunk_frames(codec, c, staged, kw, frame_offset)
+        carry, samples = streaming.imdct_stream_step(codec.mdct, carry,
+                                                     frames)
+    if c.silent is not None and float(np.max(c.silent)) > 0:
+        # flat Gaussian at the recorded per-channel RMS, keyed by the chunk
+        # index so seeks reproduce it, added after the (zero-spectrum) step
+        # so the previous chunk's window tail still rings out
+        cn = np.random.default_rng(_COMFORT_SEED + chunk_idx)
+        noise = (cn.standard_normal(
+            (1, samples.shape[1], c.silent.shape[0])).astype(np.float32)
+            * c.silent[None, None, :])
+        samples = samples + torch.from_numpy(noise).to(
+            device=_device(codec), dtype=codec.mdct.compute_dtype)
+    return carry, samples, frames
 
 
 @torch.no_grad()
@@ -1764,35 +1800,11 @@ def decode_stream(codec, path, start_chunk: int = 0,
     pin = dev.type == "cuda"
     with StreamReader(path) as r:
         ch = r.meta["channels"]
-        ms = bool(r.meta.get("ms", False))
-        tscale = float(r.meta.get("threshold_scale", 1.0))
-        dzr = float(r.meta.get("dzr", 0.0))
-        tns_meta = r.meta.get("tns")
+        kw = _decode_keywords(r.meta)
         nf_meta = r.meta.get("nf")
-        bwe_meta = r.meta.get("bwe")
-        is_meta = r.meta.get("isf")
-        fixed = dict(
-            ms=ms, dzr=dzr,
-            tns_bs=int(tns_meta["band_start"]) if tns_meta else 0,
-            nf_bs=int(nf_meta["band_start"]) if nf_meta else 0,
-            nf_seed=int(nf_meta["seed"]) if nf_meta else 0,
-            bwe_start=int(bwe_meta["start"]) if bwe_meta else 0,
-            is_start=int(is_meta["start"]) if is_meta else 0,
-        )
         dtype = mdct.compute_dtype
         n = r.meta["filters_n"]
         prev_frame = torch.zeros((1, 1, n, ch), dtype=dtype, device=dev)
-
-        def frames_of(c, staged, frame_offset):
-            d = {k: None if v is None else v.to(dev, non_blocking=True)
-                 for k, v in staged.items()}
-            return _dequant_frames(
-                codec, d["codes"], d["bark"],
-                tscale if c.tscale is None else c.tscale,
-                tns=d["tns"], nfl=d["nfl"], frame_offset=frame_offset,
-                bsw=d["bsw"], bwe=d["bwe"], isg=d["isg"], **fixed,
-            )
-
         modal = []
 
         def chunk_blocks_guess(i):
@@ -1835,8 +1847,9 @@ def decode_stream(codec, path, start_chunk: int = 0,
             if status == "err" and not conceal:
                 raise val
             if status == "ok":
-                prev_frame = frames_of(val, staged, frame_off
-                                       - val.codes.shape[0])[:, -1:]
+                prev_frame = _chunk_frames(
+                    codec, val, staged, kw,
+                    frame_off - val.codes.shape[0])[:, -1:]
                 # the carry is the previous raw frame (streaming.py)
                 carry = prev_frame[:, 0].transpose(1, 2)
             # else: prime with silence; recovery at start_chunk
@@ -1868,10 +1881,10 @@ def decode_stream(codec, path, start_chunk: int = 0,
                             fdec = None  # version skew or garbage
                     if fdec is not None:
                         fcodes, fbark, fscale = fdec
-                        frames = _dequant_frames(
-                            codec, torch.from_numpy(fcodes).to(dev),
-                            fbark.to(dev), fscale, ms, dzr,
-                            nf_seed=fixed["nf_seed"], frame_offset=frame_off)
+                        frames = codec.decode_frames(
+                            torch.from_numpy(fcodes).to(dev)[None],
+                            fbark.to(dev)[None], ms=kw["ms"],
+                            threshold_scale=fscale, dz_recon=kw["dz_recon"])
                         carry, samples = streaming.imdct_stream_step(
                             mdct, carry, frames)
                         prev_frame = frames[:, -1:]
@@ -1881,8 +1894,8 @@ def decode_stream(codec, path, start_chunk: int = 0,
                     if nxt is not None:
                         # both neighbours in hand: morph the envelope into
                         # what follows
-                        nfr = frames_of(nxt, n_staged,
-                                        frame_off + blocks)[:, :1]
+                        nfr = _chunk_frames(codec, nxt, n_staged, kw,
+                                            frame_off + blocks)[:, :1]
                         weights = torch.from_numpy(
                             np.arange(1, blocks + 1) / (blocks + 1)
                         ).to(device=dev, dtype=dtype)
@@ -1897,24 +1910,10 @@ def decode_stream(codec, path, start_chunk: int = 0,
                     frame_off += blocks
                     yield samples
                     continue
-                c = val
-                with span("stream.step"):
-                    frames = frames_of(c, staged, frame_off)
-                    carry, samples = streaming.imdct_stream_step(
-                        mdct, carry, frames)
+                carry, samples, frames = _decode_chunk(
+                    codec, carry, val, staged, kw, frame_off, i)
                 prev_frame = frames[:, -1:]
-                if c.silent is not None and float(np.max(c.silent)) > 0:
-                    # DTX comfort noise: flat Gaussian at the recorded
-                    # per-channel RMS, keyed by the chunk index so seeks
-                    # reproduce it, added after the (zero-spectrum) step so
-                    # the previous chunk's window tail still rings out
-                    cn = np.random.default_rng(_COMFORT_SEED + i)
-                    noise = (cn.standard_normal(
-                        (1, samples.shape[1], ch)).astype(np.float32)
-                        * c.silent[None, None, :])
-                    samples = samples + torch.from_numpy(noise).to(
-                        device=dev, dtype=dtype)
-                frame_off += c.codes.shape[0]
+                frame_off += val.codes.shape[0]
                 yield samples
             yield streaming.imdct_stream_flush(mdct, carry)
         finally:

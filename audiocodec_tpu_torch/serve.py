@@ -48,7 +48,7 @@ queue):
 
 The 'B'/'C'/'F' responses concatenated are the bytes offline
 ``io.stream_container.encode_stream`` writes for the same PCM: the session
-runs its chunk step (``_encode_step``) and its ``StreamWriter``.
+runs its chunk encoder (``_ChunkEncoder``).
 
   opcode 'J': payload = .acs header bytes -> JSON stream meta
   opcode 'K': payload = one chunk's bytes -> float32-LE PCM
@@ -77,9 +77,7 @@ import numpy as np
 import torch
 
 from audiocodec_tpu_torch import native
-from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch import streaming as _streaming
-from audiocodec_tpu_torch import tns as _tns
 from audiocodec_tpu_torch.io import bitstream
 from audiocodec_tpu_torch.io import stream_container as _sc
 from audiocodec_tpu_torch.io import wav as _wav
@@ -557,16 +555,14 @@ class CodecServer:
 
 class _StreamSession:
     """A connection's streaming encode: offline ``encode_stream``'s chunk
-    step and ``StreamWriter``, writing into a buffer whose new bytes after
-    each call are the responses, so the responses concatenated are the
-    offline .acs file."""
+    encoder, writing into a buffer whose new bytes after each call are the
+    responses, so the responses concatenated are the offline .acs file."""
 
     def __init__(self, server, cfg_payload: bytes):
         cfg = json.loads(cfg_payload.decode() or "{}")
         if not isinstance(cfg, dict):
             raise ValueError("stream config must be a JSON object")
         codec = server._codec
-        n = codec.mdct.filters_n
         self.channels = int(cfg.get("channels", 1))
         if not 1 <= self.channels <= 64:
             raise ValueError(f"channels out of range: {self.channels}")
@@ -575,26 +571,22 @@ class _StreamSession:
             raise ValueError(
                 f"chunk_blocks out of range: {self.chunk_blocks}"
             )
-        self.ms = bool(cfg.get("ms", False))
-        if self.ms and self.channels != 2:
+        ms = bool(cfg.get("ms", False))
+        if ms and self.channels != 2:
             raise ValueError("ms coding needs exactly 2 channels")
         self.tscale = float(cfg.get("threshold_scale", 1.0))
         if not 0 < self.tscale < 2**32:
             raise ValueError(f"threshold_scale out of range: {self.tscale}")
-        self.deadzone = float(cfg.get("deadzone", 0.5))
-        if not 0.5 <= self.deadzone <= 2.0:
-            raise ValueError(f"deadzone out of range: {self.deadzone}")
-        self.tns = bool(cfg.get("tns", False))
-        self.nf = bool(cfg.get("nf", False))
-        self.tmask = float(cfg.get("tmask", 0.0))
+        deadzone = float(cfg.get("deadzone", 0.5))
+        if not 0.5 <= deadzone <= 2.0:
+            raise ValueError(f"deadzone out of range: {deadzone}")
+        tmask = float(cfg.get("tmask", 0.0))
         # 0 = off; positive values below 1 dB/s mean a >30 s masking
         # window: senseless physically and an easy resource sink
-        if self.tmask != 0.0 and not 1.0 <= self.tmask < 1e6:
-            raise ValueError(f"tmask out of range: {self.tmask}")
-        self.bs = bool(cfg.get("bs", False))
-        self.bwe = bool(cfg.get("bwe", False))
-        self.intensity = bool(cfg.get("intensity", False))
-        if self.intensity and not self.ms:
+        if tmask != 0.0 and not 1.0 <= tmask < 1e6:
+            raise ValueError(f"tmask out of range: {tmask}")
+        intensity = bool(cfg.get("intensity", False))
+        if intensity and not ms:
             raise ValueError("intensity stereo needs ms coding")
         self.cbr = bool(cfg.get("cbr", False))
         self.dtx = float(cfg.get("dtx", 0.0))
@@ -602,62 +594,29 @@ class _StreamSession:
             raise ValueError(f"dtx out of range: {self.dtx}")
         if self.dtx and self.cbr:
             raise ValueError("dtx does not compose with cbr sessions")
+        nf = bool(cfg.get("nf", False))
         # True so that the FIRST chunk gates when below, as offline
         # encode_stream's gate[0] = below[0]
         self._prev_below = True
-        self._last_ts = self.tscale
-        self._tctx = None
         self._codec = codec
         self._device = server._device
         self._buf = _io.BytesIO()
         self._sent = 0
-        self._writer = _sc.StreamWriter(
-            self._buf,
-            sample_rate=server._rate,
-            filters_n=n,
-            bark_bands_n=codec.psycho.bark_bands_n,
-            alpha=codec.psycho.alpha,
-            window_type=codec.mdct.window_type,
-            channels=self.channels,
-            compute_dtype=codec.mdct.compute_dtype,
-            ms=self.ms,
-            # cbr streams record 1.0 (the scales ride each chunk), as
-            # offline encode_stream does
-            threshold_scale=1.0 if self.cbr else self.tscale,
-            bark_precision=codec.psycho.bark_precision,
-            dz_recon=(_quantize.dz_recon_offset(self.deadzone)
-                      if self.deadzone != 0.5 else 0.0),
-            tns_order=_tns.ORDER if self.tns else 0,
-            tns_band_start=codec.tns_band_start if self.tns else 0,
-            nf=self.nf,
-            nf_band_start=codec.nf_band_start if self.nf else 0,
-            nf_seed=int(cfg.get("nf_seed", 0)) if self.nf else 0,
-            bs=self.bs,
-            bwe_start=codec.bwe_start if self.bwe else 0,
-            is_start=codec.is_start if self.intensity else 0,
-            sidecar_grid=codec.sidecar_grid,
-            cbr=self.cbr,
-            dtx_level=self.dtx,
+        self._encoder = _sc._ChunkEncoder(
+            codec, self._buf, self.channels, ms=ms,
+            threshold_scale=self.tscale, cbr=self.cbr, deadzone=deadzone,
+            tns=bool(cfg.get("tns", False)), nf=nf,
+            nf_seed=int(cfg.get("nf_seed", 0)) if nf else 0, tmask=tmask,
+            bs=bool(cfg.get("bs", False)), bwe=bool(cfg.get("bwe", False)),
+            intensity=intensity, dtx=self.dtx,
         )
-        self._carry = _streaming.mdct_stream_init(codec.mdct, 1,
-                                                  self.channels)
-        self._samples = self.chunk_blocks * n
-        self._features = dict(tns=self.tns, nf=self.nf, tmask=self.tmask,
-                              bs=self.bs, bwe=self.bwe,
-                              intensity=self.intensity)
+        self._samples = self.chunk_blocks * codec.mdct.filters_n
 
     def take_bytes(self) -> bytes:
         data = self._buf.getvalue()
         out = data[self._sent:]
         self._sent = len(data)
         return out
-
-    def _append(self, enc, ts) -> None:
-        self._writer.append(enc.codes, enc.bark16, enc.tns_idx,
-                            enc.nf_levels,
-                            tscale=ts if self.cbr else None,
-                            bs_flags=enc.bs_flags, bwe_gains=enc.bwe_gains,
-                            is_gains=enc.is_gains)
 
     def feed_adaptive(self, payload: bytes) -> bytes:
         """The 'A' op: an f64-LE scale for this chunk, then its PCM."""
@@ -690,7 +649,6 @@ class _StreamSession:
             )
         pcm = torch.from_numpy(np.frombuffer(payload, "<f4").reshape(
             1, self._samples, self.channels).copy())
-        codec = self._codec
         if self.dtx:
             # offline encode_stream's gate on the host chunk: float32 RMS a
             # channel against the dBFS threshold, with the one-chunk
@@ -701,37 +659,18 @@ class _StreamSession:
             gated = below and self._prev_below
             self._prev_below = below
             if gated:
-                self._writer.append_silent(self.chunk_blocks,
-                                           rms[0] * (rms[0] > 1e-12))
-                # both ends take the gated span as zeros
-                self._carry = _streaming.mdct_stream_init(
-                    codec.mdct, 1, self.channels)
-                self._tctx = None
-                self._last_ts = ts
+                self._encoder.silent(self.chunk_blocks,
+                                     rms[0] * (rms[0] > 1e-12))
                 return self.take_bytes()
         with on_device(self._device), torch.no_grad():
-            x = pcm.to(codec.mdct.compute_dtype).to(self._device)
-            self._carry, self._tctx, enc, _ = _sc._encode_step(
-                codec, self._carry, x, 0.0, ts, self.ms, self.deadzone,
-                tmask_context=self._tctx, **self._features,
-            )
-            self._last_ts = ts
-            self._append(enc, ts)
+            # pushed, then drained: the response is this chunk's bytes
+            self._encoder.push(pcm.to(self._codec.mdct.compute_dtype), ts)
+            self._encoder.drain()
         return self.take_bytes()
 
     def finish(self) -> bytes:
-        # the flush frame reuses the last chunk's scale, as offline
-        # encode_stream does
-        codec = self._codec
         with on_device(self._device), torch.no_grad():
-            last = codec.encode_frames(
-                _streaming.mdct_stream_flush(codec.mdct, self._carry), 0.0,
-                threshold_scale=self._last_ts, ms=self.ms,
-                deadzone=self.deadzone, tmask_context=self._tctx,
-                **self._features,
-            )
-            self._append(last, self._last_ts)
-        self._writer.close()
+            self._encoder.finish()
         return self.take_bytes()
 
 
@@ -756,24 +695,11 @@ class _DecodeSession:
         self._device = server._device
         self._header = header_bytes
         self.meta = meta
-        self._ch = meta["channels"]
-        self._tscale = float(meta.get("threshold_scale", 1.0))
-        tns_meta = meta.get("tns")
-        nf_meta = meta.get("nf")
-        bwe_meta = meta.get("bwe")
-        is_meta = meta.get("isf")
-        self._fixed = dict(
-            ms=bool(meta.get("ms", False)),
-            dzr=float(meta.get("dzr", 0.0)),
-            tns_bs=int(tns_meta["band_start"]) if tns_meta else 0,
-            nf_bs=int(nf_meta["band_start"]) if nf_meta else 0,
-            nf_seed=int(nf_meta["seed"]) if nf_meta else 0,
-            bwe_start=int(bwe_meta["start"]) if bwe_meta else 0,
-            is_start=int(is_meta["start"]) if is_meta else 0,
-        )
+        self._kw = _sc._decode_keywords(meta)
         self._frame_off = 0
         self._chunk_idx = 0
-        self._carry = _streaming.imdct_stream_init(codec.mdct, 1, self._ch)
+        self._carry = _streaming.imdct_stream_init(codec.mdct, 1,
+                                                   meta["channels"])
 
     def feed(self, chunk_bytes: bytes) -> bytes:
         hlen = len(self._header)
@@ -781,30 +707,14 @@ class _DecodeSession:
                 + struct.pack("<QQ", 1, hlen + len(chunk_bytes)))
         with _sc.StreamReader(_io.BytesIO(mini)) as r:
             c = r.read_chunk(0)
-        codec = self._codec
         dev = self._device
         with on_device(dev), torch.no_grad():
-            d = {k: None if v is None else v.to(dev, non_blocking=True)
-                 for k, v in _sc._staged(c, dev.type == "cuda").items()}
-            frames = _sc._dequant_frames(
-                codec, d["codes"], d["bark"],
-                self._tscale if c.tscale is None else c.tscale,
-                tns=d["tns"], nfl=d["nfl"], frame_offset=self._frame_off,
-                bsw=d["bsw"], bwe=d["bwe"], isg=d["isg"], **self._fixed,
-            )
-            self._carry, samples = _streaming.imdct_stream_step(
-                codec.mdct, self._carry, frames)
-            if c.silent is not None and float(np.max(c.silent)) > 0:
-                # DTX comfort noise keyed by the session's chunk counter:
-                # offline decode_stream's noise for a stream fed in order
-                # from its start
-                cn = np.random.default_rng(_sc._COMFORT_SEED
-                                           + self._chunk_idx)
-                noise = (cn.standard_normal(
-                    (1, samples.shape[1], self._ch)).astype(np.float32)
-                    * c.silent[None, None, :])
-                samples = samples + torch.from_numpy(noise).to(
-                    device=dev, dtype=codec.mdct.compute_dtype)
+            # comfort noise keyed by the session's chunk counter: offline
+            # decode_stream's noise for a stream fed in order from its start
+            staged = _sc._staged(c, dev.type == "cuda")
+            self._carry, samples, _ = _sc._decode_chunk(
+                self._codec, self._carry, c, staged, self._kw,
+                self._frame_off, self._chunk_idx)
             out = _f32_bytes(samples)
         self._frame_off += c.codes.shape[0]
         self._chunk_idx += 1

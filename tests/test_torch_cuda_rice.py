@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from audiocodec_tpu_torch import Codec, native
+from audiocodec_tpu_torch import Codec, native, serve
 from audiocodec_tpu_torch.io import stream_container as sc
 from audiocodec_tpu_torch.ops import cuda_rice
 
@@ -363,7 +363,8 @@ STREAMS = {
 def test_card_stream_is_the_host_coded_stream(preset, tmp_path, monkeypatch):
     """``encode_stream`` on the card (every chunk coded there, the flush
     included) writes the bytes of the same encode with the codes coded on
-    the host, and ``decode_stream`` reads them back."""
+    the host, and so does the server's stream session fed the same chunks,
+    with one coder launch a chunk; ``decode_stream`` reads them back."""
     kb = 32
     codec = Codec.create(48000, filters_n=1024, bark_bands_n=64,
                          sidecar_grid=4, device="cuda")
@@ -384,11 +385,19 @@ def test_card_stream_is_the_host_coded_stream(preset, tmp_path, monkeypatch):
     monkeypatch.setattr(codec, "encode_frames", host_codes)
     assert sc.encode_stream(codec, x, str(host_path), chunk_blocks=kb,
                             counters=host_counts, **kw) == n
-    assert card_counts.pop("rice_card_chunks") == n
-    assert host_counts.pop("rice_host_chunks") == n
     assert card_counts == host_counts
     assert card_path.read_bytes() == host_path.read_bytes()
     monkeypatch.undo()
+    cuda_rice.reset_launch_counts()
+    step = kb * 1024
+    with serve.CodecServer(codec, 48000, port=0) as server, \
+            serve.Client(port=server.port) as client:
+        parts = [client.begin_stream(channels=2, chunk_blocks=kb, **kw)]
+        for k in range(0, x.shape[1], step):
+            parts.append(client.feed(x[0, k:k + step].numpy()))
+        parts.append(client.finish_stream())
+    assert cuda_rice.launch_counts() == {"rrice_encode": n}
+    assert b"".join(parts) == card_path.read_bytes()
     y = torch.cat(list(sc.decode_stream(codec, str(card_path))), dim=1)
     assert y.shape == (1, x.shape[1] + 2 * 1024, 2)
     assert bool(torch.isfinite(y).all()) and float(y.abs().max()) > 0.05

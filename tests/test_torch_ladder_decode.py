@@ -4,6 +4,8 @@ tests/test_torch_ladder.py: each package decodes the other's payload within
 0.1 dB of the SNR of JAX's own encode and decode (float32 ``highest``), the
 float64 decodes agree within 1e-10 of the peak, a bfloat16 (b) codec is
 held by SNR, and ``convert.codec_from_arrays`` carries ``sidecar_grid``.
+``Codec.decode_frames``, the body both decode through, refuses intensity
+gains without ``ms``.
 """
 
 import dataclasses
@@ -129,6 +131,16 @@ def test_f64_decode_matches_jax(combo):
     got = _np(_decode(tc, combo, _to_port(ej)))
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=F64_TOL * np.abs(want).max())
+
+
+def test_decode_frames_refuses_intensity_gains_without_ms(f32_payloads):
+    """Intensity gains code the mid/side layout: a decode that is not
+    mid/side refuses them, as the encode refuses intensity without ms."""
+    _, tc, payloads = f32_payloads
+    et = payloads["ms-intensity"][2]
+    assert et.is_gains is not None
+    with pytest.raises(ValueError, match="ms=True"):
+        tc.decode_frames(et.codes, et.bark16, is_gains=et.is_gains)
 
 
 def test_nf_frame_offset_changes_only_the_fill(f32_payloads):

@@ -190,16 +190,14 @@ def test_stream_writer_counts_the_members_it_codes(tmp_path):
         "bwe_filled": int(np.count_nonzero(cat["bwe"])),
         "is_filled": int(np.count_nonzero(cat["isg"])),
         "short_frames": int(cat["bsw"].sum()),
-        "rice_host_chunks": n,
     }
     assert counters["short_frames"] > 0 and counters["tns_frames"] > 0
-    # the archive stream codes no member: no span, no member count; its
-    # chunks' codes are Rice-coded where they lie, here on the host
+    # the archive stream codes no member: no span, no member count
     counters = {}
     _, events = _profiled(lambda: stream_container.encode_stream(
         codec, x, str(tmp_path / "plain.acs"), chunk_blocks=4,
         counters=counters))
-    assert counters == {"rice_host_chunks": n}
+    assert counters == {}
     assert not {e.name for e in events} & {"stream.members", *LADDER}
 
 
