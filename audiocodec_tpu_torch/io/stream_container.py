@@ -35,7 +35,10 @@ stream sessions share) runs each chunk's device work (the streaming MDCT on
 the card's kernels, ``Codec.encode_frames``, then the Rice coding of the
 codes by ``ops/cuda_rice.py``) one chunk ahead of the host's pack: the
 coded bytes and the other members come back through pinned memory, and the
-host waits on an event, never on the whole card. Codes on the host are
+host waits on an event, never on the whole card. On the card a chunk's
+step (all but the Rice coding) replays as one CUDA graph, captured at its
+key's first sight and kept with the codec (``_StepGraph``), and launches
+exactly the kernels an op-by-op step launches. Codes on the host are
 Rice-coded there (``native.rrice_encode``); both coders write the same
 bytes. The decoder (``Codec.decode_frames`` a chunk) reads and Rice-decodes
 the next chunk in a worker thread while the card synthesizes this one.
@@ -45,8 +48,9 @@ The reader gives the codes and members as numpy arrays and the sidecar as a
 CPU ``torch.bfloat16`` tensor, as ``io/bitstream.unpack`` does. The host
 spans are labelled for ``torch.profiler``: ``stream.step`` (a chunk's
 device work queued; inside it ``stream.h2d``, the chunk's copy to the
-device, the codec's stage spans, the ladder's ``ladder.*`` and
-``stream.rice``, the Rice coder's launch), ``stream.d2h`` (the wait for its
+device, then ``stream.graph``, a graph's replay, or the codec's stage spans
+and the ladder's ``ladder.*`` of a step run op by op, and ``stream.rice``,
+the Rice coder's launch), ``stream.d2h`` (the wait for its
 payload and the copy of its coded bytes) and ``stream.pack`` (the sidecar,
 the members, the CRC and the write, and the Rice coding of codes on the
 host; inside it ``stream.members``, the ladder's members, on streams that
@@ -56,12 +60,15 @@ Rice decode) and ``stream.step`` in the decoder.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
 import struct
 import threading
 import typing
+import weakref
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1125,6 +1132,84 @@ def _dtx_gate(x, chunk: int, dtx: float):
     return gate, rms
 
 
+# CUDA graphs of the chunk step kept for each codec, least recently used
+# first out: a server's clients choose their chunk sizes
+_GRAPH_SLOTS = 8
+# the device whose steps replay (the CPU runs every step op by op)
+_GRAPH_DEVICE = "cuda"
+# the codecs' graphs, while each codec lives
+_graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+# Taken to look up, capture or replay a graph: a replay's loads, its launch
+# and the launches that read its outputs (the Rice coder, the copies to the
+# host) are queued before another session's replay of the same graph
+_graph_lock = threading.Lock()
+_graph_counts = dict.fromkeys(("replayed", "eager", "captured"), 0)
+
+
+def graph_counts() -> dict:
+    """The chunk steps on the card since the last reset: replayed from a
+    CUDA graph, run op by op (a key's first sight, grad on), and the graphs
+    captured."""
+    with _graph_lock:
+        return dict(_graph_counts)
+
+
+def reset_graph_counts() -> None:
+    with _graph_lock:
+        _graph_counts.update(dict.fromkeys(_graph_counts, 0))
+
+
+class _StepGraph:
+    """A chunk step (``_ChunkEncoder._step``) captured as a CUDA graph over
+    static buffers: ``inputs`` (the chunk, the MDCT carry, the
+    forward-masking context or None, then the threshold scale and the FEC
+    copy's, 0-d in the compute dtype) and ``outputs`` (what the step
+    returns), which every replay overwrites. No encoder's state lives in
+    it: ``run`` loads the caller's and hands back copies."""
+
+    def __init__(self, graph, inputs, outputs):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        # recorded once the last replay's readers are queued: a session on
+        # another stream waits for it before it loads
+        self.done = torch.cuda.Event() if inputs[0].is_cuda else None
+
+    @classmethod
+    def capture(cls, step, x, carry, ctx) -> "_StepGraph":
+        """Capture ``step`` over static copies of these inputs (their
+        values are not read: a capture runs nothing)."""
+        inputs = (x.clone(), carry.clone(),
+                  None if ctx is None else ctx.clone(),
+                  x.new_empty(()), x.new_empty(()))
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: another session's thread may queue work meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outputs = step(*inputs)
+        return cls(graph, inputs, outputs)
+
+    def run(self, x, carry, ctx, tscale: float, fec_scale: float):
+        """Load the inputs and replay -> (EncodedFrames, the FEC copy or
+        None: the static outputs; the new carry and context: copies). The
+        caller queues the outputs' readers, then calls :meth:`read`."""
+        sx, scarry, sctx, sscale, sfec = self.inputs
+        if self.done is not None:
+            torch.cuda.current_stream().wait_event(self.done)
+        sx.copy_(x)
+        scarry.copy_(carry)
+        if sctx is not None:
+            sctx.copy_(ctx)
+        # rounded as Codec._scaled rounds a float scale
+        sscale.fill_(_dtypes.rounded(tscale, sscale.dtype))
+        sfec.fill_(_dtypes.rounded(fec_scale, sfec.dtype))
+        self.graph.replay()
+        enc, fecq, carry, ctx = self.outputs
+        return enc, fecq, carry.clone(), None if ctx is None else ctx.clone()
+
+    def read(self) -> None:
+        """Mark the outputs' readers queued."""
+        if self.done is not None:
+            self.done.record()
+
+
 class _Pending(typing.NamedTuple):
     """A chunk whose device work is queued and whose bytes are not yet
     written (_ChunkEncoder)."""
@@ -1205,15 +1290,17 @@ class _ChunkEncoder:
                                                  self._channels)
         self._tctx = None
 
-    def _step(self, x, tscale):
-        """One chunk's device work: the streaming MDCT step, the coded
-        encode, the FEC copy and the next chunk's forward-masking context
-        -> (EncodedFrames, FEC (codes, pooled sidecar) or None)."""
+    def _step(self, x, carry, ctx, tscale, fec_scale):
+        """One chunk's device work, a pure function of its inputs (which a
+        graph captures): the streaming MDCT step from ``carry``, the coded
+        encode with the forward-masking context ``ctx``, the FEC copy and
+        the next chunk's context -> (EncodedFrames, FEC (codes, pooled
+        sidecar) or None, the new carry, the new context). The scales are
+        floats or 0-d tensors of their rounded values (Codec._scaled)."""
         codec, kw = self._codec, self._kw
-        self._carry, frames = streaming.mdct_stream_step(codec.mdct,
-                                                         self._carry, x)
+        carry, frames = streaming.mdct_stream_step(codec.mdct, carry, x)
         enc = codec.encode_frames(frames, threshold_scale=tscale,
-                                  tmask_context=self._tctx, **kw)
+                                  tmask_context=ctx, **kw)
         # the FEC copy: a PLAIN coarse quantize of the same frames (it must
         # decode standalone out of a successor chunk), on the member's own
         # sidecar grid and time pool, so its codes are quantized against
@@ -1221,7 +1308,7 @@ class _ChunkEncoder:
         fecq = None
         if self._fec:
             fecq = self._codec_fec.quantize_frames_fec(
-                frames, kw["drown"], threshold_scale=tscale * self._fec,
+                frames, kw["drown"], threshold_scale=fec_scale,
                 ms=kw["ms"], deadzone=kw["deadzone"], tpool=_FEC_TPOOL,
             )
         if kw["tmask"]:
@@ -1231,10 +1318,69 @@ class _ChunkEncoder:
             w = codec.tmask_context_frames(kw["tmask"])
             take = min(w, frames.shape[1])
             pre = codec.bark_intensity(frames[:, -take:], kw["drown"])
-            if self._tctx is not None and take < w:
-                pre = torch.cat([self._tctx, pre], dim=1)[:, -w:]
-            self._tctx = pre
-        return enc, fecq
+            if ctx is not None and take < w:
+                pre = torch.cat([ctx, pre], dim=1)[:, -w:]
+            ctx = pre
+        return enc, fecq, carry, ctx
+
+    def _graph_key(self, x):
+        """The key of the CUDA graph that replays this chunk's step (its
+        shape and dtype, the context's shape, the features), or None where
+        the step runs op by op: off the card, with grad on, or with a
+        tensor ``drown``. The codec keys the table of graphs."""
+        kw = self._kw
+        if (not _GRAPH_SLOTS or x.device.type != _GRAPH_DEVICE
+                or torch.is_grad_enabled()
+                or isinstance(kw["drown"], torch.Tensor)):
+            return None
+        ctx = None if self._tctx is None else tuple(self._tctx.shape)
+        return tuple(x.shape), x.dtype, ctx, self._fec, *kw.items()
+
+    def _tally(self, name: str) -> None:
+        """Count a step on the card (graph_counts), under the lock."""
+        _graph_counts[name] += 1
+        self._writer._count(f"graph_{name}")
+
+    @contextlib.contextmanager
+    def _stepped(self, x, tscale: float):
+        """Run a chunk's step -> (EncodedFrames, FEC copy or None), which
+        the caller's block reads. The codec's graph of the step's key
+        replays it, under the lock until the block has queued its readers.
+        A key's first sight runs the step op by op, which builds every
+        table the step caches, then captures the graph; a step without a
+        key runs op by op: both hand the block outputs of its own, off the
+        lock."""
+        key = self._graph_key(x)
+        fec_scale = tscale * self._fec
+        if key is None:
+            enc, fecq, self._carry, self._tctx = self._step(
+                x, self._carry, self._tctx, tscale, fec_scale)
+            if x.device.type == _GRAPH_DEVICE:
+                with _graph_lock:
+                    self._tally("eager")
+            yield enc, fecq
+            return
+        with _graph_lock:
+            graphs = _graphs.setdefault(self._codec, collections.OrderedDict())
+            graph = graphs.get(key)
+            if graph is not None:
+                graphs.move_to_end(key)
+                with span("stream.graph"):
+                    enc, fecq, self._carry, self._tctx = graph.run(
+                        x, self._carry, self._tctx, tscale, fec_scale)
+                self._tally("replayed")
+                yield enc, fecq
+                graph.read()
+                return
+            carry, ctx = self._carry, self._tctx
+            enc, fecq, self._carry, self._tctx = self._step(
+                x, carry, ctx, tscale, fec_scale)
+            self._tally("eager")
+            graphs[key] = _StepGraph.capture(self._step, x, carry, ctx)
+            self._tally("captured")
+            if len(graphs) > _GRAPH_SLOTS:
+                graphs.popitem(last=False)
+        yield enc, fecq
 
     def push(self, x, tscale: float) -> None:
         """Queue the device work of a chunk [1, samples, C] (on the host or
@@ -1243,15 +1389,15 @@ class _ChunkEncoder:
         with span("stream.step"):
             with span("stream.h2d"):
                 x = x.to(_device(self._codec), non_blocking=True)
-            enc, fecq = self._step(x, tscale)
-            card = None
-            if enc.codes.is_cuda:
-                # the coding's byte count comes back in the codes' place
-                with span("stream.rice"):
-                    buf, nbytes = _card_rice(enc.codes)
-                card = (buf, tuple(enc.codes.shape))
-                enc = enc._replace(codes=nbytes)
-            host, event = _to_host(tuple(enc) + tuple(fecq or ()))
+            with self._stepped(x, tscale) as (enc, fecq):
+                card = None
+                if enc.codes.is_cuda:
+                    # the coding's byte count comes back in the codes' place
+                    with span("stream.rice"):
+                        buf, nbytes = _card_rice(enc.codes)
+                    card = (buf, tuple(enc.codes.shape))
+                    enc = enc._replace(codes=nbytes)
+                host, event = _to_host(tuple(enc) + tuple(fecq or ()))
         self.drain()
         self._pending = _Pending(EncodedFrames(*host[:7]), event, tscale,
                                  self._coarse, card)

@@ -381,8 +381,10 @@ class CodecServer:
                 elif op == ord("Q"):
                     with self._lock:
                         stats = dict(self.stats)
-                    # the MDCT kernels' launches in this process
+                    # the MDCT kernels' launches in this process, and the
+                    # stream steps replayed from CUDA graphs
                     stats["kernel_launches"] = cuda_mdct.launch_counts()
+                    stats["step_graphs"] = _sc.graph_counts()
                     _write_frame(conn, 0, json.dumps(stats).encode())
                 else:
                     _write_frame(conn, 1, f"unknown opcode {op}".encode())

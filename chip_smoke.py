@@ -151,10 +151,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    stereo, N=1024, 64 Bark bands, chunks of 256 blocks, (r). The streaming
    drivers on 60 s equal the batch transforms (max-abs printed, held to the
    tier's tolerance) in (r) and (b) with chunks of 256 and 7 blocks, one
-   kernel launch a step and one for the flush; ``encode_stream`` and
-   ``decode_stream`` of ``--stream-seconds`` (600: 110 chunks) launch
-   ``fold_matmul`` and the Rice coder (``rrice_encode``) once a chunk and
-   for the flush frame, ``matmul_scatter`` once a chunk, for the flush
+   kernel launch a step and one for the flush; ``encode_stream`` of
+   ``--stream-seconds`` (600: 110 chunks) replays every chunk's step as a
+   CUDA graph after its key's first sight (one key, captured by the
+   warm-up: ``fold_matmul`` launched once a step run op by op, once a
+   capture and once for the flush frame) and launches the Rice coder
+   (``rrice_encode``) once a chunk and for the flush frame; its file and
+   the same audio's with STREAM_LADDER, without and with FEC, hash to the
+   op-by-op streams' sha256 (STREAM_SHA256, at 600 s; the graph counts go
+   to the kernels line); ``decode_stream`` launches ``matmul_scatter``
+   once a chunk, for the flush
    chunk and the tail, with codes and sidecar levels at least 99.9% equal
    to the all-plain stream's (levels within one grid step, codes within
    one step where the levels are equal); the same encode with every
@@ -211,7 +217,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    card byte for byte, and a 'J'/'K'/'L' session of its bytes equals
    ``decode_stream`` bit for bit. The servers' 'Q' stats count their MDCT
    launches: one ``fold_matmul`` a batch group and one ``matmul_scatter``
-   a 'D'; chunks + 1 of each in the sessions (the flush; the tail). An
+   a 'D'; in the sessions chunks + 1 ``matmul_scatter`` (the tail) and
+   a ``fold_matmul`` a step run op by op, a capture and the flush, every
+   chunk after the warm-up's replaying its step's graph. An
    in-process server's batch cycle of 8 requests is traced. Printed:
    audio-s/s of the requests and the sessions, the 'Q' line, the batch
    count, the traced device busy time and idle share;
@@ -595,14 +603,23 @@ def kernel_wrappers():
 def plain_kernels():
     """Every kernel wrapper and VJP swapped for its plain version (the
     wrappers are looked up at each call, by the MDCT's autograd Functions
-    too)."""
+    too), the stream steps' graphs off (graphs_off())."""
     from contextlib import ExitStack
 
     stack = ExitStack()
     for module, name in kernel_wrappers():
         stack.enter_context(mock.patch.object(
             module, name, getattr(module, f"{name}_reference")))
+    stack.enter_context(graphs_off())
     return stack
+
+
+def graphs_off():
+    """The .acs encoder's step graphs off: a replay would run the kernels
+    its capture recorded, never a swapped wrapper."""
+    from audiocodec_tpu_torch.io import stream_container as sc
+
+    return mock.patch.object(sc, "_GRAPH_SLOTS", 0)
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -2586,6 +2603,36 @@ def stream_counts(**counts):
     return {k: counts.get(k, 0) for k in all_launch_counts()}
 
 
+def stream_launches(n_body, graphs):
+    """The launches of an encode of ``n_body`` chunks and the flush whose
+    steps' ``graph_counts()`` are ``graphs``: the analysis once a step run
+    op by op, once a capture (the graph runs it at each replay) and once
+    for the flush frame; the Rice coder once a chunk."""
+    return stream_counts(
+        fold_matmul=graphs["eager"] + graphs["captured"] + 1,
+        rrice_encode=n_body + 1)
+
+
+def check_replays(label, n_body, graphs, keys=1):
+    """Every body chunk replays after its key's first sight, and no more
+    than ``keys`` graphs are captured."""
+    check(graphs["eager"] + graphs["replayed"] == n_body
+          and graphs["captured"] == graphs["eager"] <= keys,
+          f"{label}: {n_body} steps, graphs {graphs}")
+
+
+# sha256 of phase 18's 600 s streams (archive, STREAM_LADDER, the ladder
+# with FEC at STREAM_LADDER_FEC), as every step run op by op writes them
+STREAM_SHA256 = {
+    "archive": "504bdc4ced0a69976275b2a028e817e7"
+               "fe4aa8c433aa09d13f320d425b7b7bad",
+    "ladder": "049d476d3d40ec60f44729f74667aadc"
+              "6d466d8402d04452379c5d2bd4027389",
+    "ladder-fec": "c78f86212d006c0ae93e96a3a9b71594"
+                  "20e23b2a22592b0243dd9f9815485bb8",
+}
+
+
 def stream_equal(torch, dev, card):
     """18a. ``stream_transform`` / ``stream_inverse_transform`` of 60 s of
     stereo against the batch transforms, chunks of STREAM_EQUAL_CHUNKINGS
@@ -2739,6 +2786,38 @@ def rice_coder_check(torch, dev, codec, x, path, workdir, n_body, card):
                 bound_ms=body["bound_ms"], bound_by=body["bound_by"])
 
 
+def stream_sha256(torch, sc, codec, x, path, workdir, n_body, card):
+    """18b. The sha256 of the archive stream at ``path`` and of the same
+    audio coded with STREAM_LADDER, without and with FEC, whose steps
+    replay after their key's first sight (check_replays()); at the default
+    length each equals STREAM_SHA256, the bytes of every step run op by
+    op."""
+    import hashlib
+
+    files, graphs = {"archive": path}, {}
+    for name, fec in (("ladder", 0.0), ("ladder-fec", STREAM_LADDER_FEC)):
+        files[name] = str(workdir / f"{name}.acs")
+        sc.reset_graph_counts()
+        with torch.no_grad():
+            sc.encode_stream(codec, x, files[name], chunk_blocks=STREAM_CB,
+                             fec=fec, **STREAM_LADDER)
+        graphs[name] = sc.graph_counts()
+        check_replays(f"stream {name}", n_body, graphs[name])
+    sha = {name: hashlib.sha256(Path(p).read_bytes()).hexdigest()
+           for name, p in files.items()}
+    for name in ("ladder", "ladder-fec"):
+        Path(files[name]).unlink()
+    default = stream_samples(STREAM_SECONDS) // (STREAM_CB * FILTERS_N)
+    print(f"stream sha256 of {n_body} chunks: " + ", ".join(
+        f"{k} {v[:16]}" for k, v in sha.items()) + f"; graphs {graphs}"
+        + (" (the op-by-op streams')" if n_body == default else "")
+        + f" [{card}]")
+    if n_body == default:
+        check(sha == STREAM_SHA256, f"stream: sha256 {sha}, not the "
+              f"op-by-op streams' {STREAM_SHA256}")
+    return dict(sha256=sha, graphs=graphs)
+
+
 def stream_throughput(torch, dev, codec, seconds, workdir, card, entries):
     """18b. ``encode_stream`` and ``decode_stream`` of ``seconds`` of
     stereo in (r), default features: audio-s/s each way, the launches (one
@@ -2776,27 +2855,31 @@ def stream_throughput(torch, dev, codec, seconds, workdir, card, entries):
                      chunk_blocks=STREAM_CB)
     decode(warm)
     reset_all_launch_counts()
+    sc.reset_graph_counts()
     t0 = time.perf_counter()
     n_chunks = sc.encode_stream(codec, x, path, chunk_blocks=STREAM_CB)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
     enc_counts = all_launch_counts()
+    graphs = sc.graph_counts()
     reset_all_launch_counts()
     t0 = time.perf_counter()
     y = decode(path)
     dec_s = time.perf_counter() - t0
     dec_counts = all_launch_counts()
     check(n_chunks == n_body + 1, f"stream: {n_chunks} chunks")
-    check(enc_counts == stream_counts(fold_matmul=n_body + 1,
-                                      rrice_encode=n_body + 1),
-          f"stream: encode launches {enc_counts}")
+    check(enc_counts == stream_launches(n_body, graphs),
+          f"stream: encode launches {enc_counts}, graphs {graphs}")
+    check_replays("stream", n_body, graphs)
     check(dec_counts == stream_counts(matmul_scatter=n_body + 2),
           f"stream: decode launches {dec_counts}")
+    sha = stream_sha256(torch, sc, codec, x, path, workdir, n_body, card)
     rice = rice_coder_check(torch, dev, codec, x, path, workdir, n_body,
                             card)
     entries.append(entry("rrice_encode", None, "int32", "stream (r)",
                          FILTERS_N, **rice))
     entries[-1]["launches"] = enc_counts["rrice_encode"]
+    entries[-1]["graphs"] = graphs
     n = FILTERS_N
     check(y.shape == (1, s + 2 * n, 2) and bool(torch.isfinite(y).all()),
           f"stream: decode {tuple(y.shape)}")
@@ -2865,7 +2948,7 @@ def stream_throughput(torch, dev, codec, seconds, workdir, card, entries):
                snr_db=snr, plain_decode_snr_db=plain_dec_snr,
                plain_snr_db=plain_snr,
                seek_first_chunk_ms=seeks, rice_coder=rice,
-               traced_encode=enc_trace,
+               graphs=graphs, streams=sha, traced_encode=enc_trace,
                traced_decode=dec_trace)
 
     def spans(t):
@@ -2879,8 +2962,9 @@ def stream_throughput(torch, dev, codec, seconds, workdir, card, entries):
           f"{dec_s:.3f} s = {out['decode_audio_s_per_s']:.1f} audio-s/s "
           f"(a chunk's read, CRC and Rice decode on the host alone "
           f"{out['read_ms_per_chunk']:.2f} ms); "
-          f"launches encode {launched(enc_counts)}, decode "
-          f"{launched(dec_counts)}; codes equal to the all-plain stream "
+          f"launches encode {launched(enc_counts)} (graphs {graphs}), "
+          f"decode {launched(dec_counts)}; codes equal to the all-plain "
+          f"stream "
           f"{same} (sidecar levels {lv_same}, "
           f"{out['frames_of_unequal_sidecar']} frames with a level apart, "
           f"elsewhere codes within {max_diff}); decode vs the plain "
@@ -2951,14 +3035,15 @@ def stream_features(torch, dev, codec, workdir, card):
     for fec in (STREAM_LADDER_FEC, 0.0):
         src, bad = (str(workdir / f"ladder{fec}{s}.acs") for s in ("", "b"))
         reset_all_launch_counts()
+        sc.reset_graph_counts()
         with torch.no_grad():
             sc.encode_stream(codec, x, src, chunk_blocks=STREAM_CB, fec=fec,
                              **STREAM_LADDER)
         torch.cuda.synchronize()
-        counts = all_launch_counts()
-        check(counts == stream_counts(fold_matmul=n_body + 1,
-                                      rrice_encode=n_body + 1),
-              f"stream ladder fec={fec}: launches {counts}")
+        counts, graphs = all_launch_counts(), sc.graph_counts()
+        check(counts == stream_launches(n_body, graphs),
+              f"stream ladder fec={fec}: launches {counts}, graphs {graphs}")
+        check_replays(f"stream ladder fec={fec}", n_body, graphs)
         corrupt_chunk(sc, src, bad, lost)
         try:
             stream_window(torch, sc, codec, bad, lost, 1)
@@ -3768,9 +3853,13 @@ def serve_sessions(torch, dev, port, card, work):
           f"{dec_tol} from the plain synthesis's decode_stream")
     enc_launches = launch_delta(before, mid)
     dec_launches = launch_delta(mid, after)
-    check(enc_launches == {"fold_matmul": chunks + 1},
+    graphs = {k: mid["step_graphs"][k] - before["step_graphs"][k]
+              for k in before["step_graphs"]}
+    check_replays("serve session", chunks, graphs)
+    check(enc_launches == {"fold_matmul": graphs["eager"]
+                           + graphs["captured"] + 1},
           f"serve session: launches {enc_launches} for {chunks} chunks + "
-          "the flush")
+          f"the flush, graphs {graphs}")
     check(dec_launches == {"matmul_scatter": len(offs) + 1},
           f"serve decode session: launches {dec_launches} for {len(offs)} "
           "chunks + the tail")
@@ -3782,12 +3871,14 @@ def serve_sessions(torch, dev, port, card, work):
                sidecar_equal_to_plain=plain_lv,
                max_code_step_to_plain=plain_step,
                decode_max_abs_to_plain=dec_err, decode_tolerance=dec_tol,
-               launches_encode=enc_launches, launches_decode=dec_launches)
+               launches_encode=enc_launches, launches_decode=dec_launches,
+               graphs=graphs)
     print(f"serve session: {seconds:.2f} s of {STREAM_SR} Hz stereo in "
           f"{chunks} chunks + flush, {len(streamed)} bytes equal to offline "
           f"encode_stream's: {same_bytes}; encode {enc_wall:.3f} s = "
           f"{out['encode_audio_s_per_s']:.1f} audio-s/s, launches "
-          f"{enc_launches}; codes equal to the all-plain stream "
+          f"{enc_launches} (graphs {graphs}); codes equal to the all-plain "
+          f"stream "
           f"{plain_share!r} (sidecar levels {plain_lv!r}, codes within "
           f"{plain_step} where they are equal); decode session equal to "
           f"decode_stream bit for bit, max-abs {dec_err:.3g} from the plain "
@@ -4938,6 +5029,7 @@ def checking_kernels(torch, errors):
         stack.enter_context(mock.patch.object(module, name, checking(
             name, getattr(module, name),
             getattr(module, f"{name}_reference"))))
+    stack.enter_context(graphs_off())
     return stack
 
 
