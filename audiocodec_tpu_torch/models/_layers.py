@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _checkpoint
 
 from audiocodec_tpu_torch.ops import dct as _dct
+from audiocodec_tpu_torch.parallel.train import optimizer_step
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
 
 
@@ -45,7 +46,8 @@ def make_step(loss_fn, remat: bool, mesh=None):
     backward (``torch.utils.checkpoint``); the generator's state is set
     back before each of the two forwards, so both draw the same noise.
     Under a ``mesh`` of several processes the gradients and the loss are
-    averaged over its group before the optimizer steps."""
+    averaged over its group before the optimizer steps
+    (``parallel.train.optimizer_step``)."""
     if remat:
         plain = loss_fn
 
@@ -60,14 +62,8 @@ def make_step(loss_fn, remat: bool, mesh=None):
             return _checkpoint.checkpoint(run, params, x, use_reentrant=False)
 
     def train_step(params: dict, optimizer, x, generator=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, x, generator)
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None:
-            mesh.all_mean([p.grad for p in params.values()
-                           if p.grad is not None] + [loss])
-        optimizer.step()
-        return loss
+        return optimizer_step(
+            params.values(), optimizer,
+            lambda: (loss_fn(params, x, generator), None), mesh)[0]
 
     return train_step

@@ -27,6 +27,12 @@ and broadcast, and the picked vectors gathered from the ranks that hold
 them, so every process applies the same update, the single-device one.
 
 Codes pack host-side at exactly S * log2(K) bits a frame and channel.
+
+Spans: ``rvq.search`` (the forward's stage searches in :func:`quantize`
+and the train step's loss) and ``rvq.ema`` (the whole of
+:func:`ema_update`, after the step's ``train.optimizer``). :func:`counts`
+gives the train steps and stage searches counted on the host and the
+codewords reseeded, a device sum read only there.
 """
 
 from __future__ import annotations
@@ -42,8 +48,27 @@ from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.models import spectral_ae as _sae
 from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.parallel import sequence as _seq
-from audiocodec_tpu_torch.parallel.train import default_optimizer
+from audiocodec_tpu_torch.parallel.train import (default_optimizer,
+                                                 optimizer_step)
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils import profiling as _profiling
+
+_counts = dict.fromkeys(("steps", "searches"), 0)
+_reseeded = {}  # device -> int64 0-d sum of the codewords reseeded there
+
+
+def counts() -> dict:
+    """Since the last reset: the train steps, the stage searches (one
+    stage's nearest-codeword search over a batch: 2 * stages a train step,
+    the forward's and the EMA's) and the codewords reseeded, read from the
+    devices' sums here (one sync a device), never inside a step."""
+    return dict(_counts, reseeded=sum(int(t.item())
+                                      for t in _reseeded.values()))
+
+
+def reset_counts() -> None:
+    _counts.update(dict.fromkeys(_counts, 0))
+    _reseeded.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +151,7 @@ def _nearest(residual: torch.Tensor, codebook: torch.Tensor):
     residual's dtype). argmin over |r - c|^2 drops the |r|^2 constant:
     |c|^2 - 2 r.c with float32 scores (bf16 operands: float32 sums); ties
     go to the first index, as ``jnp.argmin``'s."""
+    _counts["searches"] += 1
     tier = "default" if residual.dtype == torch.bfloat16 else "highest"
     scores = _dct.matmul(residual, codebook.T, tier)
     sq = torch.sum(codebook.float() ** 2, dim=-1)
@@ -139,10 +165,11 @@ def _quantize(cfg: RVQ, codebooks: torch.Tensor, z: torch.Tensor):
     flat = _flatten_latents(z, cfg.dim)
     residual = flat.detach()
     codes = []
-    for codebook in codebooks:
-        idx, q = _nearest(residual, codebook)
-        residual = residual - q
-        codes.append(idx)
+    with _profiling.span("rvq.search"):
+        for codebook in codebooks:
+            idx, q = _nearest(residual, codebook)
+            residual = residual - q
+            codes.append(idx)
     quant = flat.detach() - residual  # the sum of the stages
     z_q = _unflatten_latents(flat + (quant - flat).detach(), z.shape)
     b, t, _, c = z.shape
@@ -176,6 +203,7 @@ def _ema_stats(cfg: RVQ, codebooks: torch.Tensor, flat: torch.Tensor):
     return torch.stack(counts), torch.stack(sums)
 
 
+@_profiling.span("rvq.ema")
 def ema_update(cfg: RVQ, state: dict, z, generator=None, mesh=None) -> dict:
     """One EMA k-means step of every stage's codebook from the batch ``z``;
     returns the new state. Dead codewords (EMA count below
@@ -232,6 +260,11 @@ def ema_update(cfg: RVQ, state: dict, z, generator=None, mesh=None) -> dict:
         mesh.all_sum([fresh])
     dead = (new_count < cfg.reseed_threshold)[..., None]
     reseeded = torch.where(dead, fresh, means)
+    total = _reseeded.get(home)
+    if total is None:
+        total = _reseeded[home] = torch.zeros((), dtype=torch.int64,
+                                              device=home)
+    total += dead.sum()
     return {"codebooks": reseeded.to(codebooks.dtype),
             "ema_count": new_count, "ema_sum": new_sum}
 
@@ -334,7 +367,8 @@ def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
     optimizer). The autoencoder's parameters take one optimizer step on the
     perceptual loss; then the codebooks take one EMA step on that forward's
     latents (``generator`` draws the reseeds). Parameters, optimizer and
-    RVQ state are updated in place.
+    RVQ state are updated in place (``parallel.train.optimizer_step``,
+    then :func:`ema_update`).
 
     :param optimizer: a callable from a list of parameters to a
         ``torch.optim.Optimizer``; defaults to Adam at 1e-3.
@@ -372,15 +406,11 @@ def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
     def train_step(params: dict, rvq_state: dict, optimizer, x,
                    generator=None, step: int = 0):
         gate = 1.0 if step >= warmup_steps else 0.0
-        optimizer.zero_grad(set_to_none=True)
-        loss, z = loss_fn(params, rvq_state, x, gate)
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None:
-            mesh.all_mean([p.grad for p in params.values()
-                           if p.grad is not None] + [loss])
-        optimizer.step()
+        loss, z = optimizer_step(
+            params.values(), optimizer,
+            lambda: loss_fn(params, rvq_state, x, gate), mesh)
         rvq_state.update(ema_update(rvq_cfg, rvq_state, z, generator, mesh))
+        _counts["steps"] += 1
         return loss
 
     return train_step, optimizer or default_optimizer

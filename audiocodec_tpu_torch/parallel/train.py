@@ -10,6 +10,11 @@ over the row's devices (``parallel.sequence``); each row adds its share of
 the batch's mean, so the step equals the single-device step, and across
 processes the gradients and the loss are averaged over the mesh's group
 before the optimizer steps (JAX's GSPMD-inserted psum).
+
+Every trainer's step (this one, the models' ``_layers.make_step`` and the
+RVQ codec's) is one :func:`optimizer_step`, whose three spans split it:
+``train.forward`` (the loss), ``train.backward`` (its backward, and the
+mesh's average) and ``train.optimizer`` (the optimizer's step).
 """
 
 from __future__ import annotations
@@ -23,9 +28,31 @@ from torch.utils import checkpoint as _checkpoint
 from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.parallel import sequence as _seq
+from audiocodec_tpu_torch.utils import profiling as _profiling
 
 # optax.adam(1e-3): the same update rule (b1 0.9, b2 0.999, eps 1e-8)
 default_optimizer = functools.partial(torch.optim.Adam, lr=1e-3)
+
+
+def optimizer_step(params, optimizer, forward, mesh=None):
+    """One step of ``optimizer`` on the loss of ``forward() -> (loss,
+    aux)``: the gradients cleared, the loss (span ``train.forward``), its
+    backward (``train.backward``; under a ``mesh`` the gradients of
+    ``params`` and the loss then averaged over its group) and the
+    optimizer's step (``train.optimizer``). Returns (the loss detached,
+    aux)."""
+    optimizer.zero_grad(set_to_none=True)
+    with _profiling.span("train.forward"):
+        loss, aux = forward()
+    with _profiling.span("train.backward"):
+        loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.all_mean([p.grad for p in params if p.grad is not None]
+                          + [loss])
+    with _profiling.span("train.optimizer"):
+        optimizer.step()
+    return loss, aux
 
 
 @dataclasses.dataclass
@@ -110,13 +137,8 @@ def make_train_step(codec: Codec, optimizer=None, remat: bool = False,
                                           use_reentrant=False)
 
     def train_step(state: TrainState, x):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.gains, x)
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None:
-            mesh.all_mean([state.gains.grad, loss])
-        state.optimizer.step()
-        return loss
+        return optimizer_step([state.gains], state.optimizer,
+                              lambda: (loss_fn(state.gains, x), None),
+                              mesh)[0]
 
     return train_step, optimizer
