@@ -60,7 +60,6 @@ Rice decode) and ``stream.step`` in the decoder.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import json
 import math
@@ -89,6 +88,7 @@ from audiocodec_tpu_torch.io import bitstream as _bitstream
 from audiocodec_tpu_torch.ops import cuda_rice as _cuda_rice
 from audiocodec_tpu_torch.ops import threefry as _threefry
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils import graphs as _cuda_graphs
 from audiocodec_tpu_torch.utils.profiling import span
 
 # Wire versions: "ACS2" marks grid-quantized sidecars (an ACS1 reader would
@@ -1135,9 +1135,7 @@ def _dtx_gate(x, chunk: int, dtx: float):
 # CUDA graphs of the chunk step kept for each codec, least recently used
 # first out: a server's clients choose their chunk sizes
 _GRAPH_SLOTS = 8
-# the device whose steps replay (the CPU runs every step op by op)
-_GRAPH_DEVICE = "cuda"
-# the codecs' graphs, while each codec lives
+# the codecs' graphs (utils.graphs.Cache), while each codec lives
 _graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 # Taken to look up, capture or replay a graph: a replay's loads, its launch
 # and the launches that read its outputs (the Rice coder, the copies to the
@@ -1326,11 +1324,11 @@ class _ChunkEncoder:
     def _graph_key(self, x):
         """The key of the CUDA graph that replays this chunk's step (its
         shape and dtype, the context's shape, the features), or None where
-        the step runs op by op: off the card, with grad on, or with a
-        tensor ``drown``. The codec keys the table of graphs."""
+        the step runs op by op: off the card or with the graphs off
+        (``utils.graphs``), with grad on, or with a tensor ``drown``. The
+        codec keys the table of graphs."""
         kw = self._kw
-        if (not _GRAPH_SLOTS or x.device.type != _GRAPH_DEVICE
-                or torch.is_grad_enabled()
+        if (not _cuda_graphs.engaged(x) or torch.is_grad_enabled()
                 or isinstance(kw["drown"], torch.Tensor)):
             return None
         ctx = None if self._tctx is None else tuple(self._tctx.shape)
@@ -1355,16 +1353,15 @@ class _ChunkEncoder:
         if key is None:
             enc, fecq, self._carry, self._tctx = self._step(
                 x, self._carry, self._tctx, tscale, fec_scale)
-            if x.device.type == _GRAPH_DEVICE:
+            if x.device.type == _cuda_graphs.DEVICE:
                 with _graph_lock:
                     self._tally("eager")
             yield enc, fecq
             return
         with _graph_lock:
-            graphs = _graphs.setdefault(self._codec, collections.OrderedDict())
+            graphs = _graphs.setdefault(self._codec, _cuda_graphs.Cache())
             graph = graphs.get(key)
             if graph is not None:
-                graphs.move_to_end(key)
                 with span("stream.graph"):
                     enc, fecq, self._carry, self._tctx = graph.run(
                         x, self._carry, self._tctx, tscale, fec_scale)
@@ -1376,10 +1373,9 @@ class _ChunkEncoder:
             enc, fecq, self._carry, self._tctx = self._step(
                 x, carry, ctx, tscale, fec_scale)
             self._tally("eager")
-            graphs[key] = _StepGraph.capture(self._step, x, carry, ctx)
+            graphs.put(key, _StepGraph.capture(self._step, x, carry, ctx),
+                       _GRAPH_SLOTS)
             self._tally("captured")
-            if len(graphs) > _GRAPH_SLOTS:
-                graphs.popitem(last=False)
         yield enc, fecq
 
     def push(self, x, tscale: float) -> None:

@@ -13,7 +13,8 @@ its codewords.
 
 The nearest-codeword search is ``argmin(|c|^2 - 2 r.c)`` over a float32
 ``torch.matmul`` of scores (TF32 off), then an index gather; the EMA counts
-and sums are a ``bincount`` and an ``index_add_``. The JAX package's one-hot
+and sums are each an ``index_add_`` (of ones for the counts: a ``bincount``
+reads its input's largest value back on the card). The JAX package's one-hot
 matmuls are the TPU's way to gather and are not carried over: the gathered
 codeword is the one-hot product's exact value. The state is a dict of
 tensors (``codebooks`` [S, K, D] in the compute dtype, ``ema_count`` [S, K]
@@ -26,13 +27,24 @@ over every shard and every process; the reseed's picks are drawn on rank 0
 and broadcast, and the picked vectors gathered from the ranks that hold
 them, so every process applies the same update, the single-device one.
 
+On the card, with no mesh, no remat, grad on and the parameters and
+codebooks on the batch's device, the train step's loss and backward
+replay as one CUDA graph (``parallel.train.LossGraph``, kept in a
+``utils.graphs.Cache``), keyed on the batch's shape, dtype and device, the
+codebooks' dtype, the quantizer's gate and the parameters, and captured
+after the key's first step ran op by op; the optimizer's step and
+:func:`ema_update` run op by op after the replay, and nothing in the step
+reads the card back.
+
 Codes pack host-side at exactly S * log2(K) bits a frame and channel.
 
 Spans: ``rvq.search`` (the forward's stage searches in :func:`quantize`
-and the train step's loss) and ``rvq.ema`` (the whole of
-:func:`ema_update`, after the step's ``train.optimizer``). :func:`counts`
-gives the train steps and stage searches counted on the host and the
-codewords reseeded, a device sum read only there.
+and the train step's loss; on the card's graphed step only at the
+capture) and ``rvq.ema`` (the whole of :func:`ema_update`, after the
+step's ``train.optimizer``). :func:`counts` gives the train steps, stage
+searches, graphed steps replayed, graphs captured and card steps run op
+by op, counted on the host, and the codewords reseeded, a device sum read
+only there.
 """
 
 from __future__ import annotations
@@ -48,20 +60,28 @@ from audiocodec_tpu_torch.codec import Codec
 from audiocodec_tpu_torch.models import spectral_ae as _sae
 from audiocodec_tpu_torch.ops import dct as _dct
 from audiocodec_tpu_torch.parallel import sequence as _seq
-from audiocodec_tpu_torch.parallel.train import (default_optimizer,
+from audiocodec_tpu_torch.parallel.train import (LossGraph,
+                                                 default_optimizer,
                                                  optimizer_step)
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils import graphs as _cuda_graphs
 from audiocodec_tpu_torch.utils import profiling as _profiling
 
-_counts = dict.fromkeys(("steps", "searches"), 0)
+_counts = dict.fromkeys(
+    ("steps", "searches", "replayed", "captured", "direct"), 0)
 _reseeded = {}  # device -> int64 0-d sum of the codewords reseeded there
+# CUDA graphs kept for each train step, least recently used first out
+_GRAPH_SLOTS = 4
 
 
 def counts() -> dict:
     """Since the last reset: the train steps, the stage searches (one
     stage's nearest-codeword search over a batch: 2 * stages a train step,
-    the forward's and the EMA's) and the codewords reseeded, read from the
-    devices' sums here (one sync a device), never inside a step."""
+    the forward's and the EMA's, whether the forward's ran op by op or
+    replayed), the train steps replayed from a CUDA graph, the graphs
+    captured, the train steps on the card run op by op, and the codewords
+    reseeded, read from the devices' sums here (one sync a device), never
+    inside a step."""
     return dict(_counts, reseeded=sum(int(t.item())
                                       for t in _reseeded.values()))
 
@@ -194,9 +214,12 @@ def _ema_stats(cfg: RVQ, codebooks: torch.Tensor, flat: torch.Tensor):
     (float32) of the float32 latents ``flat`` [M, D]."""
     k = cfg.codebook_size
     residual, counts, sums = flat, [], []
+    ones = flat.new_ones(flat.shape[0])
     for codebook in codebooks:
         idx, q = _nearest(residual.to(codebook.dtype), codebook)
-        counts.append(torch.bincount(idx, minlength=k).float())
+        # whole numbers below 2^24: exact in any order of the adds
+        counts.append(torch.zeros(k, device=flat.device)
+                      .index_add_(0, idx, ones))
         sums.append(torch.zeros(k, cfg.dim, device=flat.device)
                     .index_add_(0, idx, residual))
         residual = residual - q.float()
@@ -368,7 +391,12 @@ def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
     perceptual loss; then the codebooks take one EMA step on that forward's
     latents (``generator`` draws the reseeds). Parameters, optimizer and
     RVQ state are updated in place (``parallel.train.optimizer_step``,
-    then :func:`ema_update`).
+    then :func:`ema_update`). On the card, with no ``mesh``, no ``remat``,
+    grad on and every parameter and the codebooks on ``x``'s device, the
+    loss and its backward replay as one CUDA graph
+    (``parallel.train.LossGraph``), captured after its key's first step ran
+    op by op and kept with the step (the last few keys): the graph owns the
+    parameters' ``.grad``, and the returned loss is a copy of its own.
 
     :param optimizer: a callable from a list of parameters to a
         ``torch.optim.Optimizer``; defaults to Adam at 1e-3.
@@ -403,12 +431,55 @@ def make_train_step(codec: Codec, ae_cfg: _sae.SpectralAE, rvq_cfg: RVQ,
             return _checkpoint.checkpoint(plain, params, rvq_state, x, gate,
                                           use_reentrant=False)
 
+    graphs = _cuda_graphs.Cache()  # key -> (LossGraph, its searches)
+
+    def graph_key(params, x, codebooks, gate):
+        """The key of the step's CUDA graph, or None where the step runs op
+        by op: off the card or with the graphs off (``utils.graphs``),
+        under a mesh, with remat, with grad off, or with a parameter or
+        the codebooks on another device than ``x`` (the loss would copy
+        them, which a capture refuses). A graph holds its parameters, so
+        their ids stay theirs."""
+        if (not _cuda_graphs.engaged(x) or mesh is not None or remat
+                or not torch.is_grad_enabled()
+                or codebooks.device != x.device
+                or any(p.device != x.device for p in params.values())):
+            return None
+        return (tuple(x.shape), x.dtype, x.device, codebooks.dtype, gate,
+                *map(id, params.values()))
+
+    def capture(params, x, codebooks, gate):
+        """The graph of the loss over (x, codebooks), and the stage
+        searches its forward makes, which the capture itself runs none
+        of."""
+        searches = _counts["searches"]
+        graph = LossGraph.capture(
+            params.values(), lambda x, codebooks: loss_fn(
+                params, {"codebooks": codebooks}, x, gate), (x, codebooks))
+        made, _counts["searches"] = _counts["searches"] - searches, searches
+        return graph, made
+
     def train_step(params: dict, rvq_state: dict, optimizer, x,
                    generator=None, step: int = 0):
         gate = 1.0 if step >= warmup_steps else 0.0
-        loss, z = optimizer_step(
-            params.values(), optimizer,
-            lambda: loss_fn(params, rvq_state, x, gate), mesh)
+        codebooks = rvq_state["codebooks"]
+        key = graph_key(params, x, codebooks, gate)
+        held = graphs.get(key)
+        if held is not None:
+            graph, searches = held
+            loss, z = graph.step(optimizer, (x, codebooks))
+            _counts["replayed"] += 1
+            _counts["searches"] += searches
+        else:
+            loss, z = optimizer_step(
+                params.values(), optimizer,
+                lambda: loss_fn(params, rvq_state, x, gate), mesh)
+            _counts["direct"] += int(x.device.type == _cuda_graphs.DEVICE)
+            if key is not None:
+                z = z.detach()  # the capture wants no autograd graph alive
+                graphs.put(key, capture(params, x, codebooks, gate),
+                           _GRAPH_SLOTS)
+                _counts["captured"] += 1
         rvq_state.update(ema_update(rvq_cfg, rvq_state, z, generator, mesh))
         _counts["steps"] += 1
         return loss

@@ -14,7 +14,11 @@ before the optimizer steps (JAX's GSPMD-inserted psum).
 Every trainer's step (this one, the models' ``_layers.make_step`` and the
 RVQ codec's) is one :func:`optimizer_step`, whose three spans split it:
 ``train.forward`` (the loss), ``train.backward`` (its backward, and the
-mesh's average) and ``train.optimizer`` (the optimizer's step).
+mesh's average) and ``train.optimizer`` (the optimizer's step). On the
+card the RVQ codec's step replays its loss and backward as one CUDA graph
+(:class:`LossGraph`): the capture runs the first two spans, once, and a
+replay runs ``train.graph`` (its loads, the launch and the loss's copy)
+before ``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,65 @@ def optimizer_step(params, optimizer, forward, mesh=None):
     with _profiling.span("train.optimizer"):
         optimizer.step()
     return loss, aux
+
+
+class LossGraph:
+    """The loss of ``forward(*inputs) -> (loss, aux)`` and its backward
+    into the ``.grad`` of ``params``, one CUDA graph over static copies of
+    ``inputs`` (:meth:`capture`). The graph owns the gradients it writes:
+    :meth:`step` points each parameter's ``.grad`` at them before the
+    optimizer steps, so nothing between two replays may set them to None.
+    The parameters are read where they are, so the optimizer updates them
+    in place; every other tensor the forward reads, and every host value,
+    is baked in at the capture."""
+
+    def __init__(self, graph, params, inputs, loss, aux, grads):
+        self.graph, self.params, self.inputs = graph, params, inputs
+        self.loss, self.aux, self.grads = loss, aux, grads
+
+    @classmethod
+    def capture(cls, params, forward, inputs) -> "LossGraph":
+        """Capture the loss and its backward over static copies of
+        ``inputs`` (their values are not read: a capture runs nothing),
+        after the same forward has run op by op (every lazily built table
+        and kernel in place) and no autograd graph of it is left: one
+        would keep the parameters' gradient accumulators, made on the
+        stream it ran on, alive into the capture, which then fails. The
+        aux is a tensor, kept detached; the parameters' ``.grad`` are left
+        as they were, also where the capture fails."""
+        params, inputs = list(params), [t.clone() for t in inputs]
+        held = [p.grad for p in params]
+        try:
+            for p in params:
+                p.grad = None  # the backward allocates the graph's own
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                with _profiling.span("train.forward"):
+                    loss, aux = forward(*inputs)
+                with _profiling.span("train.backward"):
+                    loss.backward()
+            grads = [p.grad for p in params]
+        finally:
+            for p, g in zip(params, held):
+                p.grad = g
+        return cls(graph, params, inputs, loss.detach(), aux.detach(),
+                   grads)
+
+    def step(self, optimizer, inputs):
+        """Load ``inputs``, replay (span ``train.graph``), then take
+        ``optimizer``'s step on the graph's gradients (``train.optimizer``)
+        -> (a copy of the loss, the static aux: the next replay overwrites
+        it)."""
+        with _profiling.span("train.graph"):
+            for static, t in zip(self.inputs, inputs):
+                static.copy_(t)
+            self.graph.replay()
+            loss = self.loss.clone()
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+        with _profiling.span("train.optimizer"):
+            optimizer.step()
+        return loss, self.aux
 
 
 @dataclasses.dataclass

@@ -98,10 +98,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    analysis and the synthesis once, the codes survive the pack bit for
    bit, at least 99.9% of them equal the all-plain encode's, and the
    decode is within the synthesis tolerance of the all-plain decode of the
-   same codes; three training steps (``warmup_steps=1``) each launch the
-   analysis, the synthesis and its VJP once, and the first step's loss
-   and gradients meet ``TRAIN_TOL`` against the all-plain step; ms,
-   audio-s/s and peak memory;
+   same codes; three training steps (``warmup_steps=1``): the warm-up's
+   and the quantizer's first steps each launch the analysis, the
+   synthesis and its VJP once op by op and once more in the capture of
+   their CUDA graph, the third replays its graph and launches none from
+   the host; a replayed step equals the same step run op by op bit for
+   bit (rvq_replay_check()), and the first step's loss and gradients
+   meet ``TRAIN_TOL`` against the all-plain step; ms, audio-s/s and peak
+   memory;
 16. the bitstream feature ladder at full width through its entry points
    (``Codec.encode_frames`` on ``mdct.transform``, then
    ``decode_bitstream``/``decode_bitstream_ms``), in the CLI's presets:
@@ -603,7 +607,7 @@ def kernel_wrappers():
 def plain_kernels():
     """Every kernel wrapper and VJP swapped for its plain version (the
     wrappers are looked up at each call, by the MDCT's autograd Functions
-    too), the stream steps' graphs off (graphs_off())."""
+    too), every step's graph off (graphs_off())."""
     from contextlib import ExitStack
 
     stack = ExitStack()
@@ -615,11 +619,12 @@ def plain_kernels():
 
 
 def graphs_off():
-    """The .acs encoder's step graphs off: a replay would run the kernels
-    its capture recorded, never a swapped wrapper."""
-    from audiocodec_tpu_torch.io import stream_container as sc
+    """Every CUDA graph off (``utils.graphs``: the .acs encoder's chunk
+    steps, the RVQ codec's train step): a replay would run the kernels its
+    capture recorded, never a swapped wrapper."""
+    from audiocodec_tpu_torch.utils import graphs
 
-    return mock.patch.object(sc, "_GRAPH_SLOTS", 0)
+    return mock.patch.object(graphs, "ENABLED", False)
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -1930,15 +1935,29 @@ def rvq_phase(torch, dev):
     step, make_opt = rvq.make_train_step(codec, ae, cfg, warmup_steps=1)
     opt = make_opt(list(params.values()))
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    losses = []
+    losses, graphs = [], []
     once = expected_counts(fold_matmul=1, matmul_scatter=1,
                            matmul_scatter_vjp=1)
     for i in range(RVQ_TRAIN_STEPS):
         reset_all_launch_counts()
+        rvq.reset_counts()
         losses.append(float(step(params, state, opt, x, gen, i)))
-        counts = all_launch_counts()
-        check(counts == once, f"rvq train step {i}: launch counts {counts}")
+        counts, ran = all_launch_counts(), rvq.counts()
+        graphs.append({k: ran[k] for k in ("direct", "captured", "replayed")})
+        # the warm-up's and the quantizer's first steps run op by op and
+        # capture their gate's graph, whose wrappers run once more in the
+        # capture; a replay launches nothing from the host
+        want = ([1, 1, 0] if i < 2 else [0, 0, 1])
+        runs = ran["direct"] + ran["captured"]
+        check(list(graphs[-1].values()) == want
+              and counts == {k: runs * v for k, v in once.items()},
+              f"rvq train step {i}: launch counts {counts}, graphs "
+              f"{graphs[-1]}")
     check(all(math.isfinite(v) for v in losses), f"rvq train: {losses}")
+    replay = rvq_replay_check(
+        torch, rvq, lambda: rvq.make_train_step(codec, ae, cfg,
+                                                warmup_steps=1),
+        params, state, opt, x, gen)
     check(all(bool(torch.isfinite(t).all()) for t in state.values()),
           "rvq train: non-finite RVQ state")
     torch.cuda.reset_peak_memory_stats()
@@ -1949,16 +1968,70 @@ def rvq_phase(torch, dev):
                                             RVQ_TRAIN_STEPS))
     training = dict(warmup=warmup, engaged=engaged,
                     ema=dict(frames_equal=ema_same, err_tol=ema_errs),
-                    losses=losses, ms=ms,
+                    losses=losses, graphs=graphs, replay=replay, ms=ms,
                     audio_s_per_s=audio_s / (ms * 1e-3),
                     max_memory_allocated=peak_bytes, trace=trace)
-    print(f"rvq train: launches a step {counts}; first loss {loss:.7g} vs "
+    print(f"rvq train: launches of the replayed step {counts}, graphs "
+          f"{graphs}; first loss {loss:.7g} vs "
           f"all-plain {plain_loss:.7g}; {RVQ_TRAIN_STEPS} losses {losses}; "
           f"{ms:.3f} ms/step = "
           f"{training['audio_s_per_s']:.1f} training audio-s/s; peak memory "
           f"{peak_bytes / 2**30:.2f} GiB; traced device ms a step "
           f"{trace['device_ms_per_step']}, idle {trace['idle_share']:.3f}")
     return dict(serving=serving, training=training)
+
+
+def rvq_replay_check(torch, rvq, make_step, params, state, opt, x, gen):
+    """15. Two train steps of the quantizer (gate 1) from copies of one
+    state (``params``, ``opt``'s, ``state``, ``gen``'s), through a new step
+    of ``make_step()`` whose second step replays the graph its first
+    captured, and through a new step with the graphs off
+    (graphs_off()), under deterministic algorithms (the EMA sums'
+    ``index_add_`` adds float32 rows by atomics otherwise): after each
+    step the losses, gradients, parameters, Adam's state, the RVQ state
+    and the reseed generator's state are equal bit for bit."""
+    import copy
+
+    def side():
+        new_step, make_opt = make_step()
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        o = make_opt(list(p.values()))
+        o.load_state_dict(copy.deepcopy(opt.state_dict()))
+        st = {k: v.clone() for k, v in state.items()}
+        g = torch.Generator(device=gen.device)
+        g.set_state(gen.get_state())
+        out = []
+        rvq.reset_counts()
+        for i in (RVQ_TRAIN_STEPS + 1, RVQ_TRAIN_STEPS + 2):
+            loss = new_step(p, st, o, x, g, i)
+            adam = [o.state[v][k].clone() for v in p.values()
+                    for k in ("step", "exp_avg", "exp_avg_sq")]
+            out.append([loss.clone(), *(v.grad.clone() for v in p.values()),
+                        *(v.detach().clone() for v in p.values()), *adam,
+                        *(v.clone() for v in st.values()), g.get_state()])
+        ran = rvq.counts()
+        return out, {k: ran[k] for k in ("direct", "captured", "replayed")}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graphed, graphed_counts = side()
+        with graphs_off():
+            plain, plain_counts = side()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(graphed_counts == dict(direct=1, captured=1, replayed=1)
+          and plain_counts == dict(direct=2, captured=0, replayed=0),
+          f"rvq replay: graphs {graphed_counts}, off {plain_counts}")
+    unequal = [[j for j, (a, b) in enumerate(zip(u, v))
+                if not torch.equal(a, b)] for u, v in zip(graphed, plain)]
+    check(not any(unequal), "rvq replay: the replayed step is not the step "
+          f"run op by op, tensors {unequal} differ")
+    print(f"rvq train: a step replayed from its graph equals the step run "
+          f"op by op bit for bit ({len(graphed[0])} tensors a step; graphs "
+          f"{graphed_counts}, off {plain_counts})")
+    return dict(graphs=graphed_counts, off=plain_counts,
+                tensors=len(graphed[0]), unequal=unequal)
 
 
 def ladder_signal(torch, device, dtype, clips, channels, samples=SAMPLES):

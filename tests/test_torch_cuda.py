@@ -596,8 +596,11 @@ def test_training_step_launches_each_kernel_once(design):
 def test_rvq_serves_and_trains_through_the_kernels():
     """The discrete codec on the card: encode_discrete launches the
     analysis once, decode_discrete the synthesis once, the codes survive
-    the pack, and each training step (the warmup's and the quantizer's)
-    launches the analysis, the synthesis and the synthesis VJP once."""
+    the pack, and each training step launches the analysis, the synthesis
+    and the synthesis VJP once a run op by op: the warmup's and the
+    quantizer's first steps run op by op and then capture their CUDA graph
+    (the wrappers run again inside the capture: twice each), and a later
+    step replays the graph (none from the host)."""
     from audiocodec_tpu_torch.models import rvq
     from audiocodec_tpu_torch.models import spectral_ae as sae
 
@@ -619,12 +622,18 @@ def test_rvq_serves_and_trains_through_the_kernels():
     step, make_opt = rvq.make_train_step(c, cfg, rcfg, warmup_steps=1)
     opt = make_opt(list(params.values()))
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for i in range(2):
+    once = _once("fold_matmul", "matmul_scatter", "matmul_scatter_vjp")
+    for i in range(3):
         cuda_mdct.reset_launch_counts()
+        rvq.reset_counts()
         loss = step(params, state, opt, x, gen, i)
         torch.cuda.synchronize()
-        assert cuda_mdct.launch_counts() == _once(
-            "fold_matmul", "matmul_scatter", "matmul_scatter_vjp")
+        counts = rvq.counts()
+        runs = counts["direct"] + counts["captured"]
+        assert [counts[k] for k in ("direct", "captured", "replayed")] == (
+            [1, 1, 0] if i < 2 else [0, 0, 1])
+        assert cuda_mdct.launch_counts() == {k: runs * v
+                                             for k, v in once.items()}
         assert bool(torch.isfinite(loss))
 
 

@@ -20,6 +20,7 @@ import torch
 from audiocodec_tpu_torch import Codec, native, serve
 from audiocodec_tpu_torch.io import stream_container as sc
 from audiocodec_tpu_torch.ops import cuda_rice
+from audiocodec_tpu_torch.utils import graphs
 
 
 def card(test):
@@ -385,7 +386,7 @@ def test_card_stream_is_the_host_coded_stream(preset, tmp_path, monkeypatch):
 
     monkeypatch.setattr(codec, "encode_frames", host_codes)
     # op by op: a step's graph would replay the card's encode_frames
-    monkeypatch.setattr(sc, "_GRAPH_SLOTS", 0)
+    monkeypatch.setattr(graphs, "ENABLED", False)
     assert sc.encode_stream(codec, x, str(host_path), chunk_blocks=kb,
                             counters=host_counts, **kw) == n
     assert {k: v for k, v in card_counts.items()

@@ -4,8 +4,8 @@ op by op.
 
 The tests marked ``cuda`` need an NVIDIA GPU: run ``python -m pytest
 --noconftest -m cuda tests/test_torch_stream_graph.py`` there. Each encodes
-with the graphs and again with them turned off (``_GRAPH_SLOTS`` 0), byte
-for byte, and counts the replays. Without a card they skip; the skip
+with the graphs and again with them turned off (``utils.graphs.ENABLED``),
+byte for byte, and counts the replays. Without a card they skip; the skip
 condition is a string, evaluated when each test is set up. The others run
 on the CPU, where a stand-in for the graph (``_Replayer``: a replay runs the
 step on the static inputs and writes the static outputs) takes the
@@ -27,6 +27,7 @@ import torch
 from audiocodec_tpu_torch import Codec, tns
 from audiocodec_tpu_torch.io import stream_container as sc
 from audiocodec_tpu_torch.utils import dtypes as _dtypes
+from audiocodec_tpu_torch.utils import graphs
 
 SR, N, BARK, CB = 16000, 256, 16, 4
 
@@ -121,7 +122,7 @@ def _copied(tensors):
 @pytest.fixture
 def stand_in(monkeypatch):
     """The CPU's steps replay from the stand-in; the counts start at 0."""
-    monkeypatch.setattr(sc, "_GRAPH_DEVICE", "cpu")
+    monkeypatch.setattr(graphs, "DEVICE", "cpu")
     monkeypatch.setattr(sc._StepGraph, "capture", staticmethod(_capture))
     monkeypatch.setattr(sc, "_to_host", _copied)
     sc.reset_graph_counts()
@@ -130,13 +131,13 @@ def stand_in(monkeypatch):
 
 
 class op_by_op:
-    """The graphs off while the block runs (``_GRAPH_SLOTS`` 0)."""
+    """The graphs off while the block runs (``utils.graphs.ENABLED``)."""
 
     def __enter__(self):
-        self.slots, sc._GRAPH_SLOTS = sc._GRAPH_SLOTS, 0
+        self.enabled, graphs.ENABLED = graphs.ENABLED, False
 
     def __exit__(self, *exc):
-        sc._GRAPH_SLOTS = self.slots
+        graphs.ENABLED = self.enabled
 
 
 def _encode(codec, x, **kw):
@@ -184,9 +185,9 @@ def test_steps_without_a_key_run_op_by_op(why, stand_in, monkeypatch):
     codec = _codec()
     kw = dict(drown=torch.tensor(0.0)) if why == "drown" else {}
     if why == "cpu":
-        monkeypatch.setattr(sc, "_GRAPH_DEVICE", "cuda")
+        monkeypatch.setattr(graphs, "DEVICE", "cuda")
     if why == "off":
-        monkeypatch.setattr(sc, "_GRAPH_SLOTS", 0)
+        monkeypatch.setattr(graphs, "ENABLED", False)
     enc = _encoder(codec, 1, **kw)
     x = signal(1, 3 * CB)
     with torch.set_grad_enabled(why == "grad"):
@@ -245,7 +246,7 @@ def test_graphs_of_a_codec_are_bounded(stand_in, monkeypatch):
     keys = [k[0][1] // N for k in sc._graphs[codec]]
     assert keys == [8, 4]  # 12 blocks left before 8 and 4 came again
     assert sc.graph_counts() == _counts(5, 5, 1)
-    monkeypatch.setattr(sc, "_GRAPH_SLOTS", 0)
+    monkeypatch.setattr(graphs, "ENABLED", False)
     assert encode() == got
 
 
@@ -397,7 +398,7 @@ def test_card_replayed_stream_is_the_stream_run_op_by_op(case, monkeypatch):
     sc.reset_graph_counts()
     assert _card_encode(codec, x, **kw) == got
     assert sc.graph_counts() == _counts(0, 0, sum(counts[::2]))
-    monkeypatch.setattr(sc, "_GRAPH_SLOTS", 0)
+    monkeypatch.setattr(graphs, "ENABLED", False)
     sc.reset_graph_counts()
     assert _card_encode(codec, x, **kw) == got
     assert sc.graph_counts() == _counts(sum(counts[::2]), 0, 0)
@@ -443,7 +444,7 @@ def test_card_sessions_interleaved_on_one_codec(how, monkeypatch):
     sc.reset_graph_counts()
     got = sessions(how == "alternate")
     assert sc.graph_counts() == _counts(2, 2, 2 * chunks - 2)
-    monkeypatch.setattr(sc, "_GRAPH_SLOTS", 0)
+    monkeypatch.setattr(graphs, "ENABLED", False)
     assert sessions(True) == got
 
 

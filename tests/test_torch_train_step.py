@@ -182,8 +182,11 @@ def test_counts_steps_searches_and_reseeds():
     for i in (1, 2):
         step(params, state, opt, x, gen, i)
         dead += int((state["ema_count"] < CFG.reseed_threshold).sum())
+    # no CUDA graph on the CPU: nothing replayed, captured or on the card
     assert rvq.counts() == {"steps": 2, "searches": 2 * 2 * CFG.stages,
-                            "reseeded": dead}
+                            "reseeded": dead, "replayed": 0, "captured": 0,
+                            "direct": 0}
     assert dead > 0  # 26 rows a stage for 64 codewords: most starve
     rvq.reset_counts()
-    assert rvq.counts() == {"steps": 0, "searches": 0, "reseeded": 0}
+    assert rvq.counts() == {"steps": 0, "searches": 0, "reseeded": 0,
+                            "replayed": 0, "captured": 0, "direct": 0}
