@@ -55,7 +55,9 @@ payload and the copy of its coded bytes) and ``stream.pack`` (the sidecar,
 the members, the CRC and the write, and the Rice coding of codes on the
 host; inside it ``stream.members``, the ladder's members, on streams that
 declare any) in the encoder, ``stream.read`` (the worker's read, CRC and
-Rice decode) and ``stream.step`` in the decoder.
+Rice decode) and ``stream.step`` in the decoder. A CBR encode
+(:func:`encode_stream_cbr`) runs under ``rate.cbr``, with the rate
+search's spans and ``rate.wire`` (its re-reads of the index) inside.
 """
 
 from __future__ import annotations
@@ -1636,6 +1638,7 @@ def encode_stream_with_target_bitrate(
     return n_chunks, scale, kbps
 
 
+@span("rate.cbr")
 def encode_stream_cbr(
     codec, x, path, chunk_blocks: int = 256, *,
     target_kbps: float, drown=0.0, ms: bool = False,
@@ -1661,6 +1664,12 @@ def encode_stream_cbr(
     the streaming MDCT, so a chunk's size can differ from its searched
     size by about one frame's codes; up to four corrective re-searches
     close that bias on the measured wire sizes.
+
+    The whole encode runs under the span ``rate.cbr``, each search under
+    ``rate.search`` and each re-read of the stream's index under
+    ``rate.wire``; ``rate.counts()`` tallies the stream encodes written
+    (``passes``) and an encode that ends outside ``tolerance``
+    (``unconverged``).
 
     :return: (n_chunks, per-chunk scales list, measured whole-file kbps).
     """
@@ -1713,6 +1722,7 @@ def encode_stream_cbr(
             intensity=intensity,
         )
         sc_list = [r.threshold_scale for r in results]
+        _rate.tally("passes")
         n_ch = encode_stream(
             codec, x, path, chunk_blocks=chunk_blocks, drown=drown, ms=ms,
             threshold_scale=sc_list, deadzone=z, tns=tns, nf=nf,
@@ -1722,6 +1732,12 @@ def encode_stream_cbr(
         kbps_out = os.path.getsize(path) * 8 / (s / sr) / 1000
         chosen = np.array([r.kbps for r in results])
         return n_ch, sc_list, kbps_out, chosen
+
+    @span("rate.wire")
+    def read_wire():
+        """The body chunks' bits on the wire, from the stream's index."""
+        with StreamReader(path) as r:
+            return np.array([r.chunk_bytes(i) * 8.0 for i in range(n_body)])
 
     demand_bits = None
     if reservoir_kbits < 0 or not np.isfinite(reservoir_kbits):
@@ -1738,10 +1754,7 @@ def encode_stream_cbr(
             tns=tns, nf=nf, tmask=tmask, bs=bs, bwe=bwe,
             intensity=intensity, fec=fec,
         )
-        with StreamReader(path) as r:
-            demand_bits = np.array(
-                [r.chunk_bytes(i) * 8.0 for i in range(n_body)]
-            )
+        demand_bits = read_wire()
 
     budget_bits = payload_target * 1000.0 * chunk_seconds * n_body
     floor_bits = 0.5 * 1000.0 * chunk_seconds
@@ -1757,10 +1770,6 @@ def encode_stream_cbr(
             floor=floor_bits,
         )
     want_wire = desired_bits + overhead_bytes * 8.0
-
-    def read_wire():
-        with StreamReader(path) as r:
-            return np.array([r.chunk_bytes(i) * 8.0 for i in range(n_body)])
 
     # the first pass aims each clip search at its payload plus the empty
     # container's overhead; corrective passes then run, per chunk, a secant
@@ -1801,12 +1810,15 @@ def encode_stream_cbr(
     # never ship a worse stream than the best pass: re-encode its scales
     if best[0] < abs(kbps - target_kbps):
         _, n_chunks, scales, kbps = best
+        _rate.tally("passes")
         encode_stream(
             codec, x, path, chunk_blocks=chunk_blocks, drown=drown,
             ms=ms, threshold_scale=scales, deadzone=z, tns=tns, nf=nf,
             tmask=tmask, bs=bs, bwe=bwe, intensity=intensity, fec=fec,
             orig_samples=orig_samples, lufs=lufs,
         )
+    if abs(kbps - target_kbps) > tolerance * target_kbps:
+        _rate.tally("unconverged")
     return n_chunks, scales, kbps
 
 

@@ -20,14 +20,20 @@ scale.
     results = rate.encode_with_target_bitrate_batch(codec, xs, 96.0)
 
 The host spans of a search are labelled for ``torch.profiler``:
-``rate.analysis``, ``rate.trials`` (the device passes of a round) and
-``rate.pack`` (its packs).
+``rate.search`` (one call of :func:`encode_with_target_bitrate_batch`)
+holds ``rate.analysis``, ``rate.trials`` (the device passes of a round and
+the trials' copy back) and ``rate.pack`` (its packs). The stream
+container's CBR encode adds ``rate.cbr`` (the whole encode) and
+``rate.wire`` (a re-read of the stream's index) around them.
+:func:`counts` gives the work done since :func:`reset_counts`, as host
+integers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -42,6 +48,34 @@ from audiocodec_tpu_torch import quantize as _quantize
 from audiocodec_tpu_torch import tns as _tns
 from audiocodec_tpu_torch.io import bitstream as _bitstream
 from audiocodec_tpu_torch.utils.profiling import span
+
+_counts = dict.fromkeys(
+    ("searches", "rounds", "trials", "packs", "passes", "unconverged"), 0)
+_counts_lock = threading.Lock()  # searches may run on several threads
+
+
+def counts() -> dict:
+    """Since the last reset: the searches (calls of
+    :func:`encode_with_target_bitrate_batch`), their trial rounds (the
+    final pass included), the trial rows quantized (K x B a round, B the
+    final pass), the host packs (a trial row's and each final pack), and
+    of the stream container's CBR encodes the stream encodes written
+    (``passes``, the best-of re-encode included) and the encodes that ended
+    outside their tolerance (``unconverged``). Host integers: no read-back
+    from the device."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def reset_counts() -> None:
+    with _counts_lock:
+        _counts.update(dict.fromkeys(_counts, 0))
+
+
+def tally(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of :func:`counts`."""
+    with _counts_lock:
+        _counts[name] += int(n)
 
 
 @dataclasses.dataclass
@@ -237,6 +271,7 @@ class _Trials:
                 for name, v in out.items()}
 
 
+@span("rate.search")
 def encode_with_target_bitrate_batch(
     codec,
     x,
@@ -303,6 +338,7 @@ def encode_with_target_bitrate_batch(
                 f"{len(lufs_per_clip)}"
             )
     seconds = x.shape[1] / codec.psycho.sample_rate
+    tally("searches")
     # trials and final packs share ONE dead zone (it rides the container
     # header); per-clip targets resolve it from their mean rate
     z = resolve_deadzone(
@@ -365,6 +401,9 @@ def _search(pool, trials, pack_one, batch, seconds, target_kbps, tolerance,
             got = trials.members(2.0 ** log2_scales)
         k_n = log2_scales.shape[0]
         pairs = [(k, b) for k in range(k_n) for b in range(batch)]
+        tally("rounds")
+        tally("trials", len(pairs))
+        tally("packs", len(pairs))
         with span("rate.pack"):
             packs = list(pool.map(
                 lambda kb: len(pack_one(
@@ -420,6 +459,9 @@ def _search(pool, trials, pack_one, batch, seconds, target_kbps, tolerance,
     with torch.no_grad(), span("rate.trials"):
         win = {name: None if v is None else v[0] for name, v in
                trials.members(win_scales[None, :], nf=nf).items()}
+    tally("rounds")
+    tally("trials", batch)
+    tally("packs", batch)
     with span("rate.pack"):
         final_packs = list(pool.map(
             lambda b: pack_one(b, win["codes"], float(win_scales[b]),
